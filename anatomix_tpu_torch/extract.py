@@ -1,0 +1,186 @@
+"""Whole-volume feature extraction with the anatomix UNet, on the card.
+
+The port of `anatomix_tpu/extract.py`: eval-mode batch norm is folded into
+the preceding convs, the convs run in bf16 on the port's Hopper kernels
+(`models/unet_fused.py`), and the volume goes through the model either in
+one piece (`full`) or as the reference's Gaussian-blended sliding windows
+(`sliding`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from anatomix_tpu_torch.device import resolve_device
+from anatomix_tpu_torch.models.unet import (
+    LayerSpec,
+    Unet,
+    UnetPlan,
+    check_supported,
+)
+from anatomix_tpu_torch.models.unet_fused import (
+    prepack_fused,
+    unet_apply_fused,
+)
+from anatomix_tpu_torch.ops.sliding_window import sliding_window_inference
+
+
+def fold_batchnorm(plan: UnetPlan, state_dict: dict[str, torch.Tensor]):
+    """Fold eval-mode batch norms into their preceding convs.
+
+    Returns `(folded_plan, folded_state_dict)`; norm layers become
+    'identity' so indices, and tap semantics, are preserved."""
+    if plan.config.norm != "batch":
+        return plan, dict(state_dict)
+    new_layers = list(plan.layers)
+    sd = dict(state_dict)
+    prev_conv = None
+    for idx, spec in enumerate(plan.layers):
+        if spec.kind == "conv":
+            prev_conv = idx
+        elif spec.kind == "norm":
+            base = f"model.{idx}"
+            scale = sd.pop(f"{base}.weight").float()
+            bias = sd.pop(f"{base}.bias").float()
+            mean = sd.pop(f"{base}.running_mean").float()
+            var = sd.pop(f"{base}.running_var").float()
+            sd.pop(f"{base}.num_batches_tracked", None)
+            inv = scale / torch.sqrt(var + plan.config.norm_eps)
+            shift = bias - mean * inv
+            cbase = f"model.{prev_conv}"
+            sd[f"{cbase}.weight"] = (
+                sd[f"{cbase}.weight"].float() * inv[:, None, None, None, None]
+            )
+            old_b = sd.get(f"{cbase}.bias")
+            sd[f"{cbase}.bias"] = shift if old_b is None else old_b + shift
+            new_layers[idx] = LayerSpec("identity")
+    return dataclasses.replace(plan, layers=tuple(new_layers)), sd
+
+
+def minmax(arr: np.ndarray, minclip=None, maxclip=None) -> np.ndarray:
+    """[0, 1] min-max normalization with optional clipping."""
+    if not ((minclip is None) and (maxclip is None)):
+        arr = np.clip(arr, minclip, maxclip)
+    arr = arr.astype(np.float32)
+    return (arr - arr.min()) / (arr.max() - arr.min())
+
+
+def unit_normalize(feats: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Voxelwise unit L2 norm across channels."""
+    norm = torch.linalg.vector_norm(feats.float(), dim=-1, keepdim=True)
+    return (feats / torch.clamp(norm, min=eps)).to(feats.dtype)
+
+
+def zscore_normalize(feats: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Voxelwise z-score across channels (population std)."""
+    f32 = feats.float()
+    mean = f32.mean(dim=-1, keepdim=True)
+    std = f32.std(dim=-1, keepdim=True, correction=0)
+    return ((f32 - mean) / (std + eps)).to(feats.dtype)
+
+
+def make_feature_extractor(
+    plan: UnetPlan,
+    state_dict: dict[str, Any],
+    *,
+    strategy: str = "sliding",
+    roi_size=(128, 128, 128),
+    sw_batch_size: int | None = None,
+    overlap: float = 0.8,
+    mode: str = "gaussian",
+    sigma_scale: float = 0.25,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    impl: str = "fused",
+    device: str | torch.device = "cuda",
+):
+    """Build `volume (1, D, H, W, C) -> features (1, D, H, W, out)` (f32
+    on `device`).
+
+    Strategies: 'sliding' (the reference's Gaussian-blended windows),
+    'full' (one whole-volume forward, padded to a multiple of
+    2**num_downs and cropped; valid for batch/no-norm models), 'auto'
+    ('full' for batch/no norm, else 'sliding').
+
+    `impl='fused'` runs the BN-folded forward on the port's kernels in
+    `compute_dtype` (bf16 on the card; on the CPU the kernels' plain
+    versions run, in f32 when asked). `impl='eager'` runs the plain
+    f32 `Unet` module, the port's oracle path.
+    """
+    dev = resolve_device(device)
+    check_supported(plan.config)
+    if strategy == "auto":
+        strategy = (
+            "full" if plan.config.norm in ("batch", "none") else "sliding"
+        )
+    if strategy not in ("full", "sliding"):
+        raise NotImplementedError(
+            f"strategy {strategy!r}: 'full_tiled' arrives with the dev "
+            "slice (ROADMAP Queue 1 item 8)"
+        )
+    sd = {k: v.to(dev) for k, v in state_dict.items()}
+    if impl == "fused":
+        if dev.type == "cuda" and compute_dtype != torch.bfloat16:
+            raise ValueError("the conv kernels compute in bfloat16 on the card")
+        fplan, fsd = fold_batchnorm(plan, sd)
+        packed = prepack_fused(fplan, fsd, device=dev,
+                               compute_dtype=compute_dtype)
+
+        def model_fn(x):
+            return unet_apply_fused(fplan, packed, x,
+                                    compute_dtype=compute_dtype)
+    elif impl == "eager":
+        net = Unet.from_state_dict(plan, sd).to(dev)
+
+        def model_fn(x):
+            return net(x.float())
+    else:
+        raise ValueError(f"unknown impl {impl!r}")
+    out_channels = plan.config.output_nc
+    stride = 2 ** plan.config.num_downs
+
+    @torch.inference_mode()
+    def extract(volume):
+        x = torch.as_tensor(volume, dtype=torch.float32, device=dev)
+        if strategy == "full":
+            pads, crops = [], []
+            for s in x.shape[1:4]:
+                pad = (-s) % stride
+                pads.append((pad // 2, pad - pad // 2))
+                crops.append((pad // 2, pad // 2 + s))
+            if any(p != (0, 0) for p in pads):
+                x = F.pad(x, (0, 0) + tuple(
+                    v for p in reversed(pads) for v in p))
+            y = model_fn(x)
+            (c0, c1), (c2, c3), (c4, c5) = crops
+            return y[:, c0:c1, c2:c3, c4:c5, :]
+        return sliding_window_inference(
+            x, model_fn, out_channels, roi_size=roi_size,
+            sw_batch_size=sw_batch_size or 2, overlap=overlap, mode=mode,
+            sigma_scale=sigma_scale,
+        )
+
+    return extract
+
+
+def extract_features(
+    img_fixed: np.ndarray,
+    img_moving: np.ndarray,
+    plan: UnetPlan,
+    state_dict: dict[str, Any],
+    fixminclip=None,
+    fixmaxclip=None,
+    movminclip=None,
+    movmaxclip=None,
+    **extractor_kwargs,
+):
+    """Reference-compatible two-volume feature extraction; returns
+    channels-last f32 tensors (1, D, H, W, out)."""
+    extractor = make_feature_extractor(plan, state_dict, **extractor_kwargs)
+    fixed = minmax(img_fixed, fixminclip, fixmaxclip)[None, ..., None]
+    moving = minmax(img_moving, movminclip, movmaxclip)[None, ..., None]
+    return extractor(fixed), extractor(moving)

@@ -1,0 +1,299 @@
+// 3x3x3 stride-1 "same" convolutions on channels-last (NDHWC) bf16 volumes,
+// written by hand for Hopper (sm_90a), with a plain C interface for ctypes.
+//
+// Replaces the JAX package's Pallas TPU kernels
+//   K1  anatomix_tpu/ops/pallas/conv_block.py  conv_block_sparse_halo,
+//       conv_block_sparse_halo_wide, conv_block_sparse_valid,
+//       conv_block_sparse_valid_wide   (block-space conv, bias + act)
+//   K2  anatomix_tpu/ops/pallas/conv3x3.py     _conv3x3_valid
+//       (the Ci=1 entry conv and the deep "direct" convs)
+//   K3  anatomix_tpu/ops/pallas/conv_block.py  conv_block_skip_halo,
+//       conv_block_skip_halo_wide, conv_block_skip_valid
+//       (conv over concat(enc, nearest-2x(small)), neither materialized)
+// with one implicit-GEMM kernel: M = output voxels, N = Co, K = 27 * Ci.
+//
+// What bounds it on an H100: the 16-channel full-resolution convs that
+// carry most of the 6M UNet's work move ~64 bytes per voxel for ~14 kFLOP,
+// close to the card's ridge (~295 FLOP per byte in bf16), so both the
+// tensor-core rate and HBM matter; the deep convs are operation bound.
+// The design keeps every byte it re-reads on chip: one thread block loads a
+// (TZ+2)x(TY+2)x(TX+2) halo brick of 16 input channels into shared memory
+// once per K step and reuses it for all 27 taps and all N columns of its
+// tile. Padding is by index mapping (reflect: -1 -> 1, n -> n-2; zeros:
+// masked), so no padded copy exists in device memory. For the decoder convs
+// the channels [c1, c1+c2) come from the half-resolution tensor, read at
+// (z/2, y/2, x/2) of the reflected full-resolution coordinate, so neither
+// the 2x upsample nor the concat exists in memory. Tensor cores are used
+// through WMMA bf16 16x16x16 with f32 accumulation; bias and the activation
+// run in the epilogue, which stores bf16 or f32. This first version favours
+// being simple and right over speed: wgmma, TMA and a pipelined ring are
+// later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int TX = 16;  // output brick: 16 x 4 x 2 = 128 voxels (GEMM M)
+constexpr int TY = 4;
+constexpr int TZ = 2;
+constexpr int HX = TX + 2;
+constexpr int HY = TY + 2;
+constexpr int HZ = TZ + 2;
+constexpr int HALO = HX * HY * HZ;  // 432 halo voxels
+constexpr int CK = 16;              // input channels per K step
+constexpr int NWARPS = TY * TZ;     // one warp per output x-row of 16 voxels
+constexpr int NTHREADS = NWARPS * 32;
+
+struct ConvArgs {
+  const __nv_bfloat16* enc;    // (B, D, H, W, c1)
+  const __nv_bfloat16* small;  // (B, D/2, H/2, W/2, c2), or null if c2 == 0
+  const __nv_bfloat16* w;      // (27 * (c1 + c2), co), row (tap * Ci + ci)
+  const float* bias;           // (co)
+  void* out;                   // (B, D, H, W, co) bf16 or f32
+  int D, H, W;
+  int c1, c2, co;
+  int tiles_x, tiles_y;
+  int reflect, act, out_f32;
+  int xvec, wvec;  // 16-byte loads allowed for inputs / weights
+  float slope;
+};
+
+__device__ __forceinline__ int reflect_index(int i, int n) {
+  if (i < 0) i = -i;
+  if (i >= n) i = 2 * n - 2 - i;
+  // the tile overhang past the volume is never stored; keep it in bounds
+  return min(max(i, 0), n - 1);
+}
+
+__device__ __forceinline__ float activate(float v, int act, float slope) {
+  switch (act) {
+    case 1: return fmaxf(v, 0.f);
+    case 2: return v >= 0.f ? v : slope * v;
+    case 3: return v >= 0.f ? v : expm1f(v);
+    case 4: return tanhf(v);
+    default: return v;
+  }
+}
+
+union Pack8 {  // eight bf16 values as raw 16-bit patterns
+  uint4 u;
+  unsigned short h[8];
+};
+
+template <int NT>
+__global__ void __launch_bounds__(NTHREADS)
+conv3x3x3_kernel(const ConvArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);  // HALO x CK
+  __nv_bfloat16* sB = sA + HALO * CK;                          // 27*CK x NT
+  float* sC = reinterpret_cast<float*>(smem);  // reused after the K loop
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  int t = blockIdx.x;
+  const int x0 = (t % a.tiles_x) * TX;
+  t /= a.tiles_x;
+  const int y0 = (t % a.tiles_y) * TY;
+  const int z0 = (t / a.tiles_y) * TZ;
+  const int n0 = blockIdx.y * NT;
+  const int64_t b = blockIdx.z;
+  const int ci = a.c1 + a.c2;
+  const int Ds = a.D >> 1, Hs = a.H >> 1, Ws = a.W >> 1;
+  const int wy = warp % TY, wz = warp / TY;
+  const unsigned short* enc_u = reinterpret_cast<const unsigned short*>(a.enc);
+  const unsigned short* small_u =
+      reinterpret_cast<const unsigned short*>(a.small);
+  const unsigned short* w_u = reinterpret_cast<const unsigned short*>(a.w);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT / 16];
+#pragma unroll
+  for (int f = 0; f < NT / 16; ++f) wmma::fill_fragment(acc[f], 0.f);
+
+  for (int cb = 0; cb < ci; cb += CK) {
+    __syncthreads();  // the previous step's MMAs are done with sA / sB
+    // halo brick: HALO voxels x CK channels, 8 channels (16 bytes) per item
+    for (int e = tid; e < HALO * (CK / 8); e += NTHREADS) {
+      const int v = e >> 1;
+      const int c = cb + (e & 1) * 8;
+      const int hx = v % HX;
+      const int hy = (v / HX) % HY;
+      const int hz = v / (HX * HY);
+      int gz = z0 + hz - 1, gy = y0 + hy - 1, gx = x0 + hx - 1;
+      bool inside = true;
+      if (a.reflect) {
+        gz = reflect_index(gz, a.D);
+        gy = reflect_index(gy, a.H);
+        gx = reflect_index(gx, a.W);
+      } else {
+        inside = gz >= 0 && gz < a.D && gy >= 0 && gy < a.H && gx >= 0 &&
+                 gx < a.W;
+      }
+      Pack8 val;
+      val.u = make_uint4(0u, 0u, 0u, 0u);
+      if (inside && c < ci) {
+        const int64_t enc_off =
+            (((b * a.D + gz) * a.H + gy) * a.W + gx) * a.c1;
+        const int64_t small_off =
+            (((b * Ds + (gz >> 1)) * Hs + (gy >> 1)) * Ws + (gx >> 1)) *
+            a.c2;
+        if (a.xvec) {
+          // c1 % 8 == 0 and c2 % 8 == 0: the 8 channels lie in one source
+          const __nv_bfloat16* src =
+              c < a.c1 ? a.enc + enc_off + c : a.small + small_off + (c - a.c1);
+          val.u = *reinterpret_cast<const uint4*>(src);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int cc = c + j;
+            if (cc < a.c1) {
+              val.h[j] = enc_u[enc_off + cc];
+            } else if (cc < ci) {
+              val.h[j] = small_u[small_off + (cc - a.c1)];
+            }
+          }
+        }
+      }
+      *reinterpret_cast<uint4*>(sA + v * CK + (e & 1) * 8) = val.u;
+    }
+    // weights: 27 taps x CK input channels x NT output channels
+    for (int e = tid; e < 27 * CK * (NT / 8); e += NTHREADS) {
+      const int n8 = (e % (NT / 8)) * 8;
+      const int r = e / (NT / 8);  // tap * CK + k
+      const int tap = r / CK;
+      const int cin = cb + (r % CK);
+      const int cout = n0 + n8;
+      Pack8 val;
+      val.u = make_uint4(0u, 0u, 0u, 0u);
+      if (cin < ci && cout < a.co) {
+        const unsigned short* src =
+            w_u + ((int64_t)tap * ci + cin) * a.co + cout;
+        if (a.wvec) {
+          val.u = *reinterpret_cast<const uint4*>(src);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (cout + j < a.co) val.h[j] = src[j];
+          }
+        }
+      }
+      *reinterpret_cast<uint4*>(sB + r * NT + n8) = val.u;
+    }
+    __syncthreads();
+
+#pragma unroll 1
+    for (int tap = 0; tap < 27; ++tap) {
+      const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
+      // rows: the warp's 16 output voxels along x, shifted by the tap
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> fa;
+      wmma::load_matrix_sync(
+          fa, sA + (((wz + kd) * HY + (wy + kh)) * HX + kw) * CK, CK);
+#pragma unroll
+      for (int f = 0; f < NT / 16; ++f) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> fb;
+        wmma::load_matrix_sync(fb, sB + tap * CK * NT + f * 16, NT);
+        wmma::mma_sync(acc[f], fa, fb, acc[f]);
+      }
+    }
+  }
+
+  __syncthreads();
+#pragma unroll
+  for (int f = 0; f < NT / 16; ++f) {
+    wmma::store_matrix_sync(sC + warp * 16 * NT + f * 16, acc[f], NT,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  // epilogue: bias + activation, consecutive threads on consecutive channels
+  for (int e = tid; e < NWARPS * 16 * NT; e += NTHREADS) {
+    const int n = e % NT;
+    const int r = (e / NT) % 16;
+    const int wi = e / (16 * NT);
+    const int x = x0 + r, y = y0 + wi % TY, z = z0 + wi / TY;
+    const int cout = n0 + n;
+    if (x < a.W && y < a.H && z < a.D && cout < a.co) {
+      const float v = activate(sC[e] + a.bias[cout], a.act, a.slope);
+      const int64_t o =
+          (((b * a.D + z) * a.H + y) * a.W + x) * a.co + cout;
+      if (a.out_f32) {
+        static_cast<float*>(a.out)[o] = v;
+      } else {
+        static_cast<__nv_bfloat16*>(a.out)[o] = __float2bfloat16(v);
+      }
+    }
+  }
+}
+
+template <int NT>
+cudaError_t launch(const ConvArgs& a, int B, int tiles_z,
+                   cudaStream_t stream) {
+  const int smem = HALO * CK * 2 + 27 * CK * NT * 2;
+  static_assert(NWARPS * 16 * NT * 4 <= HALO * CK * 2 + 27 * CK * NT * 2,
+                "epilogue tile must fit in the operand buffers");
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3x3_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.tiles_x * a.tiles_y * tiles_z, (a.co + NT - 1) / NT, B);
+  conv3x3x3_kernel<NT><<<grid, NTHREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+}  // namespace
+
+extern "C" int conv3x3x3_upcat_ndhwc(
+    const void* enc, const void* small, const void* w, const void* bias,
+    void* out, int B, int D, int H, int W, int c1, int c2, int co,
+    int reflect, int act, float slope, int out_f32, void* stream) {
+  ConvArgs a;
+  a.enc = static_cast<const __nv_bfloat16*>(enc);
+  a.small = static_cast<const __nv_bfloat16*>(small);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.bias = static_cast<const float*>(bias);
+  a.out = out;
+  a.D = D;
+  a.H = H;
+  a.W = W;
+  a.c1 = c1;
+  a.c2 = c2;
+  a.co = co;
+  a.tiles_x = (W + TX - 1) / TX;
+  a.tiles_y = (H + TY - 1) / TY;
+  const int tiles_z = (D + TZ - 1) / TZ;
+  a.reflect = reflect;
+  a.act = act;
+  a.out_f32 = out_f32;
+  a.slope = slope;
+  a.xvec = (c1 % 8 == 0) && (c2 % 8 == 0) && (c1 == 0 || aligned16(enc)) &&
+           (c2 == 0 || aligned16(small));
+  a.wvec = (co % 8 == 0) && aligned16(w);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (co > 32) {
+    err = launch<64>(a, B, tiles_z, s);
+  } else if (co > 16) {
+    err = launch<32>(a, B, tiles_z, s);
+  } else {
+    err = launch<16>(a, B, tiles_z, s);
+  }
+  return static_cast<int>(err);
+}
+
+extern "C" int conv3x3x3_ndhwc(const void* x, const void* w, const void* bias,
+                               void* out, int B, int D, int H, int W, int ci,
+                               int co, int reflect, int act, float slope,
+                               int out_f32, void* stream) {
+  return conv3x3x3_upcat_ndhwc(x, nullptr, w, bias, out, B, D, H, W, ci, 0,
+                               co, reflect, act, slope, out_f32, stream);
+}

@@ -1,0 +1,334 @@
+"""The anatomix UNet in PyTorch: the layer plan, seeded init and the eager
+`nn.Module` that is the port's plain oracle path.
+
+The reference builds a flat `nn.Sequential` encoder-decoder whose indices
+key the checkpoint (`model.<idx>.weight`) and the pretraining taps (27, 31,
+38, 45, 52, 65). `build_plan` reproduces that index scheme exactly, as the
+JAX package's does (`anatomix_tpu/models/unet.py:46-189`); `Unet` holds its
+parameters under the same keys and runs the forward on channels-last
+volumes with the plain ops of `ops/`.
+
+This slice covers the `anatomix` config family: batch or no norm, Max or
+Avg pool, nearest upsampling, reflect or zeros padding, and the
+relu/lrelu/elu/tanh/none activations. Other configs raise
+`NotImplementedError` naming the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from anatomix_tpu_torch.ops.activations import (
+    EPILOGUE_ACTS,
+    UNET_LRELU_SLOPE,
+    apply_activation,
+)
+from anatomix_tpu_torch.ops.conv import conv3d_same
+from anatomix_tpu_torch.ops.pool import avg_pool, max_pool
+from anatomix_tpu_torch.ops.resize import upsample2x
+
+
+@dataclasses.dataclass(frozen=True)
+class UnetConfig:
+    """Mirrors the reference `Unet.__init__` signature."""
+
+    dimension: int = 3
+    input_nc: int = 1
+    output_nc: int = 16
+    num_downs: int = 4
+    ngf: int = 24
+    norm: str = "batch"
+    final_act: str = "none"
+    activation: str = "relu"
+    pad_type: str = "reflect"
+    doubleconv: bool = True
+    residual_connection: bool = False
+    pooling: str = "Max"
+    interp: str = "nearest"
+    use_skip_connection: bool = True
+    norm_eps: float = 1e-5
+
+    def __post_init__(self):
+        if self.dimension not in (1, 2, 3):
+            raise ValueError(
+                f"dimension must be 1-3; got {self.dimension}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str  # conv | norm | act | pool | upsample | final_act | identity
+    in_ch: int = 0
+    out_ch: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class UnetPlan:
+    """Static layer plan with the reference's flat-Sequential index scheme."""
+
+    config: UnetConfig
+    layers: tuple[LayerSpec, ...]
+    encoder_idx: tuple[int, ...]
+    decoder_idx: tuple[int, ...]
+    res_source: tuple[int, ...]
+    res_dest: tuple[int, ...]
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.layers)
+
+    @property
+    def conv_indices(self) -> tuple[int, ...]:
+        return tuple(
+            i for i, s in enumerate(self.layers) if s.kind == "conv"
+        )
+
+    def tap_channels(self, layers: Sequence[int]) -> tuple[int, ...]:
+        """Channel width of the activation collected at each tap index."""
+        widths = {}
+        ch = self.config.input_nc
+        enc_stack: list[int] = []
+        for i, spec in enumerate(self.layers):
+            if spec.kind == "conv":
+                ch = spec.out_ch
+            if self.config.use_skip_connection:
+                if i in self.decoder_idx:
+                    ch = enc_stack.pop() + ch
+                if i in self.encoder_idx:
+                    enc_stack.append(ch)
+            widths[i] = ch
+        return tuple(widths[i] for i in layers)
+
+
+def build_plan(config: UnetConfig) -> UnetPlan:
+    """Reproduce the reference constructor's layer/index layout."""
+    cfg = config
+    has_norm = cfg.norm != "none"
+    has_act = cfg.activation != "none"
+    has_final_act = cfg.final_act != "none"
+
+    layers: list[LayerSpec] = []
+    res_source: list[int] = []
+    res_dest: list[int] = []
+    encoder_idx: list[int] = []
+    decoder_idx: list[int] = []
+
+    def add_conv_block(in_ch, out_ch):
+        layers.append(LayerSpec("conv", in_ch, out_ch))
+        res_source.append(len(layers) - 1)
+        if has_norm:
+            layers.append(LayerSpec("norm", out_ch, out_ch))
+        if has_act:
+            layers.append(LayerSpec("act"))
+        res_dest.append(len(layers) - 1)
+
+    # Stem
+    add_conv_block(cfg.input_nc, cfg.ngf)
+
+    # Encoder
+    in_ngf = cfg.ngf
+    for i in range(cfg.num_downs):
+        mult = 1 if i == 0 else 2
+        add_conv_block(in_ngf, in_ngf * mult)
+        if cfg.doubleconv:
+            add_conv_block(in_ngf * mult, in_ngf * mult)
+        encoder_idx.append(len(layers) - 1)
+        layers.append(LayerSpec("pool"))
+        in_ngf *= mult
+
+    # Bottleneck
+    add_conv_block(in_ngf, in_ngf * 2)
+    if cfg.doubleconv:
+        add_conv_block(in_ngf * 2, in_ngf * 2)
+
+    # Decoder
+    mult = 2 ** cfg.num_downs
+    for i in range(cfg.num_downs):
+        decoder_idx.append(len(layers))
+        layers.append(LayerSpec("upsample"))
+        m = mult + mult // 2 if cfg.use_skip_connection else mult
+        add_conv_block(cfg.ngf * m, cfg.ngf * (mult // 2))
+        if cfg.doubleconv:
+            add_conv_block(cfg.ngf * (mult // 2), cfg.ngf * (mult // 2))
+        mult //= 2
+
+    # Final conv (+ optional final activation), no norm
+    layers.append(LayerSpec("conv", cfg.ngf * mult, cfg.output_nc))
+    if has_final_act:
+        layers.append(LayerSpec("final_act"))
+
+    return UnetPlan(
+        config=cfg,
+        layers=tuple(layers),
+        encoder_idx=tuple(encoder_idx),
+        decoder_idx=tuple(decoder_idx),
+        res_source=tuple(res_source),
+        res_dest=tuple(res_dest),
+    )
+
+
+def check_supported(config: UnetConfig) -> None:
+    """Raise `NotImplementedError` for configs outside this slice."""
+    dev_slice = "the dev slice (ROADMAP Queue 1 item 8)"
+    later = "the remaining UNet options (ROADMAP Queue 1 item 15)"
+    if config.norm not in ("batch", "none"):
+        raise NotImplementedError(f"norm={config.norm!r} arrives with {dev_slice}")
+    if config.interp != "nearest":
+        raise NotImplementedError(
+            f"interp={config.interp!r} arrives with {dev_slice}"
+        )
+    if config.pooling not in ("Max", "Avg"):
+        raise NotImplementedError(f"pooling={config.pooling!r} is unsupported")
+    if config.dimension != 3:
+        raise NotImplementedError(
+            f"dimension={config.dimension} arrives with {later}"
+        )
+    if config.residual_connection:
+        raise NotImplementedError(f"residual connections arrive with {later}")
+    if config.pad_type not in ("reflect", "zeros"):
+        raise NotImplementedError(
+            f"pad_type={config.pad_type!r} arrives with {later}"
+        )
+    for name in (config.activation, config.final_act):
+        if name not in EPILOGUE_ACTS:
+            raise NotImplementedError(
+                f"activation {name!r} arrives with {later}"
+            )
+
+
+# -----------------------------------------------------------------------------
+# Parameters
+
+def init_params(
+    plan: UnetPlan,
+    generator: torch.Generator,
+    *,
+    init_gain: float = 0.02,
+) -> dict[str, torch.Tensor]:
+    """Seeded init as a reference-keyed state dict (CPU, float32).
+
+    The same distributions as the JAX package's `init_params`: convs He
+    normal on fan-in, batch-norm scale N(1, gain), bias 0, running mean 0,
+    running var 1. The draws differ from JAX's (another generator); tests
+    share weights through `convert.from_jax_params`.
+    """
+    cfg = plan.config
+    use_bias = cfg.norm == "instance"
+    sd: dict[str, torch.Tensor] = {}
+    for idx, spec in enumerate(plan.layers):
+        base = f"model.{idx}"
+        if spec.kind == "conv":
+            std = math.sqrt(2.0 / (spec.in_ch * 27))
+            sd[f"{base}.weight"] = torch.randn(
+                (spec.out_ch, spec.in_ch, 3, 3, 3), generator=generator
+            ) * std
+            if use_bias:
+                sd[f"{base}.bias"] = torch.zeros(spec.out_ch)
+        elif spec.kind == "norm" and cfg.norm == "batch":
+            sd[f"{base}.weight"] = 1.0 + torch.randn(
+                (spec.out_ch,), generator=generator
+            ) * init_gain
+            sd[f"{base}.bias"] = torch.zeros(spec.out_ch)
+            sd[f"{base}.running_mean"] = torch.zeros(spec.out_ch)
+            sd[f"{base}.running_var"] = torch.ones(spec.out_ch)
+            sd[f"{base}.num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.long
+            )
+    return sd
+
+
+# -----------------------------------------------------------------------------
+# Eager module
+
+class Unet(nn.Module):
+    """Eager inference UNet on NDHWC volumes (batch norm in eval mode).
+
+    `self.model` is an `nn.Sequential` with one entry per plan index, so the
+    state dict is keyed `model.<idx>.weight` like the reference `.pth`. The
+    conv and norm modules only hold parameters; the forward runs the plain
+    NDHWC ops (`ops/conv.py` with the config's padding).
+    """
+
+    def __init__(self, plan: UnetPlan, *, conv_bias: bool | None = None):
+        super().__init__()
+        cfg = plan.config
+        check_supported(cfg)
+        if conv_bias is None:
+            conv_bias = cfg.norm == "instance"
+        self.plan = plan
+        mods: list[nn.Module] = []
+        for spec in plan.layers:
+            if spec.kind == "conv":
+                mods.append(
+                    nn.Conv3d(spec.in_ch, spec.out_ch, 3, bias=conv_bias)
+                )
+            elif spec.kind == "norm":
+                mods.append(nn.BatchNorm3d(spec.out_ch, eps=cfg.norm_eps))
+            else:
+                mods.append(nn.Identity())
+        self.model = nn.Sequential(*mods)
+
+    @classmethod
+    def from_state_dict(cls, plan: UnetPlan, state_dict) -> "Unet":
+        conv_bias = any(
+            f"model.{i}.bias" in state_dict for i in plan.conv_indices
+        )
+        net = cls(plan, conv_bias=conv_bias)
+        net.load_state_dict(state_dict)
+        return net.eval()
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        layers: Sequence[int] = (),
+        encode_only: bool = False,
+    ):
+        """Semantics of the JAX `unet_apply` in inference: with `layers`,
+        returns `(out, [activations at those indices])`; with
+        `encode_only`, only the activation list, after the last tap."""
+        plan = self.plan
+        cfg = plan.config
+        layers = tuple(layers)
+        feat = x
+        feats: list[torch.Tensor] = []
+        enc_feats: list[torch.Tensor] = []
+        for idx, spec in enumerate(plan.layers):
+            mod = self.model[idx]
+            if spec.kind == "conv":
+                feat = conv3d_same(
+                    feat, mod.weight, mod.bias, pad_type=cfg.pad_type
+                )
+            elif spec.kind == "norm":
+                inv = mod.weight * torch.rsqrt(mod.running_var + mod.eps)
+                feat = feat * inv + (mod.bias - mod.running_mean * inv)
+            elif spec.kind == "act":
+                feat = apply_activation(
+                    feat, cfg.activation, slope=UNET_LRELU_SLOPE
+                )
+            elif spec.kind == "pool":
+                pool = max_pool if cfg.pooling == "Max" else avg_pool
+                feat = pool(feat, 2)
+            elif spec.kind == "upsample":
+                feat = upsample2x(feat, cfg.interp)
+            elif spec.kind == "final_act":
+                feat = apply_activation(
+                    feat, cfg.final_act, slope=UNET_LRELU_SLOPE
+                )
+            if cfg.use_skip_connection:
+                if idx in plan.decoder_idx:
+                    # the reference concatenates (encoder, decoder)
+                    feat = torch.cat([enc_feats.pop(), feat], dim=-1)
+                if idx in plan.encoder_idx:
+                    enc_feats.append(feat)
+            if layers and idx in layers:
+                feats.append(feat)
+                if encode_only and idx == layers[-1]:
+                    return feats
+        if layers:
+            return feat, feats
+        return feat

@@ -1,0 +1,68 @@
+"""Plain 3D convolution with torch 'same' padding on NDHWC volumes, and the
+weight-layout helpers the port uses.
+
+This is the plain version for the CPU, the eager `Unet` and the tests; the
+main path on the card runs the hand-written kernels of `kernels/conv.py`.
+
+Layouts:
+  * torch   (O, I, kD, kH, kW) -- the reference `.pth` and the port's
+    state dict;
+  * DHWIO   (kD, kH, kW, I, O) -- the JAX package's pytree;
+  * packed  (27 * I, O)        -- the kernels' GEMM B operand, row index
+    `((kd * 3 + kh) * 3 + kw) * I + i`.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+_PAD_MODES = {
+    "reflect": "reflect",      # mirror, edge not repeated (torch 'reflect')
+    "zeros": "constant",
+}
+
+
+def conv3d_same(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None = None,
+    *,
+    pad_type: str = "zeros",
+) -> torch.Tensor:
+    """Stride-1 'same' conv of NDHWC `x` with a torch-layout kernel `w`,
+    as `nn.Conv3d(..., padding='same', padding_mode=pad_type)`."""
+    if pad_type not in _PAD_MODES:
+        raise ValueError(f"unsupported pad_type {pad_type!r}")
+    kd, kh, kw = w.shape[2:]
+    xc = x.permute(0, 4, 1, 2, 3)
+    pads = (kw // 2, (kw - 1) // 2, kh // 2, (kh - 1) // 2,
+            kd // 2, (kd - 1) // 2)
+    if any(pads):
+        xc = F.pad(xc, pads, mode=_PAD_MODES[pad_type])
+    y = F.conv3d(xc, w, b)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def torch_to_dhwio(w: torch.Tensor) -> torch.Tensor:
+    """(O, I, kD, kH, kW) -> (kD, kH, kW, I, O)."""
+    return w.permute(2, 3, 4, 1, 0).contiguous()
+
+
+def dhwio_to_torch(w: torch.Tensor) -> torch.Tensor:
+    """(kD, kH, kW, I, O) -> (O, I, kD, kH, kW)."""
+    return w.permute(4, 3, 0, 1, 2).contiguous()
+
+
+def pack_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """torch-layout 3x3x3 kernel (O, I, 3, 3, 3) -> packed (27 * I, O)."""
+    if tuple(w.shape[2:]) != (3, 3, 3):
+        raise ValueError(f"expected a 3x3x3 kernel, got {tuple(w.shape)}")
+    co, ci = w.shape[:2]
+    return torch_to_dhwio(w).reshape(27 * ci, co)
+
+
+def unpack_conv_weight(w_packed: torch.Tensor, ci: int) -> torch.Tensor:
+    """Packed (27 * I, O) -> torch layout (O, I, 3, 3, 3)."""
+    co = w_packed.shape[1]
+    return dhwio_to_torch(w_packed.reshape(3, 3, 3, ci, co))

@@ -1,0 +1,548 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (`anatomix_tpu_torch`) on one
+NVIDIA GPU (written for an H100, sm_90a).
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printed on its own lines; any failure exits non-zero:
+  1. the device, its name and power limit (nvidia-smi), then the build of
+     every CUDA kernel from `anatomix_tpu_torch/kernels/csrc/` with nvcc;
+  2. each kernel against its plain PyTorch version (f32, TF32 off) on the
+     same bf16 inputs, at the shapes the main path gives it, with times;
+  3. `full`: the 6M `anatomix` UNet at full width with seeded weights on a
+     256^3 volume through `make_feature_extractor(strategy="full")`, held
+     against the port's plain f32 path on the card;
+  4. `sliding` at the reference settings (roi 128, overlap 0.8, gaussian,
+     sigma-scale 0.25, sw_batch 2) on 256^3 (343 windows), and held against
+     the plain f32 path on a 160^3 volume (27 windows);
+  5. the `kernels` JSON line (launches on the main path, errors, times and
+     bounds), then the device's JSON line last.
+
+`--quick` runs phases 1 and 2 only; `--profile` runs phases 1 and 2, then
+profiles the sliding path on 160^3 with torch.profiler. Details go to
+`chiprun_out/`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# kernel vs plain: max |kernel - plain| / max |plain|. A bf16 output rounds
+# to 8 significant bits (half an ulp is 2^-9 of the value); the f32 sums
+# differ only in order. The stitch is f32 throughout; its atomics reorder
+# at most the few overlapping windows of one chunk.
+TOL_CONV_BF16 = 1e-2
+TOL_CONV_F32 = 1e-4
+TOL_SCATTER = 1e-5
+# whole model, bf16 kernels vs the plain f32 path: the bound and the metric
+# (mean |error| / std of the f32 features) the JAX package holds its bf16
+# TPU path to (tests/test_tpu_numerics.py:23-64); the max error relative to
+# max |f32| is printed beside it
+TOL_MODEL = 3e-2
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, *, min_ms: float = 30.0, max_reps: int = 200) -> float:
+    """Mean device time of `fn()` from CUDA events, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    once = max(start.elapsed_time(end), 1e-3)
+    reps = int(min(max_reps, max(3, min_ms / once)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes"
+    return t_ops, "operations"
+
+
+def rel_err(got, ref) -> tuple[float, float]:
+    got = got.float()
+    ref = ref.float()
+    err = (got - ref).abs().max().item()
+    return err, err / max(ref.abs().max().item(), 1e-30)
+
+
+def model_err(got, ref) -> dict:
+    """The JAX package's bf16-vs-f32 model metric, with the max error."""
+    got = got.float()
+    ref = ref.float()
+    err, rel = rel_err(got, ref)
+    mean_rel = ((got - ref).abs().mean() / (ref.std() + 1e-8)).item()
+    return dict(mean_err_over_std=mean_rel, max_abs_err=err,
+                max_err_over_max=rel)
+
+
+# -----------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+
+def check_conv(kc, torch, F, dev, gen, B, S, ci, co, out_f32=False):
+    """conv3x3x3_ndhwc at (B, S^3, ci) -> co, reflect, relu (exit: none,
+    f32), against its plain version and F.conv3d."""
+    x = torch.randn((B, S, S, S, ci), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = (torch.randn((27 * ci, co), generator=gen, device=dev)
+         * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+    b = torch.randn((co,), generator=gen, device=dev) * 0.1
+    act = "none" if out_f32 else "relu"
+    out_dtype = torch.float32 if out_f32 else torch.bfloat16
+    kw = dict(act=act, pad_type="reflect", out_dtype=out_dtype)
+    got = kc.conv3x3x3_ndhwc(x, w, b, **kw)
+    ref = kc.conv3x3x3_ndhwc_plain(x, w, b, **kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    tol = TOL_CONV_F32 if out_f32 else TOL_CONV_BF16
+    ms = cuda_ms(lambda: kc.conv3x3x3_ndhwc(x, w, b, **kw))
+    plain_ms = cuda_ms(lambda: kc.conv3x3x3_ndhwc_plain(x, w, b, **kw))
+    # yardstick: one library call for the same conv (cuDNN, bf16,
+    # channels-last); reflect padding needs the padded input made first
+    xc = F.pad(x.permute(0, 4, 1, 2, 3), (1,) * 6, mode="reflect")
+    xc = xc.contiguous(memory_format=torch.channels_last_3d)
+    wt = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    lib_ms = cuda_ms(lambda: F.conv3d(xc, wt, b.to(torch.bfloat16)))
+    vox = B * S ** 3
+    flops = 2.0 * vox * 27 * ci * co
+    nbytes = vox * ci * 2 + 27 * ci * co * 2 + co * 4 + vox * co * (
+        4 if out_f32 else 2)
+    b_ms, b_by = bound(flops, nbytes)
+    return dict(
+        shape=f"B{B} {S}^3 {ci}->{co}" + (" f32-out" if out_f32 else ""),
+        max_abs_err=err, rel_err=rel, tol=tol, ok=rel < tol, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+    )
+
+
+def check_upcat(kc, torch, F, dev, gen, B, S, c1, c2, co):
+    """conv3x3x3_upcat_ndhwc: enc (B, S^3, c1) + small (B, (S/2)^3, c2)."""
+    enc = torch.randn((B, S, S, S, c1), generator=gen, device=dev).to(
+        torch.bfloat16)
+    s = S // 2
+    small = torch.randn((B, s, s, s, c2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ci = c1 + c2
+    w = (torch.randn((27 * ci, co), generator=gen, device=dev)
+         * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+    b = torch.randn((co,), generator=gen, device=dev) * 0.1
+    kw = dict(act="relu", pad_type="reflect")
+    got = kc.conv3x3x3_upcat_ndhwc(enc, small, w, b, **kw)
+    ref = kc.conv3x3x3_upcat_ndhwc_plain(enc, small, w, b, **kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    ms = cuda_ms(lambda: kc.conv3x3x3_upcat_ndhwc(enc, small, w, b, **kw))
+    plain_ms = cuda_ms(
+        lambda: kc.conv3x3x3_upcat_ndhwc_plain(enc, small, w, b, **kw))
+    # yardstick: F.conv3d (cuDNN, bf16, channels-last) over the already
+    # materialized, reflect-padded concat -- the one library call that does
+    # this kernel's arithmetic; the upsample and concat are not timed
+    up = small
+    for ax in (1, 2, 3):
+        up = torch.repeat_interleave(up, 2, dim=ax)
+    cat = torch.cat([enc, up], dim=-1).permute(0, 4, 1, 2, 3)
+    xc = F.pad(cat, (1,) * 6, mode="reflect").contiguous(
+        memory_format=torch.channels_last_3d)
+    wt = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    lib_ms = cuda_ms(lambda: F.conv3d(xc, wt, b.to(torch.bfloat16)))
+    vox = B * S ** 3
+    flops = 2.0 * vox * 27 * ci * co
+    nbytes = (vox * c1 * 2 + B * s ** 3 * c2 * 2 + 27 * ci * co * 2 + co * 4
+              + vox * co * 2)
+    b_ms, b_by = bound(flops, nbytes)
+    return dict(
+        shape=f"B{B} {S}^3 [{c1}+up({c2})]->{co}", max_abs_err=err,
+        rel_err=rel, tol=TOL_CONV_BF16, ok=rel < TOL_CONV_BF16, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+    )
+
+
+def check_scatter(ks, sw, torch, dev, gen):
+    """One stitch chunk on the 256^3 x 16 sliding canvas: two overlapping
+    128^3 windows (starts 25 apart, MONAI's stride at overlap 0.8) and one
+    masked padding window."""
+    import numpy as np
+
+    r, C, S = 128, 16, 256
+    axes, minv = sw.gaussian_importance_axes((r, r, r), 0.25)
+    gd, gh, gw = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                  for a in axes)
+    starts_np = np.array([[0, 25, 50], [25, 50, 25], [0, 0, 0]], np.int32)
+    mask_np = np.array([1, 1, 0], np.int32)
+    starts = torch.from_numpy(starts_np).to(dev)
+    mask = torch.from_numpy(mask_np).to(dev)
+    out = torch.randn((3, r, r, r, C), generator=gen, device=dev)
+    canvas0 = torch.randn((S, S, S, C), generator=gen, device=dev)
+    got = ks.blend_scatter(canvas0.clone(), out, starts, mask, gd, gh, gw,
+                           minv)
+    ref = ks.blend_scatter_plain(canvas0.clone(), out, starts, mask, gd, gh,
+                                 gw, minv)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    canvas = canvas0.clone()
+    ms = cuda_ms(lambda: ks.blend_scatter(canvas, out, starts, mask, gd, gh,
+                                          gw, minv))
+    plain_ms = cuda_ms(lambda: ks.blend_scatter_plain(
+        canvas, out, starts, mask, gd, gh, gw, minv))
+    # bytes this chunk must move: each real window read once, each canvas
+    # voxel they touch read and written once
+    touched = torch.zeros((S, S, S), dtype=torch.bool, device=dev)
+    for s, m in zip(starts_np.tolist(), mask_np.tolist()):
+        if m:
+            touched[s[0]:s[0] + r, s[1]:s[1] + r, s[2]:s[2] + r] = True
+    n_touch = int(touched.sum().item())
+    n_real = int(mask_np.sum())
+    elems = n_real * r ** 3 * C
+    nbytes = elems * 4 + n_touch * C * 8
+    b_ms, b_by = bound(4.0 * elems, nbytes, PEAK_F32_FLOPS)
+    return dict(
+        shape=f"canvas {S}^3x{C} f32, 3 windows {r}^3 (1 masked)",
+        max_abs_err=err, rel_err=rel, tol=TOL_SCATTER, ok=rel < TOL_SCATTER,
+        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+        bound_by=b_by,
+    )
+
+
+# -----------------------------------------------------------------------------
+
+def synthetic_volume(torch, dev, size: int, seed: int):
+    """A CT-like test volume in [0, 1]: smooth blobs plus noise, seeded."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ax = torch.linspace(-1, 1, size, device=dev)
+    z, y, x = torch.meshgrid(ax, ax, ax, indexing="ij")
+    vol = torch.zeros((size, size, size), device=dev)
+    centers = torch.rand((6, 3), generator=gen, device=dev) * 1.2 - 0.6
+    for c in centers:
+        r2 = (z - c[0]) ** 2 + (y - c[1]) ** 2 + (x - c[2]) ** 2
+        vol += torch.exp(-r2 / 0.08)
+    vol += 0.05 * torch.randn(vol.shape, generator=gen, device=dev)
+    vol = (vol - vol.min()) / (vol.max() - vol.min())
+    return vol[None, ..., None].contiguous()
+
+
+def counts(kc, ks):
+    return {
+        "conv3x3x3_ndhwc": kc.conv3x3x3_ndhwc.launches,
+        "conv3x3x3_upcat_ndhwc": kc.conv3x3x3_upcat_ndhwc.launches,
+        "blend_scatter": ks.blend_scatter.launches,
+    }
+
+
+def reset_counts(kc, ks):
+    kc.conv3x3x3_ndhwc.launches = 0
+    kc.conv3x3x3_upcat_ndhwc.launches = 0
+    ks.blend_scatter.launches = 0
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = fn()
+    torch.cuda.synchronize()
+    return y, time.perf_counter() - t0
+
+
+def profile_sliding(torch, make_feature_extractor, plan, sd, dev, out_dir):
+    """Kernel time by name and the device's busy share over the sliding
+    path on 160^3 (27 windows, 14 chunks of 2), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    vol = synthetic_volume(torch, dev, 160, seed=2)
+    sliding = make_feature_extractor(
+        plan, sd, strategy="sliding", device=dev, sw_batch_size=2)
+    sliding(vol)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sliding(vol)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    attr = ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    # device-side rows only (kernels, copies); CPU ops repeat their time
+    rows = sorted(
+        ((getattr(ev, attr) / 1e3, ev.count, ev.key) for ev in events
+         if ev.device_type == DeviceType.CUDA and getattr(ev, attr) > 0),
+        reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    with open(os.path.join(out_dir, "profile_sliding160.txt"), "w") as f:
+        f.write(events.table(sort_by=attr, row_limit=40))
+    log(f"[profile] sliding 160^3: wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    for ms, count, key in rows[:12]:
+        log(f"[profile]   {ms:9.3f} ms  {count:5d}x  {key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                top=[dict(ms=r[0], count=r[1], name=r[2]) for r in rows[:20]])
+
+
+def main(argv) -> int:
+    quick = "--quick" in argv
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "anatomix_tpu_torch")):
+        print("chip_smoke: run from a checkout holding anatomix_tpu_torch/",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import torch.nn.functional as F
+
+    from anatomix_tpu_torch.extract import make_feature_extractor
+    from anatomix_tpu_torch.kernels import build
+    from anatomix_tpu_torch.kernels import conv as kc
+    from anatomix_tpu_torch.kernels import scatter as ks
+    from anatomix_tpu_torch.models.load import load_model
+    from anatomix_tpu_torch.models.registry import ANATOMIX_VARIANTS
+    from anatomix_tpu_torch.ops import sliding_window as sw
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    log(f"[device] {kind} count={torch.cuda.device_count()} "
+        f"torch={torch.__version__} cuda={torch.version.cuda}")
+    log(smi)
+    report = {"device": kind, "nvidia_smi": smi}
+
+    # phase 1: build every kernel library, one nvcc per source in parallel
+    t0 = time.perf_counter()
+    build.build_all()
+    report["build_s"] = time.perf_counter() - t0
+    log(f"[build] {report['build_s']:.1f} s for {list(build.SOURCES)}")
+    for name, text in build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"[build:{name}] {line.strip()}")
+
+    # phase 2: kernels vs plain at the main path's shapes
+    gen = torch.Generator(device=dev).manual_seed(0)
+    checks = {"conv3x3x3_ndhwc": [], "conv3x3x3_upcat_ndhwc": [],
+              "blend_scatter": []}
+    # the sliding path's shapes: chunks of sw_batch 2 windows of 128^3
+    for B, S, ci, co, f32 in [
+        (2, 128, 1, 16, False),    # entry conv
+        (2, 128, 16, 16, False),
+        (2, 32, 64, 64, False),
+        (2, 8, 256, 256, False),
+        (2, 128, 16, 16, True),    # exit conv, f32 store
+    ]:
+        checks["conv3x3x3_ndhwc"].append(
+            check_conv(kc, torch, F, dev, gen, B, S, ci, co, f32))
+    for B, S, c1, c2, co in [
+        (2, 16, 128, 256, 128), (2, 32, 64, 128, 64),
+        (2, 64, 32, 64, 32), (2, 128, 16, 32, 16),
+    ]:
+        checks["conv3x3x3_upcat_ndhwc"].append(
+            check_upcat(kc, torch, F, dev, gen, B, S, c1, c2, co))
+    checks["blend_scatter"].append(check_scatter(ks, sw, torch, dev, gen))
+    failed = []
+    for name, rows in checks.items():
+        for row in rows:
+            log(f"[kernel] {name} {row['shape']}: max_abs_err "
+                f"{row['max_abs_err']:.3e} rel {row['rel_err']:.3e} "
+                f"(tol {row['tol']:g}) ms {row['ms']:.4f} plain_ms "
+                f"{row['plain_ms']:.4f} library_ms {row['library_ms']} "
+                f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
+            if not row["ok"]:
+                failed.append(f"{name} {row['shape']}")
+    report["checks"] = checks
+    if failed:
+        raise RuntimeError(f"kernel disagrees with its plain version: {failed}")
+    if quick:
+        return 0
+
+    # phase 3: the 6M model at full width, `full` on 256^3
+    kwargs = ANATOMIX_VARIANTS["anatomix"]["unet_kwargs"]
+    plan, sd = load_model(
+        "scratch", allow_scratch=True, seed=0, device=dev,
+        num_downs=kwargs["num_downs"], ngf=kwargs["ngf"],
+        output_nc=kwargs["output_nc"],
+    )
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    if "--profile" in argv:
+        report["profile"] = profile_sliding(
+            torch, make_feature_extractor, plan, sd, dev, out_dir)
+        with open(os.path.join(out_dir, "chip_profile.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        return 0
+    vol256 = synthetic_volume(torch, dev, 256, seed=1)
+    full = make_feature_extractor(plan, sd, strategy="full", device=dev)
+    full(vol256[:, :32, :32, :32])  # first call: kernel libraries loaded
+    torch.cuda.synchronize()
+    reset_counts(kc, ks)
+    feats, full_s = timed(torch, lambda: full(vol256))
+    full_counts = counts(kc, ks)
+    log(f"[full] 256^3 -> {tuple(feats.shape)} in {full_s:.4f} s, "
+        f"launches {full_counts}")
+    if tuple(feats.shape) != (1, 256, 256, 256, 16):
+        raise RuntimeError(f"full: bad output shape {tuple(feats.shape)}")
+    if not torch.isfinite(feats).all():
+        raise RuntimeError("full: non-finite features")
+    if min(full_counts["conv3x3x3_ndhwc"],
+           full_counts["conv3x3x3_upcat_ndhwc"]) == 0:
+        raise RuntimeError(f"full: a conv kernel was not launched "
+                           f"{full_counts}")
+    plain_full = make_feature_extractor(plan, sd, strategy="full",
+                                        impl="eager", device=dev)
+    ref, plain_full_s = timed(torch, lambda: plain_full(vol256))
+    e = model_err(feats, ref)
+    log(f"[full] vs plain f32 path: mean|err|/std {e['mean_err_over_std']:.3e}"
+        f" (tol {TOL_MODEL}), max_abs_err {e['max_abs_err']:.3e}, "
+        f"max/max {e['max_err_over_max']:.3e}; plain {plain_full_s:.4f} s")
+    if not e["mean_err_over_std"] < TOL_MODEL:
+        raise RuntimeError(f"full: error {e} over {TOL_MODEL}")
+    report["full"] = dict(seconds=full_s, launches=full_counts,
+                          plain_seconds=plain_full_s, **e)
+    del feats, ref, plain_full
+    # one 128^3 forward (B=1), the unit of the sliding path, by CUDA events
+    vol128 = vol256[:, :128, :128, :128].contiguous()
+    reset_counts(kc, ks)
+    full(vol128)
+    fwd_counts = counts(kc, ks)
+    fwd_ms = cuda_ms(lambda: full(vol128))
+    eager128 = make_feature_extractor(plan, sd, strategy="full",
+                                      impl="eager", device=dev)
+    fwd_plain_ms = cuda_ms(lambda: eager128(vol128))
+    log(f"[fwd128] 6M forward 128^3 B=1: kernels {fwd_ms:.4f} ms, plain f32 "
+        f"path {fwd_plain_ms:.4f} ms, launches {fwd_counts}")
+    report["fwd128"] = dict(ms=fwd_ms, plain_ms=fwd_plain_ms,
+                            launches=fwd_counts)
+    del eager128
+
+    # phase 4: reference-setting sliding window, 343 windows on 256^3
+    sw_kw = dict(strategy="sliding", roi_size=(128, 128, 128),
+                 overlap=0.8, mode="gaussian", sigma_scale=0.25,
+                 sw_batch_size=2)
+    sliding = make_feature_extractor(plan, sd, device=dev, **sw_kw)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kc, ks)
+    feats, slide_s = timed(torch, lambda: sliding(vol256))
+    slide_counts = counts(kc, ks)
+    n_win = len(sw.compute_window_starts((256,) * 3, (128,) * 3, 0.8))
+    log(f"[sliding] 256^3, {n_win} windows -> {tuple(feats.shape)} in "
+        f"{slide_s:.4f} s, launches {slide_counts}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if tuple(feats.shape) != (1, 256, 256, 256, 16):
+        raise RuntimeError(f"sliding: bad output shape {tuple(feats.shape)}")
+    if not torch.isfinite(feats).all():
+        raise RuntimeError("sliding: non-finite features")
+    if min(slide_counts.values()) == 0:
+        raise RuntimeError(f"sliding: a kernel was not launched "
+                           f"{slide_counts}")
+    del feats
+    vol160 = synthetic_volume(torch, dev, 160, seed=2)
+    got = sliding(vol160)
+    ref = make_feature_extractor(plan, sd, device=dev, impl="eager",
+                                 **sw_kw)(vol160)
+    e = model_err(got, ref)
+    log(f"[sliding] 160^3 (27 windows) vs plain f32 path: mean|err|/std "
+        f"{e['mean_err_over_std']:.3e} (tol {TOL_MODEL}), max_abs_err "
+        f"{e['max_abs_err']:.3e}, max/max {e['max_err_over_max']:.3e}")
+    if not e["mean_err_over_std"] < TOL_MODEL:
+        raise RuntimeError(f"sliding: error {e} over {TOL_MODEL}")
+    report["sliding"] = dict(seconds=slide_s, windows=n_win,
+                             launches=slide_counts, check_160=e)
+
+    # phase 5: the kernels line
+    replaces = {
+        "conv3x3x3_ndhwc": (
+            "anatomix_tpu/ops/pallas/conv_block.py:248 "
+            "conv_block_sparse_halo (+ _halo_wide :404, _valid :886, "
+            "_valid_wide :530); anatomix_tpu/ops/pallas/conv3x3.py:145 "
+            "_conv3x3_valid"),
+        "conv3x3x3_upcat_ndhwc": (
+            "anatomix_tpu/ops/pallas/conv_block.py:1563 "
+            "conv_block_skip_halo (+ _halo_wide :1696, _valid :1873)"),
+        "blend_scatter": "anatomix_tpu/ops/pallas/scatter.py:128 "
+                         "blend_scatter_fold",
+    }
+    sources = {
+        "conv3x3x3_ndhwc": "anatomix_tpu_torch/kernels/csrc/conv3d.cu",
+        "conv3x3x3_upcat_ndhwc": "anatomix_tpu_torch/kernels/csrc/conv3d.cu",
+        "blend_scatter": "anatomix_tpu_torch/kernels/csrc/blend_scatter.cu",
+    }
+    # the line reports each kernel at its dominant main-path shape: the
+    # 16-channel 128^3 conv, the 48->16 decoder conv, the stitch chunk
+    headline = {"conv3x3x3_ndhwc": 1, "conv3x3x3_upcat_ndhwc": 3,
+                "blend_scatter": 0}
+    kernels = []
+    for name, rows in checks.items():
+        row = rows[headline[name]]
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name],
+            "replaces": replaces[name],
+            "launches": full_counts[name] + slide_counts[name],
+            "launches_full_256": full_counts[name],
+            "launches_sliding_256": slide_counts[name],
+            "shape": row["shape"], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
+    report["kernels"] = kernels
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    log(nvidia_smi())
+    print(json.dumps({"kernels": kernels}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    rc = main(sys.argv[1:])
+    if rc == 0 and not sys.argv[1:]:
+        import torch
+
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+    sys.exit(rc)

@@ -1,0 +1,91 @@
+"""Hygiene of the port: it imports neither JAX nor the JAX package, its
+entry points refuse to run on a missing card, and the card-only tests are
+marked."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import anatomix_tpu_torch
+names = ["anatomix_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(
+        anatomix_tpu_torch.__path__, "anatomix_tpu_torch.")
+]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "anatomix_tpu" or m.startswith("anatomix_tpu."))
+print(len(names))
+print(bad)
+"""
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, imported in a fresh interpreter (the test
+    process itself has JAX loaded by conftest)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
+        cwd=ROOT, env=env, timeout=120, check=True,
+    ).stdout.splitlines()
+    assert int(out[0]) >= 20
+    assert out[1] == "[]"
+
+
+def test_chip_smoke_imports_no_jax():
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            mods.add(node.module)
+    assert "anatomix_tpu_torch.extract" in mods
+    for m in mods:
+        top = m.split(".")[0]
+        assert top not in ("jax", "jaxlib", "anatomix_tpu"), m
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from anatomix_tpu_torch.extract import make_feature_extractor
+    from anatomix_tpu_torch.models.load import load_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model("scratch", allow_scratch=True, num_downs=2, ngf=8)
+    plan, sd = load_model("scratch", allow_scratch=True, num_downs=2, ngf=8,
+                          device="cpu")
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_feature_extractor(plan, sd, strategy="full")
+    # the CPU is used only when asked for
+    feats = make_feature_extractor(plan, sd, strategy="full", device="cpu")(
+        np.zeros((1, 8, 8, 8, 1), np.float32))
+    assert feats.device.type == "cpu"
+
+
+def test_cli_defaults_to_cuda(monkeypatch, tmp_path):
+    from anatomix_tpu_torch.extract_cli import build_parser, main
+
+    assert build_parser().parse_args(
+        ["--input", "x", "--ckpt_path", "y"]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    np.save(tmp_path / "v.npy", np.zeros((8, 8, 8), np.float32))
+    with pytest.raises(RuntimeError, match="is_available"):
+        main(["--input", str(tmp_path / "v.npy"), "--output",
+              str(tmp_path / "o.npz"), "--ckpt_path", "scratch"])
+
+
+def test_gpu_marker_registered():
+    ini = open(os.path.join(ROOT, "pytest.ini")).read()
+    assert "gpu:" in ini
