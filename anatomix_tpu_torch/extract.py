@@ -1,10 +1,11 @@
 """Whole-volume feature extraction with the anatomix UNet, on the card.
 
 The port of `anatomix_tpu/extract.py`: eval-mode batch norm is folded into
-the preceding convs, the convs run in bf16 on the port's Hopper kernels
-(`models/unet_fused.py`), and the volume goes through the model either in
-one piece (`full`) or as the reference's Gaussian-blended sliding windows
-(`sliding`).
+the preceding convs, instance norm stays live, the model runs in bf16 on
+the port's Hopper kernels (`models/unet_fused.py`), and the volume goes
+through the model in one piece (`full`), in one piece with instance-norm
+statistics per roi-sized tile (`full_tiled`), or as the reference's
+Gaussian-blended sliding windows (`sliding`).
 """
 
 from __future__ import annotations
@@ -103,8 +104,11 @@ def make_feature_extractor(
 
     Strategies: 'sliding' (the reference's Gaussian-blended windows),
     'full' (one whole-volume forward, padded to a multiple of
-    2**num_downs and cropped; valid for batch/no-norm models), 'auto'
-    ('full' for batch/no norm, else 'sliding').
+    2**num_downs and cropped; for an instance-norm model the statistics
+    are those of the whole volume), 'full_tiled' (the same forward with
+    instance-norm statistics per tile: `max(1, round(s / roi))` tiles per
+    padded axis, 2x2x2 for 256^3 at roi 128), 'auto' ('full' for
+    batch/no norm, else 'sliding').
 
     `impl='fused'` runs the BN-folded forward on the port's kernels in
     `compute_dtype` (bf16 on the card; on the CPU the kernels' plain
@@ -117,11 +121,8 @@ def make_feature_extractor(
         strategy = (
             "full" if plan.config.norm in ("batch", "none") else "sliding"
         )
-    if strategy not in ("full", "sliding"):
-        raise NotImplementedError(
-            f"strategy {strategy!r}: 'full_tiled' arrives with the dev "
-            "slice (ROADMAP Queue 1 item 8)"
-        )
+    if strategy not in ("full", "full_tiled", "sliding"):
+        raise ValueError(f"Unknown strategy: {strategy}")
     sd = {k: v.to(dev) for k, v in state_dict.items()}
     if impl == "fused":
         if dev.type == "cuda" and compute_dtype != torch.bfloat16:
@@ -130,14 +131,15 @@ def make_feature_extractor(
         packed = prepack_fused(fplan, fsd, device=dev,
                                compute_dtype=compute_dtype)
 
-        def model_fn(x):
+        def model_fn(x, tile_counts=None):
             return unet_apply_fused(fplan, packed, x,
-                                    compute_dtype=compute_dtype)
+                                    compute_dtype=compute_dtype,
+                                    in_tile_counts=tile_counts)
     elif impl == "eager":
         net = Unet.from_state_dict(plan, sd).to(dev)
 
-        def model_fn(x):
-            return net(x.float())
+        def model_fn(x, tile_counts=None):
+            return net(x.float(), in_tile_counts=tile_counts)
     else:
         raise ValueError(f"unknown impl {impl!r}")
     out_channels = plan.config.output_nc
@@ -146,7 +148,7 @@ def make_feature_extractor(
     @torch.inference_mode()
     def extract(volume):
         x = torch.as_tensor(volume, dtype=torch.float32, device=dev)
-        if strategy == "full":
+        if strategy in ("full", "full_tiled"):
             pads, crops = [], []
             for s in x.shape[1:4]:
                 pad = (-s) % stride
@@ -155,7 +157,11 @@ def make_feature_extractor(
             if any(p != (0, 0) for p in pads):
                 x = F.pad(x, (0, 0) + tuple(
                     v for p in reversed(pads) for v in p))
-            y = model_fn(x)
+            tile_counts = None
+            if strategy == "full_tiled":
+                tile_counts = tuple(max(1, round(s / r))
+                                    for s, r in zip(x.shape[1:4], roi_size))
+            y = model_fn(x, tile_counts)
             (c0, c1), (c2, c3), (c4, c5) = crops
             return y[:, c0:c1, c2:c3, c4:c5, :]
         return sliding_window_inference(

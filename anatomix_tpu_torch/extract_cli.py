@@ -4,6 +4,11 @@ Usage (single volume):
   python -m anatomix_tpu_torch.extract_cli --input ct.nii.gz \
       --output feats.npz --hf_variant anatomix --cache_path anatomix.pth
 
+Usage (the 94M dev UNet, instance-norm statistics per roi-sized tile):
+  python -m anatomix_tpu_torch.extract_cli --input ct.nii.gz \
+      --output feats.npz --hf_variant anatomix-dev \
+      --cache_path anatomix-dev.pth --strategy full_tiled --normalize unit
+
 Usage (dataset mode):
   python -m anatomix_tpu_torch.extract_cli --input_dir scans/ \
       --output_dir feats/ --ckpt_path anatomix.pth [--pattern '*.nii.gz']
@@ -57,7 +62,7 @@ def build_parser():
     p.add_argument("--cache_path", type=str, default=None,
                    help="local .pth/.npz of --hf_variant")
     p.add_argument("--strategy", type=str, default="sliding",
-                   choices=["sliding", "full", "auto"])
+                   choices=["sliding", "full", "full_tiled", "auto"])
     p.add_argument("--roi", type=int, default=128)
     p.add_argument("--overlap", type=float, default=0.8)
     p.add_argument("--sw_batch_size", type=int, default=None,

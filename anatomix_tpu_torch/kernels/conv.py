@@ -4,9 +4,12 @@
 (`anatomix_tpu/ops/pallas/conv_block.py` conv_block_sparse_halo /
 _halo_wide / _valid / _valid_wide, `ops/pallas/conv3x3.py` _conv3x3_valid);
 `conv3x3x3_upcat_ndhwc` replaces K3 (`conv_block.py` conv_block_skip_halo /
-_halo_wide / _valid): the decoder conv over concat(enc, nearest-2x(small)).
-Both launch the one implicit-GEMM kernel of `csrc/conv3d.cu`, whose header
-says what bounds it on the card and what its design does about it.
+_halo_wide / _valid): the decoder conv over concat(enc, nearest-2x(small));
+`conv3x3x3_cat_ndhwc` replaces D3 (`conv_block.py`
+conv_block_sparse_cat_halo / _halo_wide): the trilinear decoder's conv over
+concat(enc, up) with both operands at one resolution. All three launch the
+one implicit-GEMM kernel of `csrc/conv3d.cu`, whose header says what bounds
+it on the card and what its design does about it.
 
 On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor it
 runs the plain version (f32 `F.conv3d` through `ops/conv.py`). Each wrapper
@@ -33,6 +36,8 @@ _SIGNATURES = {
                         _I, _P],
     "conv3x3x3_upcat_ndhwc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _F, _I, _P],
+    "conv3x3x3_cat_ndhwc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _I, _P],
 }
 _fns: dict = {}
 
@@ -65,6 +70,17 @@ def conv3x3x3_upcat_ndhwc_plain(
 ):
     up = upsample2x(small.float())
     x = up if enc is None else torch.cat([enc.float(), up], dim=-1)
+    return conv3x3x3_ndhwc_plain(
+        x, w_packed, bias, act=act, slope=slope, pad_type=pad_type,
+        out_dtype=out_dtype,
+    )
+
+
+def conv3x3x3_cat_ndhwc_plain(
+    enc, up, w_packed, bias, *, act="none", slope=0.3, pad_type="reflect",
+    out_dtype=torch.bfloat16,
+):
+    x = torch.cat([enc.float(), up.float()], dim=-1)
     return conv3x3x3_ndhwc_plain(
         x, w_packed, bias, act=act, slope=slope, pad_type=pad_type,
         out_dtype=out_dtype,
@@ -192,3 +208,49 @@ def conv3x3x3_upcat_ndhwc(
 
 
 conv3x3x3_upcat_ndhwc.launches = 0
+
+
+def conv3x3x3_cat_ndhwc(
+    enc: torch.Tensor,
+    up: torch.Tensor,
+    w_packed: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    act: str = "none",
+    slope: float = 0.3,
+    pad_type: str = "reflect",
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """act(conv3x3x3_same(cat([enc, up])) + bias): input channels [0, c1)
+    from `enc` (B, D, H, W, c1), [c1, c1 + c2) from `up` (B, D, H, W, c2).
+    Packed weights are `(27 * (c1 + c2), Co)` in that concat order."""
+    if up.device.type == "cpu":
+        return conv3x3x3_cat_ndhwc_plain(
+            enc, up, w_packed, bias, act=act, slope=slope, pad_type=pad_type,
+            out_dtype=out_dtype,
+        )
+    _check_act(enc, "enc")
+    _check_act(up, "up")
+    if enc.device != up.device or enc.shape[:4] != up.shape[:4]:
+        raise ValueError(
+            f"enc {tuple(enc.shape)} and up {tuple(up.shape)} must share "
+            "(B, D, H, W) and a device"
+        )
+    B, D, H, W, c1 = enc.shape
+    c2 = up.shape[4]
+    co = _check_common(up, w_packed, bias, c1 + c2, (D, H, W), act,
+                       pad_type, out_dtype)
+    out = torch.empty((B, D, H, W, co), dtype=out_dtype, device=up.device)
+    stream = torch.cuda.current_stream(up.device).cuda_stream
+    rc = _fn("conv3x3x3_cat_ndhwc")(
+        enc.data_ptr(), up.data_ptr(), w_packed.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), B, D, H, W, c1, c2, co, int(pad_type == "reflect"),
+        EPILOGUE_ACTS[act], float(slope), int(out_dtype == torch.float32),
+        stream,
+    )
+    build.check(rc, "conv3x3x3_cat_ndhwc")
+    conv3x3x3_cat_ndhwc.launches += 1
+    return out
+
+
+conv3x3x3_cat_ndhwc.launches = 0

@@ -10,6 +10,10 @@
 //   K3  anatomix_tpu/ops/pallas/conv_block.py  conv_block_skip_halo,
 //       conv_block_skip_halo_wide, conv_block_skip_valid
 //       (conv over concat(enc, nearest-2x(small)), neither materialized)
+//   D3  anatomix_tpu/ops/pallas/conv_block.py  conv_block_sparse_cat_halo,
+//       conv_block_sparse_cat_halo_wide
+//       (conv over concat(enc, up), both at one resolution, the concat
+//       not materialized)
 // with one implicit-GEMM kernel: M = output voxels, N = Co, K = 27 * Ci.
 //
 // What bounds it on an H100: the 16-channel full-resolution convs that
@@ -21,13 +25,16 @@
 // once per K step and reuses it for all 27 taps and all N columns of its
 // tile. Padding is by index mapping (reflect: -1 -> 1, n -> n-2; zeros:
 // masked), so no padded copy exists in device memory. For the decoder convs
-// the channels [c1, c1+c2) come from the half-resolution tensor, read at
-// (z/2, y/2, x/2) of the reflected full-resolution coordinate, so neither
-// the 2x upsample nor the concat exists in memory. Tensor cores are used
-// through WMMA bf16 16x16x16 with f32 accumulation; bias and the activation
-// run in the epilogue, which stores bf16 or f32. This first version favours
-// being simple and right over speed: wgmma, TMA and a pipelined ring are
-// later work.
+// the channels [c1, c1+c2) come from a second tensor: at half resolution
+// (nearest decoders, f_shift 1) it is read at (z/2, y/2, x/2) of the
+// reflected full-resolution coordinate, so neither the 2x upsample nor the
+// concat exists in memory; at full resolution (trilinear decoders, f_shift
+// 0) it is read at (z, y, x), so the concat does not exist. Tensor cores
+// are used through WMMA bf16 16x16x16 with f32 accumulation; bias and the
+// activation run in the epilogue, which stores bf16 or f32. Weight offsets
+// are 64-bit (27 * 1536 * 512 at the dev 8^3 decoder). This first version
+// favours being simple and right over speed: wgmma, TMA and a pipelined
+// ring are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,12 +58,14 @@ constexpr int NTHREADS = NWARPS * 32;
 
 struct ConvArgs {
   const __nv_bfloat16* enc;    // (B, D, H, W, c1)
-  const __nv_bfloat16* small;  // (B, D/2, H/2, W/2, c2), or null if c2 == 0
+  const __nv_bfloat16* small;  // (B, D>>f_shift, H>>f_shift, W>>f_shift,
+                               //  c2), or null if c2 == 0
   const __nv_bfloat16* w;      // (27 * (c1 + c2), co), row (tap * Ci + ci)
   const float* bias;           // (co)
   void* out;                   // (B, D, H, W, co) bf16 or f32
   int D, H, W;
   int c1, c2, co;
+  int f_shift;  // 1: `small` at half resolution, 0: at full resolution
   int tiles_x, tiles_y;
   int reflect, act, out_f32;
   int xvec, wvec;  // 16-byte loads allowed for inputs / weights
@@ -103,7 +112,8 @@ conv3x3x3_kernel(const ConvArgs a) {
   const int n0 = blockIdx.y * NT;
   const int64_t b = blockIdx.z;
   const int ci = a.c1 + a.c2;
-  const int Ds = a.D >> 1, Hs = a.H >> 1, Ws = a.W >> 1;
+  const int fs = a.f_shift;
+  const int Ds = a.D >> fs, Hs = a.H >> fs, Ws = a.W >> fs;
   const int wy = warp % TY, wz = warp / TY;
   const unsigned short* enc_u = reinterpret_cast<const unsigned short*>(a.enc);
   const unsigned short* small_u =
@@ -136,17 +146,25 @@ conv3x3x3_kernel(const ConvArgs a) {
       Pack8 val;
       val.u = make_uint4(0u, 0u, 0u, 0u);
       if (inside && c < ci) {
-        const int64_t enc_off =
-            (((b * a.D + gz) * a.H + gy) * a.W + gx) * a.c1;
-        const int64_t small_off =
-            (((b * Ds + (gz >> 1)) * Hs + (gy >> 1)) * Ws + (gx >> 1)) *
-            a.c2;
         if (a.xvec) {
-          // c1 % 8 == 0 and c2 % 8 == 0: the 8 channels lie in one source
-          const __nv_bfloat16* src =
-              c < a.c1 ? a.enc + enc_off + c : a.small + small_off + (c - a.c1);
+          // c1 % 8 == 0 and c2 % 8 == 0: the 8 channels lie in one source,
+          // so only its offset is computed
+          const __nv_bfloat16* src;
+          if (c < a.c1) {
+            src = a.enc + (((b * a.D + gz) * a.H + gy) * a.W + gx) * a.c1 + c;
+          } else {
+            src = a.small +
+                  (((b * Ds + (gz >> fs)) * Hs + (gy >> fs)) * Ws +
+                   (gx >> fs)) * a.c2 +
+                  (c - a.c1);
+          }
           val.u = *reinterpret_cast<const uint4*>(src);
         } else {
+          const int64_t enc_off =
+              (((b * a.D + gz) * a.H + gy) * a.W + gx) * a.c1;
+          const int64_t small_off =
+              (((b * Ds + (gz >> fs)) * Hs + (gy >> fs)) * Ws + (gx >> fs)) *
+              a.c2;
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const int cc = c + j;
@@ -250,12 +268,10 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-}  // namespace
-
-extern "C" int conv3x3x3_upcat_ndhwc(
-    const void* enc, const void* small, const void* w, const void* bias,
-    void* out, int B, int D, int H, int W, int c1, int c2, int co,
-    int reflect, int act, float slope, int out_f32, void* stream) {
+int conv3x3x3_two_operand(
+    const void* enc, const void* small, int f_shift, const void* w,
+    const void* bias, void* out, int B, int D, int H, int W, int c1, int c2,
+    int co, int reflect, int act, float slope, int out_f32, void* stream) {
   ConvArgs a;
   a.enc = static_cast<const __nv_bfloat16*>(enc);
   a.small = static_cast<const __nv_bfloat16*>(small);
@@ -268,6 +284,7 @@ extern "C" int conv3x3x3_upcat_ndhwc(
   a.c1 = c1;
   a.c2 = c2;
   a.co = co;
+  a.f_shift = f_shift;
   a.tiles_x = (W + TX - 1) / TX;
   a.tiles_y = (H + TY - 1) / TY;
   const int tiles_z = (D + TZ - 1) / TZ;
@@ -290,10 +307,28 @@ extern "C" int conv3x3x3_upcat_ndhwc(
   return static_cast<int>(err);
 }
 
+}  // namespace
+
+extern "C" int conv3x3x3_upcat_ndhwc(
+    const void* enc, const void* small, const void* w, const void* bias,
+    void* out, int B, int D, int H, int W, int c1, int c2, int co,
+    int reflect, int act, float slope, int out_f32, void* stream) {
+  return conv3x3x3_two_operand(enc, small, 1, w, bias, out, B, D, H, W, c1,
+                               c2, co, reflect, act, slope, out_f32, stream);
+}
+
+extern "C" int conv3x3x3_cat_ndhwc(
+    const void* enc, const void* up, const void* w, const void* bias,
+    void* out, int B, int D, int H, int W, int c1, int c2, int co,
+    int reflect, int act, float slope, int out_f32, void* stream) {
+  return conv3x3x3_two_operand(enc, up, 0, w, bias, out, B, D, H, W, c1, c2,
+                               co, reflect, act, slope, out_f32, stream);
+}
+
 extern "C" int conv3x3x3_ndhwc(const void* x, const void* w, const void* bias,
                                void* out, int B, int D, int H, int W, int ci,
                                int co, int reflect, int act, float slope,
                                int out_f32, void* stream) {
-  return conv3x3x3_upcat_ndhwc(x, nullptr, w, bias, out, B, D, H, W, ci, 0,
-                               co, reflect, act, slope, out_f32, stream);
+  return conv3x3x3_two_operand(x, nullptr, 0, w, bias, out, B, D, H, W, ci,
+                               0, co, reflect, act, slope, out_f32, stream);
 }

@@ -4,8 +4,10 @@ dict and the reference `.pth`.
 The port's state dict is the reference's: flat-Sequential keys
 `model.<idx>.weight` / `.bias` / `.running_mean` / `.running_var` /
 `.num_batches_tracked`, convs in (O, I, kD, kH, kW). The JAX pytree is keyed
-by the same index as a string, with DHWIO convs `{"w", "b"}` and batch norms
-`{"scale", "bias", "mean", "var"}`.
+by the same index as a string, with DHWIO convs `{"w", "b"}`, batch norms
+`{"scale", "bias", "mean", "var"}` and `instance_affine` norms
+`{"scale", "bias"}` (state dict `weight` / `bias`). Plain instance norms have
+no parameters.
 """
 
 from __future__ import annotations
@@ -61,6 +63,9 @@ def from_jax_params(
             sd[f"{base}.num_batches_tracked"] = torch.zeros(
                 (), dtype=torch.long
             )
+        elif spec.kind == "norm" and plan.config.norm == "instance_affine":
+            sd[f"{base}.weight"] = _t(p["scale"])
+            sd[f"{base}.bias"] = _t(p["bias"])
     return sd
 
 
@@ -90,6 +95,11 @@ def to_jax_params(
                 "mean": arr(f"{base}.running_mean"),
                 "var": arr(f"{base}.running_var"),
             }
+        elif spec.kind == "norm" and plan.config.norm == "instance_affine":
+            params[str(idx)] = {
+                "scale": arr(f"{base}.weight"),
+                "bias": arr(f"{base}.bias"),
+            }
     return params
 
 
@@ -104,6 +114,8 @@ def check_state_dict(plan: UnetPlan, state_dict: Mapping[str, Any]) -> None:
         elif spec.kind == "norm" and plan.config.norm == "batch":
             wanted |= {f"{base}.{n}" for n in
                        ("weight", "bias", "running_mean", "running_var")}
+        elif spec.kind == "norm" and plan.config.norm == "instance_affine":
+            wanted |= {f"{base}.weight", f"{base}.bias"}
     optional = {f"model.{i}.bias" for i in plan.conv_indices}
     keys = {k for k in state_dict if not k.endswith("num_batches_tracked")}
     missing = wanted - keys

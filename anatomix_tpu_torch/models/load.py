@@ -62,8 +62,10 @@ def _to_device(sd: dict[str, torch.Tensor], device: torch.device):
 
 def load_from_hf(variant: str, cache_path: str | None = None, *,
                  device: str | torch.device = "cuda"):
-    """A registry variant from a local copy of its `<variant>.pth`
-    (`cache_path`); the port makes no download."""
+    """A registry variant from a local copy of its `<variant>.pth` or
+    `.npz` (`cache_path`), on the variant's own plan (for `anatomix-dev`:
+    instance norm with eps 1e-2, Avg pool, trilinear); the port makes no
+    download."""
     dev = resolve_device(device)
     if variant not in ANATOMIX_VARIANTS:
         raise ValueError(

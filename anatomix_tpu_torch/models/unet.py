@@ -8,9 +8,10 @@ JAX package's does (`anatomix_tpu/models/unet.py:46-189`); `Unet` holds its
 parameters under the same keys and runs the forward on channels-last
 volumes with the plain ops of `ops/`.
 
-This slice covers the `anatomix` config family: batch or no norm, Max or
-Avg pool, nearest upsampling, reflect or zeros padding, and the
-relu/lrelu/elu/tanh/none activations. Other configs raise
+The port covers the `anatomix` and `anatomix-dev` config families: batch,
+instance (global or per spatial tile), instance-affine or no norm, Max or
+Avg pool, nearest or trilinear upsampling, reflect or zeros padding, and
+the relu/lrelu/elu/tanh/none activations. Other configs raise
 `NotImplementedError` naming the ROADMAP item that brings them.
 """
 
@@ -29,6 +30,7 @@ from anatomix_tpu_torch.ops.activations import (
     apply_activation,
 )
 from anatomix_tpu_torch.ops.conv import conv3d_same
+from anatomix_tpu_torch.ops.norms import tiled_instance_norm
 from anatomix_tpu_torch.ops.pool import avg_pool, max_pool
 from anatomix_tpu_torch.ops.resize import upsample2x
 
@@ -173,15 +175,12 @@ def build_plan(config: UnetConfig) -> UnetPlan:
 
 
 def check_supported(config: UnetConfig) -> None:
-    """Raise `NotImplementedError` for configs outside this slice."""
-    dev_slice = "the dev slice (ROADMAP Queue 1 item 8)"
+    """Raise `NotImplementedError` for configs the port does not run."""
     later = "the remaining UNet options (ROADMAP Queue 1 item 15)"
-    if config.norm not in ("batch", "none"):
-        raise NotImplementedError(f"norm={config.norm!r} arrives with {dev_slice}")
-    if config.interp != "nearest":
-        raise NotImplementedError(
-            f"interp={config.interp!r} arrives with {dev_slice}"
-        )
+    if config.norm not in ("batch", "none", "instance", "instance_affine"):
+        raise NotImplementedError(f"norm={config.norm!r} is unsupported")
+    if config.interp not in ("nearest", "trilinear"):
+        raise NotImplementedError(f"interp={config.interp!r} is unsupported")
     if config.pooling not in ("Max", "Avg"):
         raise NotImplementedError(f"pooling={config.pooling!r} is unsupported")
     if config.dimension != 3:
@@ -213,9 +212,11 @@ def init_params(
     """Seeded init as a reference-keyed state dict (CPU, float32).
 
     The same distributions as the JAX package's `init_params`: convs He
-    normal on fan-in, batch-norm scale N(1, gain), bias 0, running mean 0,
-    running var 1. The draws differ from JAX's (another generator); tests
-    share weights through `convert.from_jax_params`.
+    normal on fan-in (with a zero bias for `instance` models), batch-norm
+    scale N(1, gain), bias 0, running mean 0, running var 1,
+    `instance_affine` scale 1 and bias 0 (torch's `InstanceNorm3d` init).
+    The draws differ from JAX's (another generator); tests share weights
+    through `convert.from_jax_params`.
     """
     cfg = plan.config
     use_bias = cfg.norm == "instance"
@@ -239,6 +240,9 @@ def init_params(
             sd[f"{base}.num_batches_tracked"] = torch.zeros(
                 (), dtype=torch.long
             )
+        elif spec.kind == "norm" and cfg.norm == "instance_affine":
+            sd[f"{base}.weight"] = torch.ones(spec.out_ch)
+            sd[f"{base}.bias"] = torch.zeros(spec.out_ch)
     return sd
 
 
@@ -246,7 +250,8 @@ def init_params(
 # Eager module
 
 class Unet(nn.Module):
-    """Eager inference UNet on NDHWC volumes (batch norm in eval mode).
+    """Eager inference UNet on NDHWC volumes (batch norm in eval mode,
+    instance norm with the statistics of each sample).
 
     `self.model` is an `nn.Sequential` with one entry per plan index, so the
     state dict is keyed `model.<idx>.weight` like the reference `.pth`. The
@@ -267,8 +272,12 @@ class Unet(nn.Module):
                 mods.append(
                     nn.Conv3d(spec.in_ch, spec.out_ch, 3, bias=conv_bias)
                 )
-            elif spec.kind == "norm":
+            elif spec.kind == "norm" and cfg.norm == "batch":
                 mods.append(nn.BatchNorm3d(spec.out_ch, eps=cfg.norm_eps))
+            elif spec.kind == "norm":
+                mods.append(nn.InstanceNorm3d(
+                    spec.out_ch, eps=cfg.norm_eps,
+                    affine=cfg.norm == "instance_affine"))
             else:
                 mods.append(nn.Identity())
         self.model = nn.Sequential(*mods)
@@ -287,10 +296,14 @@ class Unet(nn.Module):
         x: torch.Tensor,
         layers: Sequence[int] = (),
         encode_only: bool = False,
+        in_tile_counts: tuple[int, int, int] | None = None,
     ):
         """Semantics of the JAX `unet_apply` in inference: with `layers`,
         returns `(out, [activations at those indices])`; with
-        `encode_only`, only the activation list, after the last tap."""
+        `encode_only`, only the activation list, after the last tap.
+        `in_tile_counts` gives instance norms per-tile statistics (the
+        `full_tiled` strategy), with each level's tiles split from its own
+        extent."""
         plan = self.plan
         cfg = plan.config
         layers = tuple(layers)
@@ -303,9 +316,13 @@ class Unet(nn.Module):
                 feat = conv3d_same(
                     feat, mod.weight, mod.bias, pad_type=cfg.pad_type
                 )
-            elif spec.kind == "norm":
+            elif spec.kind == "norm" and cfg.norm == "batch":
                 inv = mod.weight * torch.rsqrt(mod.running_var + mod.eps)
                 feat = feat * inv + (mod.bias - mod.running_mean * inv)
+            elif spec.kind == "norm":
+                feat = tiled_instance_norm(
+                    feat, in_tile_counts or (1, 1, 1), eps=cfg.norm_eps,
+                    scale=mod.weight, bias=mod.bias)
             elif spec.kind == "act":
                 feat = apply_activation(
                     feat, cfg.activation, slope=UNET_LRELU_SLOPE

@@ -1,14 +1,29 @@
-"""BN-folded bf16 inference forward of the anatomix UNet on the port's
-kernels.
+"""Inference forward of the anatomix UNets on the port's kernels.
 
 Counterpart of the JAX package's `models/unet_fused.py`, without its TPU
 block layout: activations stay channels-last `(B, D, H, W, C)` bf16
 throughout. Weights are packed once (`prepack_fused`). Every conv goes to a
-kernel of `kernels/conv.py`, and the activation that follows it runs in
-the kernel's epilogue. Every decoder conv after upsample + concat goes to
-the up-concat kernel, so neither the 2x tensor nor the concat is ever
-materialized. The exit conv stores f32. Pooling is plain PyTorch glue, as it
-is XLA in the JAX package.
+kernel of `kernels/conv.py` and keeps its bias. The exit conv stores f32.
+
+- Batch norm is folded into the convs first (`extract.fold_batchnorm`);
+  the activation that follows a conv then runs in the conv's epilogue.
+- Instance norm stays live (the `anatomix-dev` UNet). Its conv keeps
+  `act="none"`; the statistics are torch reductions
+  (`ops/norms.instance_norm_stats`, global or per spatial tile) and the
+  `norm_apply_ndhwc` kernel applies them together with the following
+  activation, as `_following_act` routes it in the JAX package.
+  The norm divides each channel by its std, which would magnify the bf16
+  rounding of a conv output whose mean is large against its std, so a
+  conv that feeds a live norm stores f32, and the entry conv of such a
+  model reads the f32 volume exactly, as two bf16 terms `hi + lo` through
+  the two-operand conv with its weights repeated (the Ci=1 entry pads its
+  K step to 16 channels, so the second term costs no extra MMA). PERF.md
+  gives the 94M forward's bf16 error with and without the two.
+- A nearest decoder conv goes to the up-concat kernel, so neither the 2x
+  tensor nor the concat is materialized. A trilinear decoder step runs the
+  `upsample2x_trilinear_ndhwc` kernel and then the two-operand conv
+  `conv3x3x3_cat_ndhwc` on `(enc, up)`, so the concat is not materialized.
+- Pooling is plain PyTorch glue, as it is XLA in the JAX package.
 
 On CPU tensors the kernel wrappers run their plain versions, so the same
 forward with `compute_dtype=torch.float32` is the f32 CPU reference of the
@@ -22,20 +37,30 @@ from typing import Any
 import torch
 
 from anatomix_tpu_torch.kernels.conv import (
+    conv3x3x3_cat_ndhwc,
     conv3x3x3_ndhwc,
     conv3x3x3_upcat_ndhwc,
 )
+from anatomix_tpu_torch.kernels.norm import norm_apply_ndhwc
+from anatomix_tpu_torch.kernels.resize import upsample2x_trilinear_ndhwc
 from anatomix_tpu_torch.models.unet import UnetPlan, check_supported
 from anatomix_tpu_torch.ops.activations import UNET_LRELU_SLOPE
 from anatomix_tpu_torch.ops.conv import pack_conv_weight
+from anatomix_tpu_torch.ops.norms import (
+    fold_affine,
+    instance_norm_stats,
+    tile_maps,
+)
 from anatomix_tpu_torch.ops.pool import avg_pool, max_pool
 
 
-def _epilogue_act(plan: UnetPlan, conv_idx: int) -> str:
-    """The activation layer a conv's epilogue absorbs: the next layer after
-    folded norms ('identity'), if it is an activation."""
+def _following_act(plan: UnetPlan, idx: int) -> str:
+    """The activation that layer `idx`'s output feeds, skipping folded
+    norms ('identity'): it runs in that layer's epilogue. A live norm
+    between a conv and its activation takes the activation instead, so the
+    conv gets 'none'."""
     cfg = plan.config
-    for spec in plan.layers[conv_idx + 1:]:
+    for spec in plan.layers[idx + 1:]:
         if spec.kind == "identity":
             continue
         if spec.kind == "act":
@@ -53,27 +78,57 @@ def prepack_fused(
     device: torch.device | str,
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> dict[int, dict[str, Any]]:
-    """Pack every conv of a BN-folded plan once: weights `(27 * Ci, Co)` in
-    `compute_dtype`, bias f32, and the epilogue activation."""
+    """Pack every conv once: weights `(27 * Ci, Co)` in `compute_dtype`,
+    bias f32, and the activation its epilogue runs; each live instance
+    norm gets its f32 affine (or None) and the activation it applies.
+    Batch norms must be folded first."""
     check_supported(plan.config)
-    if any(spec.kind == "norm" for spec in plan.layers):
+    if plan.config.norm == "batch" and any(
+            spec.kind == "norm" for spec in plan.layers):
         raise ValueError(
             "prepack_fused needs a BN-folded plan (extract.fold_batchnorm)"
         )
+    live = plan.config.norm in ("instance", "instance_affine")
     packed = {}
-    for idx in plan.conv_indices:
-        spec = plan.layers[idx]
-        w = state_dict[f"model.{idx}.weight"].float()
-        b = state_dict.get(f"model.{idx}.bias")
-        if b is None:
-            b = torch.zeros(spec.out_ch)
-        packed[idx] = {
-            "w": pack_conv_weight(w).to(device=device, dtype=compute_dtype)
-            .contiguous(),
-            "b": b.float().to(device).contiguous(),
-            "act": _epilogue_act(plan, idx),
-        }
+    for idx, spec in enumerate(plan.layers):
+        if spec.kind == "conv":
+            w = state_dict[f"model.{idx}.weight"].float()
+            if live and idx == 0:  # the entry reads (hi, lo) of the volume
+                w = torch.cat([w, w], dim=1)
+            b = state_dict.get(f"model.{idx}.bias")
+            if b is None:
+                b = torch.zeros(spec.out_ch)
+            nxt = plan.layers[idx + 1].kind if idx + 1 < len(plan.layers) \
+                else None
+            packed[idx] = {
+                "w": pack_conv_weight(w).to(device=device,
+                                            dtype=compute_dtype)
+                .contiguous(),
+                "b": b.float().to(device).contiguous(),
+                "act": _following_act(plan, idx),
+                "f32_out": nxt == "norm",
+                "split_input": live and idx == 0,
+            }
+        elif spec.kind == "norm":
+            affine = {
+                k: (state_dict[f"model.{idx}.{n}"].float().to(device)
+                    if plan.config.norm == "instance_affine" else None)
+                for k, n in (("scale", "weight"), ("bias", "bias"))
+            }
+            packed[idx] = dict(affine, act=_following_act(plan, idx))
     return packed
+
+
+def _instance_norm(feat, p, *, eps, tile_counts, out_dtype):
+    """Live instance norm + its activation: torch statistics, then the
+    norm-apply kernel."""
+    tile_counts = tuple(tile_counts or (1, 1, 1))
+    mean, var = instance_norm_stats(feat, tile_counts)
+    a, s = fold_affine(mean, var, eps, p["scale"], p["bias"])
+    maps = tile_maps(feat.shape[1:4], tile_counts, feat.device)
+    return norm_apply_ndhwc(feat, a.contiguous(), s.contiguous(), maps,
+                            act=p["act"], slope=UNET_LRELU_SLOPE,
+                            out_dtype=out_dtype)
 
 
 def unet_apply_fused(
@@ -82,9 +137,12 @@ def unet_apply_fused(
     x: torch.Tensor,
     *,
     compute_dtype: torch.dtype = torch.bfloat16,
+    in_tile_counts: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
     """Forward of NDHWC `x` (B, D, H, W, Cin); returns f32 (B, D, H, W, Co).
-    Spatial extents must be divisible by 2**num_downs."""
+    Spatial extents must be divisible by 2**num_downs. `in_tile_counts`
+    gives live instance norms per-tile statistics (`full_tiled`), split at
+    each level from that level's own extent."""
     cfg = plan.config
     last_conv = plan.conv_indices[-1]
     feat = x.to(compute_dtype).contiguous()
@@ -95,21 +153,36 @@ def unet_apply_fused(
             p = packed[idx]
             kw = dict(
                 act=p["act"], slope=UNET_LRELU_SLOPE, pad_type=cfg.pad_type,
-                out_dtype=torch.float32 if idx == last_conv else compute_dtype,
+                out_dtype=(torch.float32 if idx == last_conv or p["f32_out"]
+                           else compute_dtype),
             )
-            if small is not None:
+            if p["split_input"]:  # feat is hi = the rounded volume
+                lo = (x.float() - feat.float()).to(compute_dtype)
+                feat = conv3x3x3_cat_ndhwc(feat, lo.contiguous(), p["w"],
+                                           p["b"], **kw)
+            elif small is not None and cfg.interp == "nearest":
                 feat = conv3x3x3_upcat_ndhwc(enc, small, p["w"], p["b"], **kw)
-                small = enc = None
+            elif small is not None and enc is not None:
+                feat = conv3x3x3_cat_ndhwc(enc, small, p["w"], p["b"], **kw)
             else:
-                feat = conv3x3x3_ndhwc(feat, p["w"], p["b"], **kw)
+                feat = conv3x3x3_ndhwc(
+                    feat if small is None else small, p["w"], p["b"], **kw)
+            small = enc = None
+        elif spec.kind == "norm":
+            feat = _instance_norm(feat, packed[idx], eps=cfg.norm_eps,
+                                  tile_counts=in_tile_counts,
+                                  out_dtype=compute_dtype)
         elif spec.kind == "pool":
             feat = (max_pool if cfg.pooling == "Max" else avg_pool)(feat, 2)
         elif spec.kind == "upsample":
-            small = feat
+            # nearest: the up-concat conv reads the small tensor itself;
+            # trilinear: the upsampled tensor feeds the two-operand conv
+            small = (feat if cfg.interp == "nearest"
+                     else upsample2x_trilinear_ndhwc(feat))
             enc = enc_feats.pop() if cfg.use_skip_connection else None
             feat = None
-        # 'act' / 'final_act' ran in the conv epilogue; 'identity' is a
-        # folded norm
+        # 'act' / 'final_act' ran in a conv epilogue or a norm-apply pass;
+        # 'identity' is a folded norm
         if cfg.use_skip_connection and idx in plan.encoder_idx:
             enc_feats.append(feat)
     return feat

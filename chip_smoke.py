@@ -10,18 +10,30 @@ Phases, each printed on its own lines; any failure exits non-zero:
   1. the device, its name and power limit (nvidia-smi), then the build of
      every CUDA kernel from `anatomix_tpu_torch/kernels/csrc/` with nvcc;
   2. each kernel against its plain PyTorch version (f32, TF32 off) on the
-     same bf16 inputs, at the shapes the main path gives it, with times;
+     same bf16 inputs, at the shapes the 6M and the 94M dev paths give it,
+     with times;
   3. `full`: the 6M `anatomix` UNet at full width with seeded weights on a
      256^3 volume through `make_feature_extractor(strategy="full")`, held
      against the port's plain f32 path on the card;
   4. `sliding` at the reference settings (roi 128, overlap 0.8, gaussian,
      sigma-scale 0.25, sw_batch 2) on 256^3 (343 windows), and held against
      the plain f32 path on a 160^3 volume (27 windows);
-  5. the `kernels` JSON line (launches on the main path, errors, times and
+  5. the 94M `anatomix-dev` UNet (instance norm, Avg pool, trilinear) at
+     full width and depth with seeded weights: one 128^3 forward
+     (`[dev-fwd128]`), `full_tiled` on 256^3 with 2x2x2 norm tiles
+     (`[dev-full_tiled]`, held against the f32 plain path at 256^3) and
+     `sliding` at the reference settings on 256^3 (`[dev-sliding]`, held
+     against the f32 plain path at 160^3), then the mean voxelwise cosine
+     between the dev `full_tiled` and `sliding` features;
+  6. the `kernels` JSON line (launches on each path, errors, times and
      bounds), then the device's JSON line last.
 
+Each path runs with every launch count set to 0 just before it and read
+just after; a kernel the path should run that was not launched fails it.
+
 `--quick` runs phases 1 and 2 only; `--profile` runs phases 1 and 2, then
-profiles the sliding path on 160^3 with torch.profiler. Details go to
+profiles the 6M and the dev sliding paths on 160^3 with torch.profiler.
+The JSON report and the profiles go to
 `chiprun_out/`.
 """
 
@@ -52,6 +64,8 @@ TOL_SCATTER = 1e-5
 # TPU path to (tests/test_tpu_numerics.py:23-64); the max error relative to
 # max |f32| is printed beside it
 TOL_MODEL = 3e-2
+# the dev paths' volume sizes (sliding: 343 windows at 256^3)
+DEV_SLIDING_SIZE = 256
 
 
 def log(msg: str) -> None:
@@ -197,13 +211,13 @@ def check_upcat(kc, torch, F, dev, gen, B, S, c1, c2, co):
     )
 
 
-def check_scatter(ks, sw, torch, dev, gen):
-    """One stitch chunk on the 256^3 x 16 sliding canvas: two overlapping
+def check_scatter(ks, sw, torch, dev, gen, C=16):
+    """One stitch chunk on the 256^3 x C sliding canvas: two overlapping
     128^3 windows (starts 25 apart, MONAI's stride at overlap 0.8) and one
     masked padding window."""
     import numpy as np
 
-    r, C, S = 128, 16, 256
+    r, S = 128, 256
     axes, minv = sw.gaussian_importance_axes((r, r, r), 0.25)
     gd, gh, gw = (torch.as_tensor(a, dtype=torch.float32, device=dev)
                   for a in axes)
@@ -243,6 +257,96 @@ def check_scatter(ks, sw, torch, dev, gen):
     )
 
 
+def check_cat(kc, torch, F, dev, gen, B, S, c1, c2, co):
+    """conv3x3x3_cat_ndhwc: enc (B, S^3, c1) + up (B, S^3, c2), reflect, no
+    epilogue act (a live instance norm follows every dev decoder conv)."""
+    enc = torch.randn((B, S, S, S, c1), generator=gen, device=dev).to(
+        torch.bfloat16)
+    up = torch.randn((B, S, S, S, c2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ci = c1 + c2
+    w = (torch.randn((27 * ci, co), generator=gen, device=dev)
+         * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+    b = torch.randn((co,), generator=gen, device=dev) * 0.1
+    kw = dict(act="none", pad_type="reflect")
+    got = kc.conv3x3x3_cat_ndhwc(enc, up, w, b, **kw)
+    ref = kc.conv3x3x3_cat_ndhwc_plain(enc, up, w, b, **kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    ms = cuda_ms(lambda: kc.conv3x3x3_cat_ndhwc(enc, up, w, b, **kw))
+    plain_ms = cuda_ms(
+        lambda: kc.conv3x3x3_cat_ndhwc_plain(enc, up, w, b, **kw))
+    # yardstick: F.conv3d (cuDNN, bf16, channels-last) over the already
+    # materialized, reflect-padded concat; the concat is not timed
+    cat = torch.cat([enc, up], dim=-1).permute(0, 4, 1, 2, 3)
+    xc = F.pad(cat, (1,) * 6, mode="reflect").contiguous(
+        memory_format=torch.channels_last_3d)
+    wt = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    lib_ms = cuda_ms(lambda: F.conv3d(xc, wt, b.to(torch.bfloat16)))
+    vox = B * S ** 3
+    flops = 2.0 * vox * 27 * ci * co
+    nbytes = vox * ci * 2 + 27 * ci * co * 2 + co * 4 + vox * co * 2
+    b_ms, b_by = bound(flops, nbytes)
+    return dict(
+        shape=f"B{B} {S}^3 [{c1}+{c2}]->{co}", max_abs_err=err,
+        rel_err=rel, tol=TOL_CONV_BF16, ok=rel < TOL_CONV_BF16, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+    )
+
+
+def check_upsample(kr, torch, F, dev, gen, B, s, C):
+    """upsample2x_trilinear_ndhwc: (B, s^3, C) -> (B, (2s)^3, C)."""
+    x = torch.randn((B, s, s, s, C), generator=gen, device=dev).to(
+        torch.bfloat16)
+    got = kr.upsample2x_trilinear_ndhwc(x)
+    ref = kr.upsample2x_trilinear_ndhwc_plain(x)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    ms = cuda_ms(lambda: kr.upsample2x_trilinear_ndhwc(x))
+    plain_ms = cuda_ms(lambda: kr.upsample2x_trilinear_ndhwc_plain(x))
+    # yardstick: one F.interpolate call on the same bf16 storage (the
+    # NCDHW view of an NDHWC tensor is channels-last)
+    xc = x.permute(0, 4, 1, 2, 3)
+    lib_ms = cuda_ms(lambda: F.interpolate(
+        xc, scale_factor=2, mode="trilinear", align_corners=False))
+    n_in = x.numel()
+    # each input read once, each output written once (bf16); 8 weighted
+    # corners per output element
+    b_ms, b_by = bound(16.0 * 8 * n_in, 2.0 * 9 * n_in, PEAK_F32_FLOPS)
+    return dict(
+        shape=f"B{B} {s}^3x{C} -> {2 * s}^3", max_abs_err=err, rel_err=rel,
+        tol=TOL_CONV_BF16, ok=rel < TOL_CONV_BF16, ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+    )
+
+
+def check_norm_apply(kn, norms, torch, dev, gen, B, S, C, tiles, act):
+    """norm_apply_ndhwc with the statistics of the input itself (eps 1e-2,
+    the dev norm), per `tiles`. The input is f32, as the dev path stores the
+    convs that feed a live norm; the output bf16."""
+    x = torch.randn((B, S, S, S, C), generator=gen, device=dev)
+    mean, var = norms.instance_norm_stats(x, tiles)
+    a, s = norms.fold_affine(mean, var, 1e-2)
+    maps = norms.tile_maps(x.shape[1:4], tiles, dev)
+    got = kn.norm_apply_ndhwc(x, a, s, maps, act=act)
+    ref = kn.norm_apply_ndhwc_plain(x, a, s, maps, act=act)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    ms = cuda_ms(lambda: kn.norm_apply_ndhwc(x, a, s, maps, act=act))
+    plain_ms = cuda_ms(
+        lambda: kn.norm_apply_ndhwc_plain(x, a, s, maps, act=act))
+    n = x.numel()
+    # f32 in, bf16 out, the (a, s) rows and the maps once each
+    nbytes = 6.0 * n + 8.0 * a.numel() + 4.0 * sum(m.numel() for m in maps)
+    b_ms, b_by = bound(3.0 * n, nbytes, PEAK_F32_FLOPS)
+    return dict(
+        shape=f"B{B} {S}^3x{C} tiles {tiles} {act}", max_abs_err=err,
+        rel_err=rel, tol=TOL_CONV_BF16, ok=rel < TOL_CONV_BF16, ms=ms,
+        plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+    )
+
+
 # -----------------------------------------------------------------------------
 
 def synthetic_volume(torch, dev, size: int, seed: int):
@@ -260,18 +364,35 @@ def synthetic_volume(torch, dev, size: int, seed: int):
     return vol[None, ..., None].contiguous()
 
 
-def counts(kc, ks):
-    return {
-        "conv3x3x3_ndhwc": kc.conv3x3x3_ndhwc.launches,
-        "conv3x3x3_upcat_ndhwc": kc.conv3x3x3_upcat_ndhwc.launches,
-        "blend_scatter": ks.blend_scatter.launches,
-    }
+def counts(wrappers):
+    return {name: fn.launches for name, fn in wrappers.items()}
 
 
-def reset_counts(kc, ks):
-    kc.conv3x3x3_ndhwc.launches = 0
-    kc.conv3x3x3_upcat_ndhwc.launches = 0
-    ks.blend_scatter.launches = 0
+def reset_counts(wrappers):
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def check_path(name, feats, shape, launched, needed):
+    """Fail the run on a wrong shape, a non-finite value or a kernel of the
+    path that was not launched."""
+    import torch
+
+    if tuple(feats.shape) != shape:
+        raise RuntimeError(f"{name}: bad output shape {tuple(feats.shape)}")
+    if not torch.isfinite(feats).all():
+        raise RuntimeError(f"{name}: non-finite features")
+    missing = [k for k in needed if launched[k] == 0]
+    if missing:
+        raise RuntimeError(f"{name}: kernels not launched {missing}: "
+                           f"{launched}")
+
+
+def mean_cosine(a, b) -> float:
+    """Mean over voxels of the cosine between two feature vectors."""
+    num = (a * b).sum(-1)
+    den = (a.norm(dim=-1) * b.norm(dim=-1)).clamp_min(1e-12)
+    return (num / den).mean().item()
 
 
 def timed(torch, fn):
@@ -282,7 +403,8 @@ def timed(torch, fn):
     return y, time.perf_counter() - t0
 
 
-def profile_sliding(torch, make_feature_extractor, plan, sd, dev, out_dir):
+def profile_sliding(torch, make_feature_extractor, plan, sd, dev, out_dir,
+                    tag="6m"):
     """Kernel time by name and the device's busy share over the sliding
     path on 160^3 (27 windows, 14 chunks of 2), from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -310,11 +432,12 @@ def profile_sliding(torch, make_feature_extractor, plan, sd, dev, out_dir):
          if ev.device_type == DeviceType.CUDA and getattr(ev, attr) > 0),
         reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    with open(os.path.join(out_dir, "profile_sliding160.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_sliding160_{tag}.txt"),
+              "w") as f:
         f.write(events.table(sort_by=attr, row_limit=40))
-    log(f"[profile] sliding 160^3: wall {wall_ms:.2f} ms, device busy "
+    log(f"[profile] {tag} sliding 160^3: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
-    for ms, count, key in rows[:12]:
+    for ms, count, key in rows[:16]:
         log(f"[profile]   {ms:9.3f} ms  {count:5d}x  {key[:90]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
                 top=[dict(ms=r[0], count=r[1], name=r[2]) for r in rows[:20]])
@@ -338,11 +461,27 @@ def main(argv) -> int:
     from anatomix_tpu_torch.extract import make_feature_extractor
     from anatomix_tpu_torch.kernels import build
     from anatomix_tpu_torch.kernels import conv as kc
+    from anatomix_tpu_torch.kernels import norm as kn
+    from anatomix_tpu_torch.kernels import resize as kr
     from anatomix_tpu_torch.kernels import scatter as ks
     from anatomix_tpu_torch.models.load import load_model
     from anatomix_tpu_torch.models.registry import ANATOMIX_VARIANTS
+    from anatomix_tpu_torch.models.unet import (
+        UnetConfig,
+        build_plan,
+        init_params,
+    )
+    from anatomix_tpu_torch.ops import norms
     from anatomix_tpu_torch.ops import sliding_window as sw
 
+    wrappers = {
+        "conv3x3x3_ndhwc": kc.conv3x3x3_ndhwc,
+        "conv3x3x3_upcat_ndhwc": kc.conv3x3x3_upcat_ndhwc,
+        "blend_scatter": ks.blend_scatter,
+        "conv3x3x3_cat_ndhwc": kc.conv3x3x3_cat_ndhwc,
+        "upsample2x_trilinear_ndhwc": kr.upsample2x_trilinear_ndhwc,
+        "norm_apply_ndhwc": kn.norm_apply_ndhwc,
+    }
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -352,6 +491,7 @@ def main(argv) -> int:
         f"torch={torch.__version__} cuda={torch.version.cuda}")
     log(smi)
     report = {"device": kind, "nvidia_smi": smi}
+    t_start = time.perf_counter()
 
     # phase 1: build every kernel library, one nvcc per source in parallel
     t0 = time.perf_counter()
@@ -363,10 +503,9 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build:{name}] {line.strip()}")
 
-    # phase 2: kernels vs plain at the main path's shapes
+    # phase 2: kernels vs plain at the main paths' shapes
     gen = torch.Generator(device=dev).manual_seed(0)
-    checks = {"conv3x3x3_ndhwc": [], "conv3x3x3_upcat_ndhwc": [],
-              "blend_scatter": []}
+    checks = {name: [] for name in wrappers}
     # the sliding path's shapes: chunks of sw_batch 2 windows of 128^3
     for B, S, ci, co, f32 in [
         (2, 128, 1, 16, False),    # entry conv
@@ -374,6 +513,10 @@ def main(argv) -> int:
         (2, 32, 64, 64, False),
         (2, 8, 256, 256, False),
         (2, 128, 16, 16, True),    # exit conv, f32 store
+        # the dev UNet: full-resolution level, 8^3 level, 4^3 bottleneck
+        (2, 128, 32, 32, False),
+        (2, 8, 512, 512, False),
+        (2, 4, 1024, 1024, False),
     ]:
         checks["conv3x3x3_ndhwc"].append(
             check_conv(kc, torch, F, dev, gen, B, S, ci, co, f32))
@@ -384,6 +527,24 @@ def main(argv) -> int:
         checks["conv3x3x3_upcat_ndhwc"].append(
             check_upcat(kc, torch, F, dev, gen, B, S, c1, c2, co))
     checks["blend_scatter"].append(check_scatter(ks, sw, torch, dev, gen))
+    checks["blend_scatter"].append(
+        check_scatter(ks, sw, torch, dev, gen, C=32))
+    for B, S, c1, c2, co in [
+        (2, 128, 32, 64, 32), (2, 32, 128, 256, 128),
+        (2, 8, 512, 1024, 512),
+    ]:
+        checks["conv3x3x3_cat_ndhwc"].append(
+            check_cat(kc, torch, F, dev, gen, B, S, c1, c2, co))
+    for B, s, C in [(2, 64, 64), (2, 4, 1024)]:
+        checks["upsample2x_trilinear_ndhwc"].append(
+            check_upsample(kr, torch, F, dev, gen, B, s, C))
+    for B, S, tiles, act in [
+        (2, 128, (1, 1, 1), "relu"),     # sliding: per-window stats
+        (1, 256, (2, 2, 2), "relu"),     # full_tiled 256^3
+        (2, 40, (3, 3, 3), "relu"),      # uneven tiles
+    ]:
+        checks["norm_apply_ndhwc"].append(check_norm_apply(
+            kn, norms, torch, dev, gen, B, S, 32, tiles, act))
     failed = []
     for name, rows in checks.items():
         for row in rows:
@@ -397,6 +558,7 @@ def main(argv) -> int:
     report["checks"] = checks
     if failed:
         raise RuntimeError(f"kernel disagrees with its plain version: {failed}")
+    torch.cuda.empty_cache()
     if quick:
         return 0
 
@@ -412,26 +574,27 @@ def main(argv) -> int:
     if "--profile" in argv:
         report["profile"] = profile_sliding(
             torch, make_feature_extractor, plan, sd, dev, out_dir)
+        dplan = build_plan(UnetConfig(
+            **ANATOMIX_VARIANTS["anatomix-dev"]["unet_kwargs"]))
+        dsd = {k: v.to(dev) for k, v in init_params(
+            dplan, torch.Generator().manual_seed(0)).items()}
+        report["profile_dev"] = profile_sliding(
+            torch, make_feature_extractor, dplan, dsd, dev, out_dir, "dev")
         with open(os.path.join(out_dir, "chip_profile.json"), "w") as f:
             json.dump(report, f, indent=1)
         return 0
+    paths = {}  # launches per path, each counted from 0
     vol256 = synthetic_volume(torch, dev, 256, seed=1)
     full = make_feature_extractor(plan, sd, strategy="full", device=dev)
     full(vol256[:, :32, :32, :32])  # first call: kernel libraries loaded
     torch.cuda.synchronize()
-    reset_counts(kc, ks)
+    reset_counts(wrappers)
     feats, full_s = timed(torch, lambda: full(vol256))
-    full_counts = counts(kc, ks)
+    full_counts = paths["full_256"] = counts(wrappers)
     log(f"[full] 256^3 -> {tuple(feats.shape)} in {full_s:.4f} s, "
         f"launches {full_counts}")
-    if tuple(feats.shape) != (1, 256, 256, 256, 16):
-        raise RuntimeError(f"full: bad output shape {tuple(feats.shape)}")
-    if not torch.isfinite(feats).all():
-        raise RuntimeError("full: non-finite features")
-    if min(full_counts["conv3x3x3_ndhwc"],
-           full_counts["conv3x3x3_upcat_ndhwc"]) == 0:
-        raise RuntimeError(f"full: a conv kernel was not launched "
-                           f"{full_counts}")
+    check_path("full", feats, (1, 256, 256, 256, 16), full_counts,
+               ["conv3x3x3_ndhwc", "conv3x3x3_upcat_ndhwc"])
     plain_full = make_feature_extractor(plan, sd, strategy="full",
                                         impl="eager", device=dev)
     ref, plain_full_s = timed(torch, lambda: plain_full(vol256))
@@ -446,9 +609,9 @@ def main(argv) -> int:
     del feats, ref, plain_full
     # one 128^3 forward (B=1), the unit of the sliding path, by CUDA events
     vol128 = vol256[:, :128, :128, :128].contiguous()
-    reset_counts(kc, ks)
+    reset_counts(wrappers)
     full(vol128)
-    fwd_counts = counts(kc, ks)
+    fwd_counts = counts(wrappers)
     fwd_ms = cuda_ms(lambda: full(vol128))
     eager128 = make_feature_extractor(plan, sd, strategy="full",
                                       impl="eager", device=dev)
@@ -465,20 +628,16 @@ def main(argv) -> int:
                  sw_batch_size=2)
     sliding = make_feature_extractor(plan, sd, device=dev, **sw_kw)
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(kc, ks)
+    reset_counts(wrappers)
     feats, slide_s = timed(torch, lambda: sliding(vol256))
-    slide_counts = counts(kc, ks)
+    slide_counts = paths["sliding_256"] = counts(wrappers)
     n_win = len(sw.compute_window_starts((256,) * 3, (128,) * 3, 0.8))
     log(f"[sliding] 256^3, {n_win} windows -> {tuple(feats.shape)} in "
         f"{slide_s:.4f} s, launches {slide_counts}, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if tuple(feats.shape) != (1, 256, 256, 256, 16):
-        raise RuntimeError(f"sliding: bad output shape {tuple(feats.shape)}")
-    if not torch.isfinite(feats).all():
-        raise RuntimeError("sliding: non-finite features")
-    if min(slide_counts.values()) == 0:
-        raise RuntimeError(f"sliding: a kernel was not launched "
-                           f"{slide_counts}")
+    check_path("sliding", feats, (1, 256, 256, 256, 16), slide_counts,
+               ["conv3x3x3_ndhwc", "conv3x3x3_upcat_ndhwc",
+                "blend_scatter"])
     del feats
     vol160 = synthetic_volume(torch, dev, 160, seed=2)
     got = sliding(vol160)
@@ -492,8 +651,17 @@ def main(argv) -> int:
         raise RuntimeError(f"sliding: error {e} over {TOL_MODEL}")
     report["sliding"] = dict(seconds=slide_s, windows=n_win,
                              launches=slide_counts, check_160=e)
+    del got, ref, sliding, full
+    torch.cuda.empty_cache()
 
-    # phase 5: the kernels line
+    # phase 5: the 94M dev UNet at full width and depth, seeded weights
+    report["dev"] = run_dev(
+        torch, dev, make_feature_extractor, wrappers, paths,
+        build_plan(UnetConfig(**ANATOMIX_VARIANTS["anatomix-dev"]
+                              ["unet_kwargs"])),
+        init_params, vol256, vol128, vol160, sw_kw, sw)
+
+    # phase 6: the kernels line
     replaces = {
         "conv3x3x3_ndhwc": (
             "anatomix_tpu/ops/pallas/conv_block.py:248 "
@@ -505,36 +673,157 @@ def main(argv) -> int:
             "conv_block_skip_halo (+ _halo_wide :1696, _valid :1873)"),
         "blend_scatter": "anatomix_tpu/ops/pallas/scatter.py:128 "
                          "blend_scatter_fold",
+        "conv3x3x3_cat_ndhwc": (
+            "anatomix_tpu/ops/pallas/conv_block.py:1166 "
+            "conv_block_sparse_cat_halo (+ _halo_wide :1278)"),
+        "upsample2x_trilinear_ndhwc": (
+            "anatomix_tpu/ops/pallas/upsample.py:75 "
+            "upsample2x_trilinear_block_pallas"),
+        "norm_apply_ndhwc": "anatomix_tpu/ops/pallas/norm_apply.py:46 "
+                            "norm_apply_block",
     }
+    csrc = "anatomix_tpu_torch/kernels/csrc/"
     sources = {
-        "conv3x3x3_ndhwc": "anatomix_tpu_torch/kernels/csrc/conv3d.cu",
-        "conv3x3x3_upcat_ndhwc": "anatomix_tpu_torch/kernels/csrc/conv3d.cu",
-        "blend_scatter": "anatomix_tpu_torch/kernels/csrc/blend_scatter.cu",
+        "conv3x3x3_ndhwc": csrc + "conv3d.cu",
+        "conv3x3x3_upcat_ndhwc": csrc + "conv3d.cu",
+        "blend_scatter": csrc + "blend_scatter.cu",
+        "conv3x3x3_cat_ndhwc": csrc + "conv3d.cu",
+        "upsample2x_trilinear_ndhwc": csrc + "upsample.cu",
+        "norm_apply_ndhwc": csrc + "norm_apply.cu",
     }
     # the line reports each kernel at its dominant main-path shape: the
-    # 16-channel 128^3 conv, the 48->16 decoder conv, the stitch chunk
+    # 16-channel 128^3 conv, the 48->16 decoder conv, the 6M stitch chunk,
+    # the dev 96->32 decoder conv, the 64^3 -> 128^3 upsample and the
+    # global norm of a 128^3 window pair
     headline = {"conv3x3x3_ndhwc": 1, "conv3x3x3_upcat_ndhwc": 3,
-                "blend_scatter": 0}
+                "blend_scatter": 0, "conv3x3x3_cat_ndhwc": 0,
+                "upsample2x_trilinear_ndhwc": 0, "norm_apply_ndhwc": 0}
     kernels = []
     for name, rows in checks.items():
         row = rows[headline[name]]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name],
-            "launches": full_counts[name] + slide_counts[name],
-            "launches_full_256": full_counts[name],
-            "launches_sliding_256": slide_counts[name],
+            "launches": sum(c[name] for c in paths.values()),
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
             "shape": row["shape"], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
     report["kernels"] = kernels
+    report["paths"] = paths
+    report["total_s"] = time.perf_counter() - t_start
+    log(f"[total] {report['total_s']:.1f} s after the device check")
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(nvidia_smi())
     print(json.dumps({"kernels": kernels}), flush=True)
     return 0
+
+
+def run_dev(torch, dev, make_feature_extractor, wrappers, paths, dplan,
+            init_params, vol256, vol128, vol160, sw_kw, sw):
+    """Phase 5: the 94M dev UNet (registry `anatomix-dev`: ngf 32,
+    num_downs 5, instance norm eps 1e-2, Avg pool, trilinear) at full width
+    and depth with seeded weights, on each of its paths."""
+    dev_needed = ["conv3x3x3_ndhwc", "conv3x3x3_cat_ndhwc",
+                  "upsample2x_trilinear_ndhwc", "norm_apply_ndhwc"]
+    dsd = {k: v.to(dev) for k, v in
+           init_params(dplan, torch.Generator().manual_seed(0)).items()}
+    n_params = sum(v.numel() for v in dsd.values())
+    out = {"params": n_params}
+    log(f"[dev] anatomix-dev: {n_params} parameters, "
+        f"{len(dplan.conv_indices)} convs")
+
+    # one B=1 forward at 128^3 (global statistics), by CUDA events
+    dfull = make_feature_extractor(dplan, dsd, strategy="full", device=dev)
+    dfull(vol128)
+    torch.cuda.synchronize()
+    reset_counts(wrappers)
+    y = dfull(vol128)
+    torch.cuda.synchronize()
+    c = paths["dev_fwd128"] = counts(wrappers)
+    check_path("dev-fwd128", y, (1, 128, 128, 128, 32), c, dev_needed)
+    ms = cuda_ms(lambda: dfull(vol128))
+    deager = make_feature_extractor(dplan, dsd, strategy="full",
+                                    impl="eager", device=dev)
+    e = model_err(y, deager(vol128))
+    plain_ms = cuda_ms(lambda: deager(vol128))
+    log(f"[dev-fwd128] 94M forward 128^3 B=1: kernels {ms:.4f} ms, plain "
+        f"f32 path {plain_ms:.4f} ms; vs plain mean|err|/std "
+        f"{e['mean_err_over_std']:.3e} (tol {TOL_MODEL}), max_abs_err "
+        f"{e['max_abs_err']:.3e}; launches {c}")
+    if not e["mean_err_over_std"] < TOL_MODEL:
+        raise RuntimeError(f"dev-fwd128: error {e} over {TOL_MODEL}")
+    out["fwd128"] = dict(ms=ms, plain_ms=plain_ms, launches=c, **e)
+    del y, dfull, deager
+    torch.cuda.empty_cache()
+
+    # full_tiled on 256^3: 2x2x2 norm tiles at every level
+    tiled_kw = dict(strategy="full_tiled", roi_size=(128, 128, 128))
+    dtiled = make_feature_extractor(dplan, dsd, device=dev, **tiled_kw)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    feats_t, t_s = timed(torch, lambda: dtiled(vol256))
+    c = paths["dev_full_tiled_256"] = counts(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_path("dev-full_tiled", feats_t, (1, 256, 256, 256, 32), c,
+               dev_needed)
+    ref, plain_s = timed(torch, lambda: make_feature_extractor(
+        dplan, dsd, device=dev, impl="eager", **tiled_kw)(vol256))
+    e = model_err(feats_t, ref)
+    del ref
+    log(f"[dev-full_tiled] 256^3 tiles (2, 2, 2) -> "
+        f"{tuple(feats_t.shape)} in {t_s:.4f} s (plain f32 path "
+        f"{plain_s:.4f} s), peak {peak:.2f} GiB; vs plain mean|err|/std "
+        f"{e['mean_err_over_std']:.3e} (tol {TOL_MODEL}), max_abs_err "
+        f"{e['max_abs_err']:.3e}; launches {c}")
+    if not e["mean_err_over_std"] < TOL_MODEL:
+        raise RuntimeError(f"dev-full_tiled: error {e} over {TOL_MODEL}")
+    out["full_tiled_256"] = dict(seconds=t_s, plain_seconds=plain_s,
+                                 peak_gib=peak, launches=c, **e)
+    del dtiled
+    torch.cuda.empty_cache()
+
+    # sliding at the reference settings
+    S = DEV_SLIDING_SIZE
+    vol = vol256[:, :S, :S, :S].contiguous()
+    dslide = make_feature_extractor(dplan, dsd, device=dev, **sw_kw)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    feats_s, s_s = timed(torch, lambda: dslide(vol))
+    c = paths[f"dev_sliding_{S}"] = counts(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_win = len(sw.compute_window_starts((S,) * 3, (128,) * 3, 0.8))
+    check_path("dev-sliding", feats_s, (1, S, S, S, 32), c,
+               dev_needed + ["blend_scatter"])
+    log(f"[dev-sliding] {S}^3, {n_win} windows -> {tuple(feats_s.shape)} "
+        f"in {s_s:.4f} s, peak {peak:.2f} GiB, launches {c}")
+    out["sliding"] = dict(size=S, seconds=s_s, windows=n_win, peak_gib=peak,
+                          launches=c)
+    # two feature definitions (per-tile vs per-window statistics), not a
+    # kernel check: printed, not gated
+    cos = mean_cosine(feats_t[:, :S, :S, :S], feats_s)
+    log(f"[dev] mean voxelwise cosine full_tiled vs sliding at {S}^3: "
+        f"{cos:.4f}")
+    out["cosine_full_tiled_vs_sliding"] = cos
+    del feats_t, feats_s
+    torch.cuda.empty_cache()
+    got = dslide(vol160)
+    ref = make_feature_extractor(dplan, dsd, device=dev, impl="eager",
+                                 **sw_kw)(vol160)
+    e = model_err(got, ref)
+    log(f"[dev-sliding] 160^3 (27 windows) vs plain f32 path: "
+        f"mean|err|/std {e['mean_err_over_std']:.3e} (tol {TOL_MODEL}), "
+        f"max_abs_err {e['max_abs_err']:.3e}")
+    if not e["mean_err_over_std"] < TOL_MODEL:
+        raise RuntimeError(f"dev-sliding: error {e} over {TOL_MODEL}")
+    out["sliding"]["check_160"] = e
+    for name in wrappers:
+        log(f"[launches] {name}: " + ", ".join(
+            f"{p} {v[name]}" for p, v in paths.items()))
+    return out
 
 
 if __name__ == "__main__":

@@ -138,8 +138,12 @@ def test_extractor_auto_and_unsupported(models):
     full = extract.make_feature_extractor(plan, sd, strategy="full",
                                           device="cpu")(vol)
     assert torch.equal(auto, full)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        extract.make_feature_extractor(plan, sd, strategy="full_tiled",
+    # a batch-norm model has no live norm: full_tiled is full
+    tiled = extract.make_feature_extractor(
+        plan, sd, strategy="full_tiled", roi_size=(8, 8, 8), device="cpu")(vol)
+    assert torch.equal(tiled, full)
+    with pytest.raises(ValueError, match="Unknown strategy"):
+        extract.make_feature_extractor(plan, sd, strategy="tiles",
                                        device="cpu")
     fixed, moving = extract.extract_features(
         vol[0, ..., 0], 2 * vol[0, ..., 0], plan, sd, strategy="full",

@@ -11,15 +11,26 @@ import pytest
 import torch
 
 from anatomix_tpu_torch.kernels.conv import (
+    conv3x3x3_cat_ndhwc,
+    conv3x3x3_cat_ndhwc_plain,
     conv3x3x3_ndhwc,
     conv3x3x3_ndhwc_plain,
     conv3x3x3_upcat_ndhwc,
     conv3x3x3_upcat_ndhwc_plain,
 )
+from anatomix_tpu_torch.kernels.norm import (
+    norm_apply_ndhwc,
+    norm_apply_ndhwc_plain,
+)
+from anatomix_tpu_torch.kernels.resize import (
+    upsample2x_trilinear_ndhwc,
+    upsample2x_trilinear_ndhwc_plain,
+)
 from anatomix_tpu_torch.kernels.scatter import (
     blend_scatter,
     blend_scatter_plain,
 )
+from anatomix_tpu_torch.ops.norms import tile_maps
 from anatomix_tpu_torch.ops.sliding_window import gaussian_importance_axes
 
 
@@ -93,3 +104,62 @@ def test_scatter_kernel_matches_plain(cuda):
                               minv)
     torch.cuda.synchronize()
     assert _maxrel(got.cpu(), ref.cpu()) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c1,c2,co,pad,S", [(32, 64, 32, "reflect", 12),
+                                            (16, 8, 5, "zeros", 9),
+                                            (4, 6, 8, "reflect", 6),
+                                            (64, 128, 64, "reflect", 4)])
+def test_cat_kernel_matches_plain(cuda, c1, c2, co, pad, S):
+    """The two-operand conv at one resolution, down to the dev bottleneck's
+    4^3 (smaller than the kernel's 16x4x2 output brick)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    enc = torch.randn((2, S, S + 1, S + 2, c1), generator=g,
+                      device=cuda).bfloat16()
+    up = torch.randn((2, S, S + 1, S + 2, c2), generator=g,
+                     device=cuda).bfloat16()
+    w = (torch.randn((27 * (c1 + c2), co), generator=g, device=cuda)
+         * 0.1).bfloat16()
+    b = torch.randn((co,), generator=g, device=cuda)
+    for out_dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        kw = dict(act="none", pad_type=pad, out_dtype=out_dtype)
+        got = conv3x3x3_cat_ndhwc(enc, up, w, b, **kw)
+        ref = conv3x3x3_cat_ndhwc_plain(enc, up, w, b, **kw)
+        torch.cuda.synchronize()
+        assert _maxrel(got.float().cpu(), ref.float().cpu()) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,tiles,act,dtype", [
+    ((2, 8, 8, 8, 32), (1, 1, 1), "relu", torch.bfloat16),
+    ((2, 8, 8, 8, 32), (1, 1, 1), "relu", torch.float32),
+    ((1, 16, 12, 20, 32), (2, 2, 2), "lrelu", torch.float32),
+    ((1, 40, 40, 40, 32), (3, 3, 3), "relu", torch.float32),
+    ((2, 6, 5, 7, 12), (2, 1, 3), "none", torch.bfloat16),  # C % 8 != 0
+    ((2, 6, 5, 7, 12), (2, 1, 3), "elu", torch.float32),
+])
+def test_norm_apply_kernel_matches_plain(cuda, shape, tiles, act, dtype):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    ts = (shape[0],) + tiles + (shape[-1],)
+    a = torch.rand(ts, generator=g, device=cuda) + 0.5
+    s = torch.randn(ts, generator=g, device=cuda)
+    maps = tile_maps(shape[1:4], tiles, cuda)
+    got = norm_apply_ndhwc(x, a, s, maps, act=act, slope=0.3)
+    ref = norm_apply_ndhwc_plain(x, a, s, maps, act=act, slope=0.3)
+    torch.cuda.synchronize()
+    assert _maxrel(got.float().cpu(), ref.float().cpu()) < 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 4, 5, 6, 16), (1, 3, 3, 3, 12),
+                                   (1, 1, 2, 3, 8)])
+def test_upsample_kernel_matches_plain(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(shape, generator=g, device=cuda).bfloat16()
+    got = upsample2x_trilinear_ndhwc(x)
+    ref = upsample2x_trilinear_ndhwc_plain(x)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert _maxrel(got.float().cpu(), ref.float().cpu()) < 1e-2

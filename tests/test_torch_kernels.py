@@ -191,4 +191,5 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     assert torch.equal(y, conv3x3x3_ndhwc_plain(
         x, w, b, act="relu", pad_type="zeros", out_dtype=torch.float32))
     assert conv3x3x3_ndhwc.launches == before
-    assert build.SOURCES == ("conv3d", "blend_scatter")
+    assert build.SOURCES == ("conv3d", "blend_scatter", "norm_apply",
+                             "upsample")

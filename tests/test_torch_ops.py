@@ -103,5 +103,5 @@ def test_upsample_nearest_matches_jax():
     got = upsample2x(torch.from_numpy(x), "nearest")
     assert got.shape == ref.shape
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        upsample2x(torch.from_numpy(x), "trilinear")
+    with pytest.raises(ValueError, match="upsample mode"):
+        upsample2x(torch.from_numpy(x), "bicubic")

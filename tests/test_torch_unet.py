@@ -105,10 +105,15 @@ def test_prepack_needs_folded_plan_and_supported_config():
     _, _, plan, sd = _models("anatomix_small")
     with pytest.raises(ValueError, match="fold"):
         prepack_fused(plan, sd, device="cpu")
-    for kw, item in [(dict(norm="instance"), "item 8"),
-                     (dict(interp="trilinear"), "item 8"),
+    for kw, item in [(dict(norm="group"), "unsupported"),
+                     (dict(interp="bicubic"), "unsupported"),
                      (dict(residual_connection=True), "item 15"),
                      (dict(activation="prelu"), "item 15")]:
         cfg = UnetConfig(num_downs=2, ngf=8, **kw)
         with pytest.raises(NotImplementedError, match=item):
             Unet(build_plan(cfg))
+    # the dev family (live instance norm, trilinear) packs unfolded
+    dev = build_plan(UnetConfig(num_downs=2, ngf=8, norm="instance",
+                                interp="trilinear", pooling="Avg"))
+    packed = prepack_fused(dev, Unet(dev).state_dict(), device="cpu")
+    assert packed[0]["act"] == "none" and packed[1]["act"] == "relu"
