@@ -22,6 +22,8 @@ _LAZY = {
 _LAZY_ATTRS = {
     "Unet": ("anatomix_tpu_torch.models.unet", "Unet"),
     "UnetConfig": ("anatomix_tpu_torch.models.unet", "UnetConfig"),
+    "Primus": ("anatomix_tpu_torch.models.vit3d", "Primus"),
+    "PrimusConfig": ("anatomix_tpu_torch.models.vit3d", "PrimusConfig"),
     "load_model": ("anatomix_tpu_torch.models.load", "load_model"),
     "ANATOMIX_VARIANTS": (
         "anatomix_tpu_torch.models.registry", "ANATOMIX_VARIANTS"

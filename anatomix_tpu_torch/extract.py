@@ -1,11 +1,13 @@
-"""Whole-volume feature extraction with the anatomix UNet, on the card.
+"""Whole-volume feature extraction with the anatomix models, on the card.
 
-The port of `anatomix_tpu/extract.py`: eval-mode batch norm is folded into
-the preceding convs, instance norm stays live, the model runs in bf16 on
-the port's Hopper kernels (`models/unet_fused.py`), and the volume goes
-through the model in one piece (`full`), in one piece with instance-norm
-statistics per roi-sized tile (`full_tiled`), or as the reference's
-Gaussian-blended sliding windows (`sliding`).
+The port of `anatomix_tpu/extract.py`. For a UNet, eval-mode batch norm is
+folded into the preceding convs, instance norm stays live, the model runs in
+bf16 on the port's Hopper kernels (`models/unet_fused.py`), and the volume
+goes through the model in one piece (`full`), in one piece with
+instance-norm statistics per roi-sized tile (`full_tiled`), or as the
+reference's Gaussian-blended sliding windows (`sliding`). The ViT
+(`PrimusConfig`, `models/vit3d`) is bound to its 128^3 input and always
+runs the sliding windows.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from anatomix_tpu_torch.models.unet_fused import (
     prepack_fused,
     unet_apply_fused,
 )
+from anatomix_tpu_torch.models.vit3d import Primus, PrimusConfig
 from anatomix_tpu_torch.ops.sliding_window import sliding_window_inference
 
 
@@ -85,8 +88,36 @@ def zscore_normalize(feats: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return ((f32 - mean) / (std + eps)).to(feats.dtype)
 
 
+def _make_vit_extractor(cfg: PrimusConfig, state_dict, *, sw_batch_size,
+                        overlap, mode, sigma_scale, compute_dtype, impl, dev):
+    """The ViT's sliding-window extractor (`anatomix_tpu/extract.py`
+    make_feature_extractor's `PrimusConfig` branch): windows of
+    `cfg.input_shape`; `impl='eager'` runs the plain versions in f32."""
+    if impl not in ("fused", "eager"):
+        raise ValueError(f"unknown impl {impl!r}")
+    plain = impl == "eager"
+    cd = torch.float32 if plain else compute_dtype
+    if dev.type == "cuda" and cd != torch.bfloat16 and not plain:
+        raise ValueError("the ViT's kernels compute in bfloat16 on the card")
+    model = Primus.from_state_dict(cfg, state_dict, device=dev)
+
+    def window_fn(windows):
+        return model(windows, compute_dtype=cd, plain=plain)
+
+    @torch.inference_mode()
+    def extract(volume):
+        x = torch.as_tensor(volume, dtype=torch.float32, device=dev)
+        return sliding_window_inference(
+            x, window_fn, cfg.num_classes, roi_size=cfg.input_shape,
+            sw_batch_size=sw_batch_size or 2, overlap=overlap, mode=mode,
+            sigma_scale=sigma_scale,
+        )
+
+    return extract
+
+
 def make_feature_extractor(
-    plan: UnetPlan,
+    plan: UnetPlan | PrimusConfig,
     state_dict: dict[str, Any],
     *,
     strategy: str = "sliding",
@@ -114,8 +145,18 @@ def make_feature_extractor(
     `compute_dtype` (bf16 on the card; on the CPU the kernels' plain
     versions run, in f32 when asked). `impl='eager'` runs the plain
     f32 `Unet` module, the port's oracle path.
+
+    A `PrimusConfig` plan (the ViT) always runs the sliding windows with
+    windows of `plan.input_shape`, as the JAX package does: `strategy` and
+    `roi_size` are ignored; `impl='eager'` runs each kernel's plain version
+    in f32.
     """
     dev = resolve_device(device)
+    if isinstance(plan, PrimusConfig):
+        return _make_vit_extractor(
+            plan, state_dict, sw_batch_size=sw_batch_size, overlap=overlap,
+            mode=mode, sigma_scale=sigma_scale, compute_dtype=compute_dtype,
+            impl=impl, dev=dev)
     check_supported(plan.config)
     if strategy == "auto":
         strategy = (
@@ -176,7 +217,7 @@ def make_feature_extractor(
 def extract_features(
     img_fixed: np.ndarray,
     img_moving: np.ndarray,
-    plan: UnetPlan,
+    plan: UnetPlan | PrimusConfig,
     state_dict: dict[str, Any],
     fixminclip=None,
     fixmaxclip=None,

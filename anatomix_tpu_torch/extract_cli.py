@@ -9,6 +9,12 @@ Usage (the 94M dev UNet, instance-norm statistics per roi-sized tile):
       --output feats.npz --hf_variant anatomix-dev \
       --cache_path anatomix-dev.pth --strategy full_tiled --normalize unit
 
+Usage (the 26M ViT, always Gaussian-blended 128^3 sliding windows; the
+`.npz` of the JAX pytree or the upstream `.pth`):
+  python -m anatomix_tpu_torch.extract_cli --input ct.nii.gz \
+      --output feats.npz --hf_variant anatomix-dev-vit \
+      --cache_path anatomix-dev-vit.pth --normalize unit
+
 Usage (dataset mode):
   python -m anatomix_tpu_torch.extract_cli --input_dir scans/ \
       --output_dir feats/ --ckpt_path anatomix.pth [--pattern '*.nii.gz']
@@ -62,8 +68,10 @@ def build_parser():
     p.add_argument("--cache_path", type=str, default=None,
                    help="local .pth/.npz of --hf_variant")
     p.add_argument("--strategy", type=str, default="sliding",
-                   choices=["sliding", "full", "full_tiled", "auto"])
-    p.add_argument("--roi", type=int, default=128)
+                   choices=["sliding", "full", "full_tiled", "auto"],
+                   help="UNets only; the ViT always slides")
+    p.add_argument("--roi", type=int, default=128,
+                   help="UNets only; the ViT's windows are its input shape")
     p.add_argument("--overlap", type=float, default=0.8)
     p.add_argument("--sw_batch_size", type=int, default=None,
                    help="windows per forward; default 2")

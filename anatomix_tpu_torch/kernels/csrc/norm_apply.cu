@@ -6,18 +6,22 @@
 //   D1  anatomix_tpu/ops/pallas/norm_apply.py  norm_apply_block
 // computing
 //   out[b, z, y, x, c] = act(x[b, z, y, x, c] * a[b, tz, ty, tx, c]
-//                            + s[b, tz, ty, tx, c])
+//                            + s[b, tz, ty, tx, c] [+ r[b, z, y, x, c]])
 // with (tz, ty, tx) = (zmap[z], ymap[y], xmap[x]): three int32 maps from
 // voxel index to tile index, so even and uneven tiles (and the global norm,
 // one tile) take the same kernel. The input is bf16 or f32 (the fused
 // forward stores the convs that feed a live norm in f32), a and s are f32
-// (B, t0, t1, t2, C), the math is f32 and the output bf16.
+// (B, t0, t1, t2, C), the math is f32 and the output bf16. The optional
+// residual r (bf16, x's shape) is the ViT tokenizer's
+// `lrelu(IN(conv2(...)) + r)` (`anatomix_tpu/models/vit3d/primus.py`
+// `_tokenizer_v2`), which the TPU runs as XLA passes: here it is one pass.
 //
 // What bounds it on an H100: bytes. It reads each input element once and
 // writes each output element once (4 or 6 bytes per element) for two
 // flops, far below the card's ridge; the (a, s) rows are a few KB and stay
 // in L1/L2. The design: one thread per 8 consecutive channels of one voxel,
-// 16- or 32-byte loads and a 16-byte store, consecutive threads on
+// 16- or 32-byte loads (16 more for a residual) and a 16-byte store,
+// consecutive threads on
 // consecutive addresses. Voxel coordinates come from one 64-bit division
 // per thread (for its block's start) and 32-bit arithmetic after it.
 // Channel counts that are not a multiple of 8 take the same kernel with one
@@ -71,6 +75,7 @@ __global__ void __launch_bounds__(NTHREADS)
 norm_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
                   const float* __restrict__ s, const int* __restrict__ zmap,
                   const int* __restrict__ ymap, const int* __restrict__ xmap,
+                  const __nv_bfloat16* __restrict__ res,
                   __nv_bfloat16* __restrict__ out, int64_t n_items, int D,
                   int H, int W, int C, int t0, int t1, int t2, int act,
                   float slope) {
@@ -103,14 +108,18 @@ norm_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
     const float4 s1 = reinterpret_cast<const float4*>(sr)[1];
     const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
     const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    float rv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (res != nullptr) load8(res + e * 8, rv);
     Pack8 o;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      o.h[j] = __float2bfloat16(activate(xv[j] * av[j] + sv[j], act, slope));
+      o.h[j] = __float2bfloat16(
+          activate(xv[j] * av[j] + sv[j] + rv[j], act, slope));
     }
     reinterpret_cast<uint4*>(out)[e] = o.u;
   } else {
-    const float val = to_float(x[e]) * ar[0] + sr[0];
+    float val = to_float(x[e]) * ar[0] + sr[0];
+    if (res != nullptr) val += __bfloat162float(res[e]);
     out[e] = __float2bfloat16(activate(val, act, slope));
   }
 }
@@ -122,18 +131,19 @@ bool aligned16(const void* p) {
 template <typename T>
 void launch(bool vec, int64_t blocks, cudaStream_t st, const void* x,
             const float* a, const float* s, const int* zmap, const int* ymap,
-            const int* xmap, __nv_bfloat16* out, int64_t n_items, int D,
+            const int* xmap, const __nv_bfloat16* res, __nv_bfloat16* out,
+            int64_t n_items, int D,
             int H, int W, int C, int t0, int t1, int t2, int act,
             float slope) {
   const T* xp = static_cast<const T*>(x);
   if (vec) {
     norm_apply_kernel<T, 8><<<(unsigned)blocks, NTHREADS, 0, st>>>(
-        xp, a, s, zmap, ymap, xmap, out, n_items, D, H, W, C, t0, t1, t2,
-        act, slope);
+        xp, a, s, zmap, ymap, xmap, res, out, n_items, D, H, W, C, t0, t1,
+        t2, act, slope);
   } else {
     norm_apply_kernel<T, 1><<<(unsigned)blocks, NTHREADS, 0, st>>>(
-        xp, a, s, zmap, ymap, xmap, out, n_items, D, H, W, C, t0, t1, t2,
-        act, slope);
+        xp, a, s, zmap, ymap, xmap, res, out, n_items, D, H, W, C, t0, t1,
+        t2, act, slope);
   }
 }
 
@@ -142,7 +152,8 @@ void launch(bool vec, int64_t blocks, cudaStream_t st, const void* x,
 extern "C" int norm_apply_ndhwc(const void* x, int x_f32, const void* a,
                                 const void* s, const void* zmap,
                                 const void* ymap, const void* xmap,
-                                void* out, int B, int D, int H, int W, int C,
+                                const void* res, void* out, int B, int D,
+                                int H, int W, int C,
                                 int t0, int t1, int t2, int act, float slope,
                                 void* stream) {
   const int64_t voxels = (int64_t)B * D * H * W;
@@ -150,7 +161,8 @@ extern "C" int norm_apply_ndhwc(const void* x, int x_f32, const void* a,
   const int64_t elems = voxels * C;
   if (elems == 0) return 0;
   const bool vec = C % 8 == 0 && aligned16(x) && aligned16(out) &&
-                   aligned16(a) && aligned16(s);
+                   aligned16(a) && aligned16(s) &&
+                   (res == nullptr || aligned16(res));
   const int64_t n_items = vec ? elems / 8 : elems;
   const int64_t blocks = (n_items + NTHREADS - 1) / NTHREADS;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -160,12 +172,13 @@ extern "C" int norm_apply_ndhwc(const void* x, int x_f32, const void* a,
   const auto* zp = static_cast<const int*>(zmap);
   const auto* yp = static_cast<const int*>(ymap);
   const auto* wp = static_cast<const int*>(xmap);
+  const auto* rp = static_cast<const __nv_bfloat16*>(res);
   auto* op = static_cast<__nv_bfloat16*>(out);
   if (x_f32) {
-    launch<float>(vec, blocks, st, x, ap, sp, zp, yp, wp, op, n_items, D, H,
-                  W, C, t0, t1, t2, act, slope);
+    launch<float>(vec, blocks, st, x, ap, sp, zp, yp, wp, rp, op, n_items,
+                  D, H, W, C, t0, t1, t2, act, slope);
   } else {
-    launch<__nv_bfloat16>(vec, blocks, st, x, ap, sp, zp, yp, wp, op,
+    launch<__nv_bfloat16>(vec, blocks, st, x, ap, sp, zp, yp, wp, rp, op,
                           n_items, D, H, W, C, t0, t1, t2, act, slope);
   }
   return static_cast<int>(cudaGetLastError());

@@ -6,13 +6,15 @@ counter.
 of `csrc/norm_apply.cu`, whose header says what bounds it on the card and
 what its design does about it. It computes
 
-    y[b, z, y, x, c] = act(x * a[b, tz, ty, tx, c] + s[b, tz, ty, tx, c])
+    y[b, z, y, x, c] = act(x * a[b, tz, ty, tx, c] + s[b, tz, ty, tx, c]
+                           [+ r[b, z, y, x, c]])
 
 with the tile of each voxel given by three int32 maps (`ops/norms.tile_maps`),
 so even and uneven tiles and the global norm (one tile) are one kernel.
 The caller computes `(a, s)` from the statistics (`ops/norms.fold_affine`,
 which also folds an `instance_affine` scale and bias). On the card `x` is
-bf16 or f32 and the output bf16.
+bf16 or f32, the optional residual `r` bf16 (the ViT tokenizer's
+`lrelu(IN(conv2(...)) + r)`) and the output bf16.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version. `.launches` counts kernel launches.
@@ -36,18 +38,20 @@ def _fn():
     fn = _fns.get("norm_apply_ndhwc")
     if fn is None:
         fn = build.load("norm_apply").norm_apply_ndhwc
-        # x, x_f32, a, s, zmap, ymap, xmap, out; B, D, H, W, C, t0, t1,
-        # t2; act, slope, stream
-        fn.argtypes = [_P, _I] + [_P] * 6 + [_I] * 8 + [_I, _F, _P]
+        # x, x_f32, a, s, zmap, ymap, xmap, residual, out; B, D, H, W, C,
+        # t0, t1, t2; act, slope, stream
+        fn.argtypes = [_P, _I] + [_P] * 7 + [_I] * 8 + [_I, _F, _P]
         fn.restype = ctypes.c_int
         _fns["norm_apply_ndhwc"] = fn
     return fn
 
 
 def norm_apply_ndhwc_plain(x, a, s, tile_maps, *, act="none", slope=0.3,
-                           out_dtype=torch.bfloat16):
+                           out_dtype=torch.bfloat16, residual=None):
     """f32 arithmetic on the same inputs."""
     y = x.float() * expand_tiles(a, tile_maps) + expand_tiles(s, tile_maps)
+    if residual is not None:
+        y = y + residual.float()
     return apply_activation(y, act, slope=slope).to(out_dtype)
 
 
@@ -60,12 +64,14 @@ def norm_apply_ndhwc(
     act: str = "none",
     slope: float = 0.3,
     out_dtype: torch.dtype = torch.bfloat16,
+    residual: torch.Tensor | None = None,  # x's shape, bf16 on the card
 ) -> torch.Tensor:
-    """act(x * a[tile] + s[tile]) per (sample, tile, channel), stored in
-    `out_dtype` (bf16 on the card)."""
+    """act(x * a[tile] + s[tile] [+ residual]) per (sample, tile,
+    channel), stored in `out_dtype` (bf16 on the card)."""
     if x.device.type == "cpu":
         return norm_apply_ndhwc_plain(x, a, s, tile_maps, act=act,
-                                      slope=slope, out_dtype=out_dtype)
+                                      slope=slope, out_dtype=out_dtype,
+                                      residual=residual)
     dev = x.device
     if (x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 5
             or not x.is_contiguous()):
@@ -88,12 +94,19 @@ def norm_apply_ndhwc(
                              f"(H,), (W,) on {dev}")
     if act not in EPILOGUE_ACTS:
         raise ValueError(f"unsupported activation {act!r}")
+    if residual is not None and (
+            residual.dtype != torch.bfloat16 or residual.shape != x.shape
+            or residual.device != dev or not residual.is_contiguous()):
+        raise ValueError(f"residual must be contiguous bf16 {tuple(x.shape)} "
+                         f"on {dev}, got {residual.dtype} "
+                         f"{tuple(residual.shape)}")
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _fn()(
         x.data_ptr(), int(x.dtype == torch.float32), a.data_ptr(),
-        s.data_ptr(), zmap.data_ptr(),
-        ymap.data_ptr(), xmap.data_ptr(), out.data_ptr(), B, D, H, W, C,
+        s.data_ptr(), zmap.data_ptr(), ymap.data_ptr(), xmap.data_ptr(),
+        None if residual is None else residual.data_ptr(), out.data_ptr(),
+        B, D, H, W, C,
         t0, t1, t2, EPILOGUE_ACTS[act], float(slope), stream,
     )
     build.check(rc, "norm_apply_ndhwc")

@@ -1,9 +1,10 @@
 """Model loading: a local `.pth` or `.npz`, a registry variant from a local
 file, or seeded random weights. Nothing is downloaded.
 
-Returns `(plan, state_dict)` with the state dict on the requested device.
-The `.npz` format is the JAX package's native one (`save_npz`: flat
-`"<idx>/<leaf>"` keys of the pytree), read here without JAX.
+Returns `(plan, state_dict)` with the state dict on the requested device;
+for the ViT variant the plan is its `PrimusConfig`. The `.npz` format is the
+JAX package's native one (`save_npz`: flat `"<idx>/<leaf>"` keys of the
+pytree; the ViT's `save_pytree` paths), read here without JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +27,10 @@ from anatomix_tpu_torch.models.unet import (
     UnetPlan,
     build_plan,
     init_params,
+)
+from anatomix_tpu_torch.models.vit3d import (
+    load_primus_state_dict,
+    primus_config,
 )
 
 
@@ -64,24 +69,23 @@ def load_from_hf(variant: str, cache_path: str | None = None, *,
                  device: str | torch.device = "cuda"):
     """A registry variant from a local copy of its `<variant>.pth` or
     `.npz` (`cache_path`), on the variant's own plan (for `anatomix-dev`:
-    instance norm with eps 1e-2, Avg pool, trilinear); the port makes no
-    download."""
+    instance norm with eps 1e-2, Avg pool, trilinear; for
+    `anatomix-dev-vit`: its `PrimusConfig`, a `.npz` of the JAX pytree or
+    the upstream `.pth`); the port makes no download."""
     dev = resolve_device(device)
     if variant not in ANATOMIX_VARIANTS:
         raise ValueError(
             f"Unknown variant {variant!r}. Known: {sorted(ANATOMIX_VARIANTS)}"
         )
     config = ANATOMIX_VARIANTS[variant]
-    if "vit_kwargs" in config:
-        raise NotImplementedError(
-            "the ViT variant arrives with the ViT slice (ROADMAP Queue 1 "
-            "item 9)"
-        )
     if cache_path is None:
         raise ValueError(
             "the port downloads nothing: pass cache_path= to a local "
             f"{variant}.pth or .npz"
         )
+    if "vit_kwargs" in config:
+        cfg = primus_config(config["vit_kwargs"])
+        return cfg, _to_device(load_primus_state_dict(cfg, cache_path), dev)
     plan = build_plan(UnetConfig(**config["unet_kwargs"]))
     return plan, _to_device(_state_dict_from_file(plan, cache_path), dev)
 

@@ -2,8 +2,8 @@
 
 The 6M `anatomix` UNet, the 94M `anatomix-dev` UNet and the 26M
 `anatomix-dev-vit` 3D ViT, with the constructor arguments of the reference
-`load_from_hf.py`. The port runs both UNets; the ViT arrives with its own
-slice (ROADMAP Queue 1 item 9).
+`load_from_hf.py`. The port runs all three (the ViT through
+`models/vit3d`).
 """
 
 from __future__ import annotations

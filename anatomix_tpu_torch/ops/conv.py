@@ -2,7 +2,8 @@
 weight-layout helpers the port uses.
 
 This is the plain version for the CPU, the eager `Unet` and the tests; the
-main path on the card runs the hand-written kernels of `kernels/conv.py`.
+main path on the card runs the hand-written kernels of `kernels/conv.py`
+and `kernels/conv_down.py`.
 
 Layouts:
   * torch   (O, I, kD, kH, kW) -- the reference `.pth` and the port's
@@ -41,6 +42,17 @@ def conv3d_same(
     if any(pads):
         xc = F.pad(xc, pads, mode=_PAD_MODES[pad_type])
     y = F.conv3d(xc, w, b)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def conv3d_down2(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Stride-2 3x3x3 conv of NDHWC `x` with zero padding 1 on each side
+    (`nn.Conv3d(..., stride=2, padding=1)`, the JAX package's
+    `conv3d(stride=2, padding=[(1, 1)] * 3)`); output extents
+    `(n - 1) // 2 + 1`."""
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, stride=2, padding=1)
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 

@@ -1,4 +1,5 @@
-"""Instance normalization on NDHWC volumes, global or per spatial tile.
+"""Instance normalization on NDHWC volumes, global or per spatial tile, and
+the ViT's channel norms (`channel_layer_norm`, `channel_demean`).
 
 The port of `anatomix_tpu/ops/norms.py:26-179` (the reference's
 `InstanceNorm3d`: per-sample, per-channel spatial statistics, biased
@@ -157,3 +158,21 @@ def instance_norm(
 ) -> torch.Tensor:
     """`InstanceNorm3d` over the spatial dims of NDHWC `x`."""
     return tiled_instance_norm(x, (1, 1, 1), eps=eps, scale=scale, bias=bias)
+
+
+def channel_demean(x: torch.Tensor) -> torch.Tensor:
+    """Subtract each channel's spatial mean from NDHWC `x` (the ViT's
+    'demean' output norm; `anatomix_tpu/ops/norms.py` channel_demean)."""
+    return x - x.mean(dim=(1, 2, 3), keepdim=True)
+
+
+def channel_layer_norm(x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """Per-voxel LayerNorm over the last (channel) axis, no affine (the
+    ViT's ChannelLayerNorm; `anatomix_tpu/ops/norms.py`
+    channel_layer_norm). Statistics and the normalize are f32 and the
+    result is rounded once to `x.dtype`; the JAX package applies a bf16
+    input's normalize in bf16, a difference below bf16 rounding."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)

@@ -10,8 +10,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
   1. the device, its name and power limit (nvidia-smi), then the build of
      every CUDA kernel from `anatomix_tpu_torch/kernels/csrc/` with nvcc;
   2. each kernel against its plain PyTorch version (f32, TF32 off) on the
-     same bf16 inputs, at the shapes the 6M and the 94M dev paths give it,
-     with times;
+     same bf16 inputs, at the shapes the 6M UNet, the 94M dev UNet and the
+     26M ViT paths give it, with times;
   3. `full`: the 6M `anatomix` UNet at full width with seeded weights on a
      256^3 volume through `make_feature_extractor(strategy="full")`, held
      against the port's plain f32 path on the card;
@@ -25,14 +25,22 @@ Phases, each printed on its own lines; any failure exits non-zero:
      `sliding` at the reference settings on 256^3 (`[dev-sliding]`, held
      against the f32 plain path at 160^3), then the mean voxelwise cosine
      between the dev `full_tiled` and `sliding` features;
-  6. the `kernels` JSON line (launches on each path, errors, times and
+  6. the 26M `anatomix-dev-vit` ViT (Primus v2: embed 396, 12 EVA blocks,
+     6 heads of 66, 8 registers) at full width and depth with seeded
+     weights: one 128^3 window at B=1 through the extractor
+     (`[vit-fwd128]`, held against the f32 plain path) and the
+     Gaussian-blended sliding windows at the reference settings on 256^3
+     (`[vit-sliding]`, 343 windows, held against the f32 plain path at
+     160^3);
+  7. the `kernels` JSON line (launches on each path, errors, times and
      bounds), then the device's JSON line last.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel the path should run that was not launched fails it.
 
 `--quick` runs phases 1 and 2 only; `--profile` runs phases 1 and 2, then
-profiles the 6M and the dev sliding paths on 160^3 with torch.profiler.
+profiles the 6M, the dev and the ViT sliding paths on 160^3 with
+torch.profiler.
 The JSON report and the profiles go to
 `chiprun_out/`.
 """
@@ -59,6 +67,8 @@ PEAK_BYTES = 3.35e12
 TOL_CONV_BF16 = 1e-2
 TOL_CONV_F32 = 1e-4
 TOL_SCATTER = 1e-5
+# the factor-8 reshuffle moves values and subtracts the same f32 numbers
+TOL_EXACT = 0.0
 # whole model, bf16 kernels vs the plain f32 path: the bound and the metric
 # (mean |error| / std of the f32 features) the JAX package holds its bf16
 # TPU path to (tests/test_tpu_numerics.py:23-64); the max error relative to
@@ -131,9 +141,11 @@ def model_err(got, ref) -> dict:
 # -----------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 
-def check_conv(kc, torch, F, dev, gen, B, S, ci, co, out_f32=False):
-    """conv3x3x3_ndhwc at (B, S^3, ci) -> co, reflect, relu (exit: none,
-    f32), against its plain version and F.conv3d."""
+def check_conv(kc, torch, F, dev, gen, B, S, ci, co, out_f32=False,
+               pad="reflect"):
+    """conv3x3x3_ndhwc at (B, S^3, ci) -> co, reflect (the ViT tokenizer:
+    zeros), relu (exit: none, f32), against its plain version and
+    F.conv3d."""
     x = torch.randn((B, S, S, S, ci), generator=gen, device=dev).to(
         torch.bfloat16)
     w = (torch.randn((27 * ci, co), generator=gen, device=dev)
@@ -141,7 +153,7 @@ def check_conv(kc, torch, F, dev, gen, B, S, ci, co, out_f32=False):
     b = torch.randn((co,), generator=gen, device=dev) * 0.1
     act = "none" if out_f32 else "relu"
     out_dtype = torch.float32 if out_f32 else torch.bfloat16
-    kw = dict(act=act, pad_type="reflect", out_dtype=out_dtype)
+    kw = dict(act=act, pad_type=pad, out_dtype=out_dtype)
     got = kc.conv3x3x3_ndhwc(x, w, b, **kw)
     ref = kc.conv3x3x3_ndhwc_plain(x, w, b, **kw)
     torch.cuda.synchronize()
@@ -151,7 +163,8 @@ def check_conv(kc, torch, F, dev, gen, B, S, ci, co, out_f32=False):
     plain_ms = cuda_ms(lambda: kc.conv3x3x3_ndhwc_plain(x, w, b, **kw))
     # yardstick: one library call for the same conv (cuDNN, bf16,
     # channels-last); reflect padding needs the padded input made first
-    xc = F.pad(x.permute(0, 4, 1, 2, 3), (1,) * 6, mode="reflect")
+    xc = F.pad(x.permute(0, 4, 1, 2, 3), (1,) * 6,
+               mode="reflect" if pad == "reflect" else "constant")
     xc = xc.contiguous(memory_format=torch.channels_last_3d)
     wt = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous(
         memory_format=torch.channels_last_3d)
@@ -162,7 +175,8 @@ def check_conv(kc, torch, F, dev, gen, B, S, ci, co, out_f32=False):
         4 if out_f32 else 2)
     b_ms, b_by = bound(flops, nbytes)
     return dict(
-        shape=f"B{B} {S}^3 {ci}->{co}" + (" f32-out" if out_f32 else ""),
+        shape=f"B{B} {S}^3 {ci}->{co}" + (" f32-out" if out_f32 else "")
+        + ("" if pad == "reflect" else " zeros"),
         max_abs_err=err, rel_err=rel, tol=tol, ok=rel < tol, ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
     )
@@ -321,29 +335,135 @@ def check_upsample(kr, torch, F, dev, gen, B, s, C):
     )
 
 
-def check_norm_apply(kn, norms, torch, dev, gen, B, S, C, tiles, act):
+def check_norm_apply(kn, norms, torch, dev, gen, B, S, C, tiles, act,
+                     residual=False):
     """norm_apply_ndhwc with the statistics of the input itself (eps 1e-2,
     the dev norm), per `tiles`. The input is f32, as the dev path stores the
-    convs that feed a live norm; the output bf16."""
+    convs that feed a live norm; the output bf16. `residual`: the ViT
+    tokenizer's bf16 residual operand, lrelu slope 0.01."""
     x = torch.randn((B, S, S, S, C), generator=gen, device=dev)
     mean, var = norms.instance_norm_stats(x, tiles)
     a, s = norms.fold_affine(mean, var, 1e-2)
     maps = norms.tile_maps(x.shape[1:4], tiles, dev)
-    got = kn.norm_apply_ndhwc(x, a, s, maps, act=act)
-    ref = kn.norm_apply_ndhwc_plain(x, a, s, maps, act=act)
+    kw = dict(act=act, slope=0.01 if residual else 0.3)
+    if residual:
+        kw["residual"] = torch.randn(x.shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    got = kn.norm_apply_ndhwc(x, a, s, maps, **kw)
+    ref = kn.norm_apply_ndhwc_plain(x, a, s, maps, **kw)
     torch.cuda.synchronize()
     err, rel = rel_err(got, ref)
-    ms = cuda_ms(lambda: kn.norm_apply_ndhwc(x, a, s, maps, act=act))
-    plain_ms = cuda_ms(
-        lambda: kn.norm_apply_ndhwc_plain(x, a, s, maps, act=act))
+    ms = cuda_ms(lambda: kn.norm_apply_ndhwc(x, a, s, maps, **kw))
+    plain_ms = cuda_ms(lambda: kn.norm_apply_ndhwc_plain(x, a, s, maps, **kw))
     n = x.numel()
-    # f32 in, bf16 out, the (a, s) rows and the maps once each
-    nbytes = 6.0 * n + 8.0 * a.numel() + 4.0 * sum(m.numel() for m in maps)
-    b_ms, b_by = bound(3.0 * n, nbytes, PEAK_F32_FLOPS)
+    # f32 in, bf16 out (and residual), the (a, s) rows and the maps once
+    nbytes = ((8.0 if residual else 6.0) * n + 8.0 * a.numel()
+              + 4.0 * sum(m.numel() for m in maps))
+    b_ms, b_by = bound((4.0 if residual else 3.0) * n, nbytes,
+                       PEAK_F32_FLOPS)
     return dict(
-        shape=f"B{B} {S}^3x{C} tiles {tiles} {act}", max_abs_err=err,
+        shape=f"B{B} {S}^3x{C} tiles {tiles} {act}"
+        + (" +residual" if residual else ""), max_abs_err=err,
         rel_err=rel, tol=TOL_CONV_BF16, ok=rel < TOL_CONV_BF16, ms=ms,
         plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+    )
+
+
+def check_conv_down(kd, torch, F, dev, gen, B, S, ci, co):
+    """conv_down2_ndhwc: (B, S^3, ci) -> (B, (S/2)^3, co), zero padding 1,
+    f32 store (an instance norm follows every tokenizer conv)."""
+    x = torch.randn((B, S, S, S, ci), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = (torch.randn((27 * ci, co), generator=gen, device=dev)
+         * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+    b = torch.randn((co,), generator=gen, device=dev) * 0.1
+    kw = dict(act="none", out_dtype=torch.float32)
+    got = kd.conv_down2_ndhwc(x, w, b, **kw)
+    ref = kd.conv_down2_ndhwc_plain(x, w, b, **kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    ms = cuda_ms(lambda: kd.conv_down2_ndhwc(x, w, b, **kw))
+    plain_ms = cuda_ms(lambda: kd.conv_down2_ndhwc_plain(x, w, b, **kw))
+    # yardstick: one stride-2 F.conv3d (cuDNN, bf16, channels-last)
+    xc = x.permute(0, 4, 1, 2, 3)
+    wt = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    bb = b.to(torch.bfloat16)
+    lib_ms = cuda_ms(lambda: F.conv3d(xc, wt, bb, stride=2, padding=1))
+    s = S // 2
+    flops = 2.0 * B * s ** 3 * 27 * ci * co
+    nbytes = (B * S ** 3 * ci * 2 + 27 * ci * co * 2 + co * 4
+              + B * s ** 3 * co * 4)
+    b_ms, b_by = bound(flops, nbytes)
+    return dict(
+        shape=f"B{B} {S}^3x{ci} -> {s}^3x{co} f32-out", max_abs_err=err,
+        rel_err=rel, tol=TOL_CONV_F32, ok=rel < TOL_CONV_F32, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+    )
+
+
+def sdpa_backend(torch, q, k, v, scale) -> str:
+    """The backend torch's scaled_dot_product_attention picks for these
+    inputs."""
+    try:
+        from torch.nn.attention import SDPBackend
+
+        idx = torch._fused_sdp_choice(q, k, v, None, 0.0, False,
+                                      scale=scale)
+        return SDPBackend(idx).name
+    except Exception as e:  # a private helper; its absence is reported
+        return f"unknown ({type(e).__name__})"
+
+
+def check_attention(ka, torch, F, dev, gen, B, H, N, hd):
+    """flash_attention at (B, H, N, hd) bf16, scale 1/sqrt(hd)."""
+    q, k, v = (torch.randn((B, H, N, hd), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    scale = hd ** -0.5
+    got = ka.flash_attention(q, k, v, scale)
+    ref = ka.flash_attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    ms = cuda_ms(lambda: ka.flash_attention(q, k, v, scale))
+    plain_ms = cuda_ms(lambda: ka.flash_attention_plain(q, k, v, scale))
+    # yardstick: torch's fused attention on the same bf16 tensors
+    backend = sdpa_backend(torch, q, k, v, scale)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=scale))
+    log(f"[kernel] sdpa backend at {tuple(q.shape)}: {backend}")
+    flops = 4.0 * B * H * N * N * hd
+    b_ms, b_by = bound(flops, 4.0 * 2 * B * H * N * hd)
+    return dict(
+        shape=f"B{B} H{H} N{N} hd{hd}", max_abs_err=err, rel_err=rel,
+        tol=TOL_CONV_BF16, ok=rel < TOL_CONV_BF16, ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        sdpa_backend=backend,
+    )
+
+
+def check_d2s8(kr8, torch, dev, gen, B, d, C, with_sub):
+    """depth_to_space8_ndhwc: (B, d^3, 512 C) bf16 -> (B, (8d)^3, C) f32,
+    with or without the demean subtract. Exact: both versions subtract the
+    same f32 values."""
+    y = torch.randn((B, d, d, d, 512 * C), generator=gen, device=dev).to(
+        torch.bfloat16)
+    sub = (torch.randn((B, 512 * C), generator=gen, device=dev)
+           if with_sub else None)
+    got = kr8.depth_to_space8_ndhwc(y, sub)
+    ref = kr8.depth_to_space8_ndhwc_plain(y, sub)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    ms = cuda_ms(lambda: kr8.depth_to_space8_ndhwc(y, sub))
+    plain_ms = cuda_ms(lambda: kr8.depth_to_space8_ndhwc_plain(y, sub))
+    n = y.numel()
+    nbytes = 2.0 * n + 4.0 * n + (4.0 * sub.numel() if with_sub else 0.0)
+    b_ms, b_by = bound(float(n) if with_sub else 0.0, nbytes,
+                       PEAK_F32_FLOPS)
+    return dict(
+        shape=f"B{B} {d}^3x{512 * C} -> {8 * d}^3x{C}"
+        + (" -sub" if with_sub else ""), max_abs_err=err, rel_err=rel,
+        tol=TOL_EXACT, ok=rel <= TOL_EXACT, ms=ms, plain_ms=plain_ms,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by,
     )
 
 
@@ -459,9 +579,12 @@ def main(argv) -> int:
     import torch.nn.functional as F
 
     from anatomix_tpu_torch.extract import make_feature_extractor
+    from anatomix_tpu_torch.kernels import attention as ka
     from anatomix_tpu_torch.kernels import build
     from anatomix_tpu_torch.kernels import conv as kc
+    from anatomix_tpu_torch.kernels import conv_down as kd
     from anatomix_tpu_torch.kernels import norm as kn
+    from anatomix_tpu_torch.kernels import reshuffle as kr8
     from anatomix_tpu_torch.kernels import resize as kr
     from anatomix_tpu_torch.kernels import scatter as ks
     from anatomix_tpu_torch.models.load import load_model
@@ -470,6 +593,11 @@ def main(argv) -> int:
         UnetConfig,
         build_plan,
         init_params,
+    )
+    from anatomix_tpu_torch.models.vit3d import (
+        Primus,
+        init_primus_params,
+        primus_config,
     )
     from anatomix_tpu_torch.ops import norms
     from anatomix_tpu_torch.ops import sliding_window as sw
@@ -481,6 +609,9 @@ def main(argv) -> int:
         "conv3x3x3_cat_ndhwc": kc.conv3x3x3_cat_ndhwc,
         "upsample2x_trilinear_ndhwc": kr.upsample2x_trilinear_ndhwc,
         "norm_apply_ndhwc": kn.norm_apply_ndhwc,
+        "conv_down2_ndhwc": kd.conv_down2_ndhwc,
+        "flash_attention": ka.flash_attention,
+        "depth_to_space8_ndhwc": kr8.depth_to_space8_ndhwc,
     }
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -520,6 +651,11 @@ def main(argv) -> int:
     ]:
         checks["conv3x3x3_ndhwc"].append(
             check_conv(kc, torch, F, dev, gen, B, S, ci, co, f32))
+    # the ViT tokenizer: the stem on (hi, lo) of the volume, a stage conv;
+    # zero padding, f32 store
+    for B, S, ci, co in [(2, 128, 2, 32), (2, 64, 64, 64)]:
+        checks["conv3x3x3_ndhwc"].append(check_conv(
+            kc, torch, F, dev, gen, B, S, ci, co, True, pad="zeros"))
     for B, S, c1, c2, co in [
         (2, 16, 128, 256, 128), (2, 32, 64, 128, 64),
         (2, 64, 32, 64, 32), (2, 128, 16, 32, 16),
@@ -545,6 +681,21 @@ def main(argv) -> int:
     ]:
         checks["norm_apply_ndhwc"].append(check_norm_apply(
             kn, norms, torch, dev, gen, B, S, 32, tiles, act))
+    # the ViT tokenizer's IN + residual + lrelu(0.01), stage 0
+    checks["norm_apply_ndhwc"].append(check_norm_apply(
+        kn, norms, torch, dev, gen, 2, 64, 64, (1, 1, 1), "lrelu",
+        residual=True))
+    # the ViT's three stride-2 tokenizer stages, its attention and its exit
+    for B, S, ci, co in [(2, 128, 32, 64), (2, 64, 64, 128),
+                         (2, 32, 128, 256)]:
+        checks["conv_down2_ndhwc"].append(
+            check_conv_down(kd, torch, F, dev, gen, B, S, ci, co))
+    for B, H, N, hd in [(2, 6, 4104, 66), (1, 6, 4104, 66)]:
+        checks["flash_attention"].append(
+            check_attention(ka, torch, F, dev, gen, B, H, N, hd))
+    for with_sub in (True, False):
+        checks["depth_to_space8_ndhwc"].append(
+            check_d2s8(kr8, torch, dev, gen, 2, 16, 32, with_sub))
     failed = []
     for name, rows in checks.items():
         for row in rows:
@@ -580,6 +731,13 @@ def main(argv) -> int:
             dplan, torch.Generator().manual_seed(0)).items()}
         report["profile_dev"] = profile_sliding(
             torch, make_feature_extractor, dplan, dsd, dev, out_dir, "dev")
+        del dsd
+        vcfg = primus_config(
+            ANATOMIX_VARIANTS["anatomix-dev-vit"]["vit_kwargs"])
+        vsd = {k: v.to(dev) for k, v in init_primus_params(
+            vcfg, torch.Generator().manual_seed(0)).items()}
+        report["profile_vit"] = profile_sliding(
+            torch, make_feature_extractor, vcfg, vsd, dev, out_dir, "vit")
         with open(os.path.join(out_dir, "chip_profile.json"), "w") as f:
             json.dump(report, f, indent=1)
         return 0
@@ -661,7 +819,16 @@ def main(argv) -> int:
                               ["unet_kwargs"])),
         init_params, vol256, vol128, vol160, sw_kw, sw)
 
-    # phase 6: the kernels line
+    # phase 6: the 26M ViT at full width and depth, seeded weights
+    report["vit"] = run_vit(
+        torch, dev, make_feature_extractor, wrappers, paths,
+        primus_config(ANATOMIX_VARIANTS["anatomix-dev-vit"]["vit_kwargs"]),
+        init_primus_params, Primus, vol256, vol128, vol160, sw_kw, sw)
+    for name in wrappers:
+        log(f"[launches] {name}: " + ", ".join(
+            f"{p} {v[name]}" for p, v in paths.items()))
+
+    # phase 7: the kernels line
     replaces = {
         "conv3x3x3_ndhwc": (
             "anatomix_tpu/ops/pallas/conv_block.py:248 "
@@ -681,6 +848,12 @@ def main(argv) -> int:
             "upsample2x_trilinear_block_pallas"),
         "norm_apply_ndhwc": "anatomix_tpu/ops/pallas/norm_apply.py:46 "
                             "norm_apply_block",
+        "conv_down2_ndhwc": "anatomix_tpu/ops/pallas/conv_down.py:178 "
+                            "conv_down2_block",
+        "flash_attention": "anatomix_tpu/models/vit3d/primus.py:322 "
+                           "_flash_attention",
+        "depth_to_space8_ndhwc": "anatomix_tpu/ops/pallas/reshuffle.py:478 "
+                                 "depth_to_space8",
     }
     csrc = "anatomix_tpu_torch/kernels/csrc/"
     sources = {
@@ -690,14 +863,20 @@ def main(argv) -> int:
         "conv3x3x3_cat_ndhwc": csrc + "conv3d.cu",
         "upsample2x_trilinear_ndhwc": csrc + "upsample.cu",
         "norm_apply_ndhwc": csrc + "norm_apply.cu",
+        "conv_down2_ndhwc": csrc + "conv_down.cu",
+        "flash_attention": csrc + "flash_attention.cu",
+        "depth_to_space8_ndhwc": csrc + "depth_to_space8.cu",
     }
     # the line reports each kernel at its dominant main-path shape: the
     # 16-channel 128^3 conv, the 48->16 decoder conv, the 6M stitch chunk,
-    # the dev 96->32 decoder conv, the 64^3 -> 128^3 upsample and the
-    # global norm of a 128^3 window pair
+    # the dev 96->32 decoder conv, the 64^3 -> 128^3 upsample, the global
+    # norm of a 128^3 window pair, the ViT's first stride-2 stage, its
+    # attention at B2 and its exit with the demean subtract
     headline = {"conv3x3x3_ndhwc": 1, "conv3x3x3_upcat_ndhwc": 3,
                 "blend_scatter": 0, "conv3x3x3_cat_ndhwc": 0,
-                "upsample2x_trilinear_ndhwc": 0, "norm_apply_ndhwc": 0}
+                "upsample2x_trilinear_ndhwc": 0, "norm_apply_ndhwc": 0,
+                "conv_down2_ndhwc": 0, "flash_attention": 0,
+                "depth_to_space8_ndhwc": 0}
     kernels = []
     for name, rows in checks.items():
         row = rows[headline[name]]
@@ -820,9 +999,90 @@ def run_dev(torch, dev, make_feature_extractor, wrappers, paths, dplan,
     if not e["mean_err_over_std"] < TOL_MODEL:
         raise RuntimeError(f"dev-sliding: error {e} over {TOL_MODEL}")
     out["sliding"]["check_160"] = e
-    for name in wrappers:
-        log(f"[launches] {name}: " + ", ".join(
-            f"{p} {v[name]}" for p, v in paths.items()))
+    return out
+
+
+def run_vit(torch, dev, make_feature_extractor, wrappers, paths, cfg,
+            init_primus_params, Primus, vol256, vol128, vol160, sw_kw, sw):
+    """Phase 6: the 26M ViT (registry `anatomix-dev-vit`) at full width and
+    depth with seeded weights. Its extractor always slides windows of
+    `cfg.input_shape` (128^3), as the JAX package's does."""
+    vit_needed = ["conv3x3x3_ndhwc", "norm_apply_ndhwc", "conv_down2_ndhwc",
+                  "flash_attention", "depth_to_space8_ndhwc",
+                  "blend_scatter"]
+    vsd = {k: v.to(dev) for k, v in init_primus_params(
+        cfg, torch.Generator().manual_seed(0)).items()}
+    n_params = sum(v.numel() for v in vsd.values())
+    out = {"params": n_params}
+    log(f"[vit] anatomix-dev-vit: {n_params} parameters, embed "
+        f"{cfg.embed_dim}, {cfg.eva_depth} blocks, {cfg.eva_numheads} heads "
+        f"of {cfg.head_dim}, N {cfg.num_tokens + cfg.num_register_tokens}")
+    C = cfg.num_classes
+    kw = {k: v for k, v in sw_kw.items() if k != "roi_size"}
+
+    # one 128^3 window at B=1 through the extractor, by CUDA events
+    one = make_feature_extractor(cfg, vsd, device=dev,
+                                 **dict(kw, sw_batch_size=1))
+    one(vol128)
+    torch.cuda.synchronize()
+    reset_counts(wrappers)
+    y = one(vol128)
+    torch.cuda.synchronize()
+    c = paths["vit_fwd128"] = counts(wrappers)
+    check_path("vit-fwd128", y, (1, 128, 128, 128, C), c, vit_needed)
+    ms = cuda_ms(lambda: one(vol128))
+    eager = make_feature_extractor(cfg, vsd, device=dev, impl="eager",
+                                   **dict(kw, sw_batch_size=1))
+    e = model_err(y, eager(vol128))
+    plain_ms = cuda_ms(lambda: eager(vol128))
+    # the model's forward alone, without the extractor's set-up (window
+    # starts, the importance map made on the host) and stitch
+    model = Primus.from_state_dict(cfg, vsd, device=dev)
+    with torch.inference_mode():
+        model_ms = cuda_ms(lambda: model(vol128))
+        model_plain_ms = cuda_ms(lambda: model(
+            vol128, compute_dtype=torch.float32, plain=True))
+    log(f"[vit-fwd128] 26M ViT window 128^3 B=1 through the extractor: "
+        f"kernels {ms:.4f} ms, plain f32 path {plain_ms:.4f} ms (model "
+        f"forward alone {model_ms:.4f} ms, plain {model_plain_ms:.4f} ms); "
+        f"vs plain mean|err|/std {e['mean_err_over_std']:.3e} (tol "
+        f"{TOL_MODEL}), max_abs_err {e['max_abs_err']:.3e}, max/max "
+        f"{e['max_err_over_max']:.3e}; launches {c}")
+    if not e["mean_err_over_std"] < TOL_MODEL:
+        raise RuntimeError(f"vit-fwd128: error {e} over {TOL_MODEL}")
+    out["fwd128"] = dict(ms=ms, plain_ms=plain_ms, model_ms=model_ms,
+                         model_plain_ms=model_plain_ms, launches=c, **e)
+    del y, one, eager, model
+    torch.cuda.empty_cache()
+
+    # sliding at the reference settings on 256^3 (343 windows, sw_batch 2)
+    vslide = make_feature_extractor(cfg, vsd, device=dev, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    feats, s_s = timed(torch, lambda: vslide(vol256))
+    c = paths["vit_sliding_256"] = counts(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_win = len(sw.compute_window_starts((256,) * 3, (128,) * 3, 0.8))
+    check_path("vit-sliding", feats, (1, 256, 256, 256, C), c, vit_needed)
+    log(f"[vit-sliding] 256^3, {n_win} windows -> {tuple(feats.shape)} in "
+        f"{s_s:.4f} s, peak {peak:.2f} GiB, launches {c}")
+    out["sliding"] = dict(size=256, seconds=s_s, windows=n_win,
+                          peak_gib=peak, launches=c)
+    del feats
+    torch.cuda.empty_cache()
+    got = vslide(vol160)
+    ref, plain_s = timed(torch, lambda: make_feature_extractor(
+        cfg, vsd, device=dev, impl="eager", **kw)(vol160))
+    e = model_err(got, ref)
+    log(f"[vit-sliding] 160^3 (27 windows) vs plain f32 path: "
+        f"mean|err|/std {e['mean_err_over_std']:.3e} (tol {TOL_MODEL}), "
+        f"max_abs_err {e['max_abs_err']:.3e}, max/max "
+        f"{e['max_err_over_max']:.3e}; plain {plain_s:.4f} s")
+    if not e["mean_err_over_std"] < TOL_MODEL:
+        raise RuntimeError(f"vit-sliding: error {e} over {TOL_MODEL}")
+    out["sliding"]["check_160"] = dict(plain_seconds=plain_s, **e)
+    del got, ref, vslide
+    torch.cuda.empty_cache()
     return out
 
 

@@ -132,8 +132,9 @@ def test_load_model_scratch_and_variants(tmp_path):
     assert all(torch.equal(sd[k], sd2[k]) for k in sd)
     with pytest.raises(ValueError, match="cache_path"):
         load_model(hf_variant="anatomix", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        load_from_hf("anatomix-dev-vit", "x.pth", device="cpu")
+    # the ViT variant loads too (tests/test_torch_vit.py), from a local file
+    with pytest.raises(ValueError, match="cache_path"):
+        load_from_hf("anatomix-dev-vit", device="cpu")
     full = build_plan(UnetConfig(**ANATOMIX_VARIANTS["anatomix"]["unet_kwargs"]))
     path = tmp_path / "anatomix.pth"
     torch.save(init_params(full, torch.Generator().manual_seed(1)), path)

@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from anatomix_tpu_torch.kernels.attention import (
+    flash_attention,
+    flash_attention_plain,
+)
 from anatomix_tpu_torch.kernels.conv import (
     conv3x3x3_cat_ndhwc,
     conv3x3x3_cat_ndhwc_plain,
@@ -18,9 +22,17 @@ from anatomix_tpu_torch.kernels.conv import (
     conv3x3x3_upcat_ndhwc,
     conv3x3x3_upcat_ndhwc_plain,
 )
+from anatomix_tpu_torch.kernels.conv_down import (
+    conv_down2_ndhwc,
+    conv_down2_ndhwc_plain,
+)
 from anatomix_tpu_torch.kernels.norm import (
     norm_apply_ndhwc,
     norm_apply_ndhwc_plain,
+)
+from anatomix_tpu_torch.kernels.reshuffle import (
+    depth_to_space8_ndhwc,
+    depth_to_space8_ndhwc_plain,
 )
 from anatomix_tpu_torch.kernels.resize import (
     upsample2x_trilinear_ndhwc,
@@ -162,4 +174,86 @@ def test_upsample_kernel_matches_plain(cuda, shape):
     ref = upsample2x_trilinear_ndhwc_plain(x)
     torch.cuda.synchronize()
     assert got.shape == ref.shape
+    assert _maxrel(got.float().cpu(), ref.float().cpu()) < 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,shape,ci,co", [
+    (2, (16, 16, 16), 32, 64),   # the tokenizer's first stage, cut down
+    (1, (9, 10, 7), 16, 32),     # odd extents: the zero row past the end
+    (2, (8, 6, 12), 12, 20),     # Ci, Co not multiples of 8 or 16
+    (1, (4, 4, 4), 128, 256),    # the last stage's widths
+])
+def test_conv_down_kernel_matches_plain(cuda, B, shape, ci, co):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((B,) + shape + (ci,), generator=g,
+                    device=cuda).bfloat16()
+    w = (torch.randn((27 * ci, co), generator=g, device=cuda)
+         * 0.1).bfloat16()
+    b = torch.randn((co,), generator=g, device=cuda)
+    for out_dtype, act, tol in ((torch.float32, "none", 1e-4),
+                                (torch.bfloat16, "lrelu", 1e-2)):
+        kw = dict(act=act, slope=0.01, out_dtype=out_dtype)
+        got = conv_down2_ndhwc(x, w, b, **kw)
+        ref = conv_down2_ndhwc_plain(x, w, b, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (B,) + tuple(
+            (n - 1) // 2 + 1 for n in shape) + (co,)
+        assert _maxrel(got.float().cpu(), ref.float().cpu()) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,N,hd", [
+    (1, 6, 4104, 66),   # the ViT's window at B=1: a ragged key tail
+    (2, 2, 129, 66),    # one key past a tile
+    (1, 3, 50, 32),     # fewer keys than one tile
+    (2, 1, 200, 128),
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, H, N, hd):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((B, H, N, hd), generator=g,
+                           device=cuda).bfloat16() for _ in range(3))
+    scale = hd ** -0.5
+    got = flash_attention(q, k, v, scale)
+    ref = flash_attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    assert _maxrel(got.float().cpu(), ref.float().cpu()) < 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,dhw,C,with_sub", [
+    (2, (2, 2, 2), 32, True), (1, (1, 3, 2), 32, False),
+    (1, (2, 1, 1), 4, True), (2, (1, 1, 2), 6, True),  # C % 4 != 0
+])
+def test_depth_to_space8_kernel_matches_plain(cuda, B, dhw, C, with_sub):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    y = torch.randn((B,) + dhw + (512 * C,), generator=g,
+                    device=cuda).bfloat16()
+    sub = (torch.randn((B, 512 * C), generator=g, device=cuda)
+           if with_sub else None)
+    got = depth_to_space8_ndhwc(y, sub)
+    ref = depth_to_space8_ndhwc_plain(y, sub)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(got.cpu(), ref.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 8, 8, 8, 64), torch.float32),    # the tokenizer: f32 conv store
+    ((1, 5, 6, 7, 12), torch.bfloat16),   # C % 8 != 0
+])
+def test_norm_apply_residual_kernel_matches_plain(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    r = torch.randn(shape, generator=g, device=cuda).bfloat16()
+    ts = (shape[0], 1, 1, 1, shape[-1])
+    a = torch.rand(ts, generator=g, device=cuda) + 0.5
+    s = torch.randn(ts, generator=g, device=cuda)
+    maps = tile_maps(shape[1:4], (1, 1, 1), cuda)
+    kw = dict(act="lrelu", slope=0.01, residual=r)
+    got = norm_apply_ndhwc(x, a, s, maps, **kw)
+    ref = norm_apply_ndhwc_plain(x, a, s, maps, **kw)
+    torch.cuda.synchronize()
     assert _maxrel(got.float().cpu(), ref.float().cpu()) < 1e-2

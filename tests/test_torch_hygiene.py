@@ -39,7 +39,7 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
         cwd=ROOT, env=env, timeout=120, check=True,
     ).stdout.splitlines()
-    assert int(out[0]) >= 20
+    assert int(out[0]) >= 31
     assert out[1] == "[]"
 
 
@@ -72,6 +72,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     feats = make_feature_extractor(plan, sd, strategy="full", device="cpu")(
         np.zeros((1, 8, 8, 8, 1), np.float32))
     assert feats.device.type == "cpu"
+    # the ViT: its loader and its extractor default to the card as well
+    from anatomix_tpu_torch.models.load import load_from_hf
+    from anatomix_tpu_torch.models.vit3d import (
+        PrimusConfig,
+        init_primus_params,
+    )
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_from_hf("anatomix-dev-vit", "vit.npz")
+    cfg = PrimusConfig(embed_dim=16, eva_depth=1, eva_numheads=2,
+                       input_shape=(16, 16, 16), num_register_tokens=1,
+                       tokenizer_base_features=4)
+    vsd = init_primus_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_feature_extractor(cfg, vsd)
+    feats = make_feature_extractor(cfg, vsd, device="cpu",
+                                   compute_dtype=torch.float32)(
+        np.zeros((1, 16, 16, 16, 1), np.float32))
+    assert feats.shape == (1, 16, 16, 16, 32) and feats.device.type == "cpu"
 
 
 def test_cli_defaults_to_cuda(monkeypatch, tmp_path):

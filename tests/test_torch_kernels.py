@@ -192,4 +192,17 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
         x, w, b, act="relu", pad_type="zeros", out_dtype=torch.float32))
     assert conv3x3x3_ndhwc.launches == before
     assert build.SOURCES == ("conv3d", "blend_scatter", "norm_apply",
-                             "upsample")
+                             "upsample", "conv_down", "flash_attention",
+                             "depth_to_space8")
+    # the ViT's kernels take their plain versions on the CPU too
+    from anatomix_tpu_torch.kernels.attention import flash_attention
+    from anatomix_tpu_torch.kernels.conv_down import conv_down2_ndhwc
+    from anatomix_tpu_torch.kernels.reshuffle import depth_to_space8_ndhwc
+
+    wrappers = (conv_down2_ndhwc, flash_attention, depth_to_space8_ndhwc)
+    counts = [f.launches for f in wrappers]
+    conv_down2_ndhwc(x, w, b)
+    q = torch.randn(1, 2, 5, 4)
+    flash_attention(q, q, q, 0.5)
+    depth_to_space8_ndhwc(torch.randn(1, 1, 1, 1, 512))
+    assert [f.launches for f in wrappers] == counts
