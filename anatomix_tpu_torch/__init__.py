@@ -17,6 +17,7 @@ _LAZY = {
     "kernels": "anatomix_tpu_torch.kernels",
     "extract": "anatomix_tpu_torch.extract",
     "utils": "anatomix_tpu_torch.utils",
+    "pretraining": "anatomix_tpu_torch.pretraining",
 }
 
 _LAZY_ATTRS = {

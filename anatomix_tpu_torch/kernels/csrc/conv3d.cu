@@ -14,6 +14,9 @@
 //       conv_block_sparse_cat_halo_wide
 //       (conv over concat(enc, up), both at one resolution, the concat
 //       not materialized)
+//   T-x anatomix_tpu/ops/pallas/conv_block.py  conv_block_sparse_dx
+//       (dx of K1 on the (d+2)^3 extended grid with the gradient's zero
+//       halo built in the kernel, then the caller's pad adjoint)
 // with one implicit-GEMM kernel: M = output voxels, N = Co, K = 27 * Ci.
 //
 // What bounds it on an H100: the 16-channel full-resolution convs that
@@ -35,6 +38,17 @@
 // are 64-bit (27 * 1536 * 512 at the dev 8^3 decoder). This first version
 // favours being simple and right over speed: wgmma, TMA and a pipelined
 // ring are later work.
+//
+// The input gradient of a "same" conv (`conv3x3x3_dgrad_ndhwc`) is this
+// kernel run as the transposed conv: flipped, transposed weights (packed by
+// the caller, 27 * Co x Ci), zero padding, over the output grid grown by 1
+// on each side (origin -1), so it reads the unpadded dy and treats the halo
+// of 2 as zeros by index; no padded gradient exists in device memory. It is
+// bound like the forward (the same GEMM with Ci and Co swapped). For reflect
+// padding the (S+2)^3 f32 result g is then folded by `pad_adjoint_kernel`:
+// dx[i] = g[i+1] (+ g[0] if i == 1) (+ g[S+1] if i == S-2) on each axis,
+// edges and corners included, the exact adjoint of torch's reflect pad. For
+// zero padding only the interior is computed, straight into bf16 dx.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,13 +71,17 @@ constexpr int NWARPS = TY * TZ;     // one warp per output x-row of 16 voxels
 constexpr int NTHREADS = NWARPS * 32;
 
 struct ConvArgs {
+  // input extents D, H, W; output extents oD, oH, oW, whose voxel o reads
+  // the input around o + org (org 0 and o-extents = input extents for a
+  // "same" conv; org -1 and extents + 2 for the dgrad's extended grid)
   const __nv_bfloat16* enc;    // (B, D, H, W, c1)
   const __nv_bfloat16* small;  // (B, D>>f_shift, H>>f_shift, W>>f_shift,
                                //  c2), or null if c2 == 0
   const __nv_bfloat16* w;      // (27 * (c1 + c2), co), row (tap * Ci + ci)
   const float* bias;           // (co)
-  void* out;                   // (B, D, H, W, co) bf16 or f32
+  void* out;                   // (B, oD, oH, oW, co) bf16 or f32
   int D, H, W;
+  int oD, oH, oW, org;
   int c1, c2, co;
   int f_shift;  // 1: `small` at half resolution, 0: at full resolution
   int tiles_x, tiles_y;
@@ -133,7 +151,8 @@ conv3x3x3_kernel(const ConvArgs a) {
       const int hx = v % HX;
       const int hy = (v / HX) % HY;
       const int hz = v / (HX * HY);
-      int gz = z0 + hz - 1, gy = y0 + hy - 1, gx = x0 + hx - 1;
+      int gz = z0 + hz - 1 + a.org, gy = y0 + hy - 1 + a.org,
+          gx = x0 + hx - 1 + a.org;
       bool inside = true;
       if (a.reflect) {
         gz = reflect_index(gz, a.D);
@@ -236,10 +255,10 @@ conv3x3x3_kernel(const ConvArgs a) {
     const int wi = e / (16 * NT);
     const int x = x0 + r, y = y0 + wi % TY, z = z0 + wi / TY;
     const int cout = n0 + n;
-    if (x < a.W && y < a.H && z < a.D && cout < a.co) {
+    if (x < a.oW && y < a.oH && z < a.oD && cout < a.co) {
       const float v = activate(sC[e] + a.bias[cout], a.act, a.slope);
       const int64_t o =
-          (((b * a.D + z) * a.H + y) * a.W + x) * a.co + cout;
+          (((b * a.oD + z) * a.oH + y) * a.oW + x) * a.co + cout;
       if (a.out_f32) {
         static_cast<float*>(a.out)[o] = v;
       } else {
@@ -271,7 +290,8 @@ bool aligned16(const void* p) {
 int conv3x3x3_two_operand(
     const void* enc, const void* small, int f_shift, const void* w,
     const void* bias, void* out, int B, int D, int H, int W, int c1, int c2,
-    int co, int reflect, int act, float slope, int out_f32, void* stream) {
+    int co, int reflect, int act, float slope, int out_f32, void* stream,
+    int grow = 0) {
   ConvArgs a;
   a.enc = static_cast<const __nv_bfloat16*>(enc);
   a.small = static_cast<const __nv_bfloat16*>(small);
@@ -281,13 +301,17 @@ int conv3x3x3_two_operand(
   a.D = D;
   a.H = H;
   a.W = W;
+  a.oD = D + 2 * grow;
+  a.oH = H + 2 * grow;
+  a.oW = W + 2 * grow;
+  a.org = -grow;
   a.c1 = c1;
   a.c2 = c2;
   a.co = co;
   a.f_shift = f_shift;
-  a.tiles_x = (W + TX - 1) / TX;
-  a.tiles_y = (H + TY - 1) / TY;
-  const int tiles_z = (D + TZ - 1) / TZ;
+  a.tiles_x = (a.oW + TX - 1) / TX;
+  a.tiles_y = (a.oH + TY - 1) / TY;
+  const int tiles_z = (a.oD + TZ - 1) / TZ;
   a.reflect = reflect;
   a.act = act;
   a.out_f32 = out_f32;
@@ -331,4 +355,74 @@ extern "C" int conv3x3x3_ndhwc(const void* x, const void* w, const void* bias,
                                int out_f32, void* stream) {
   return conv3x3x3_two_operand(x, nullptr, 0, w, bias, out, B, D, H, W, ci,
                                0, co, reflect, act, slope, out_f32, stream);
+}
+
+namespace {
+
+// the extended-grid indices whose gradient lands on voxel i of an n-extent
+// axis under reflect padding: the interior i + 1, and the halo face that
+// mirrors onto i (-1 -> 1, n -> n - 2)
+__device__ __forceinline__ int reflect_sources(int i, int n, int* s) {
+  int k = 0;
+  s[k++] = i + 1;
+  if (i == 1) s[k++] = 0;
+  if (i == n - 2) s[k++] = n + 1;
+  return k;
+}
+
+__global__ void pad_adjoint_kernel(const float* __restrict__ g,
+                                   __nv_bfloat16* __restrict__ dx, int64_t n,
+                                   int D, int H, int W, int C) {
+  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < n;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int c = e % C;
+    int64_t t = e / C;
+    const int x = t % W;
+    t /= W;
+    const int y = t % H;
+    t /= H;
+    const int z = t % D;
+    const int64_t b = t / D;
+    int sz[3], sy[3], sx[3];
+    const int nz = reflect_sources(z, D, sz);
+    const int ny = reflect_sources(y, H, sy);
+    const int nx = reflect_sources(x, W, sx);
+    float acc = 0.f;
+    for (int i = 0; i < nz; ++i) {
+      for (int j = 0; j < ny; ++j) {
+        const int64_t row = ((b * (D + 2) + sz[i]) * (H + 2) + sy[j]) * (W + 2);
+        for (int k = 0; k < nx; ++k) acc += g[(row + sx[k]) * C + c];
+      }
+    }
+    dx[e] = __float2bfloat16(acc);
+  }
+}
+
+}  // namespace
+
+// dx (B, D, H, W, ci) bf16 of a 3x3x3 "same" conv from dy (B, D, H, W, co)
+// and the flipped, transposed packed weights w_t (27 * co, ci); zero_bias is
+// (ci,) f32 zeros. reflect: g_ext (B, D+2, H+2, W+2, ci) f32 is scratch.
+extern "C" int conv3x3x3_dgrad_ndhwc(const void* dy, const void* w_t,
+                                     const void* zero_bias, void* g_ext,
+                                     void* dx, int B, int D, int H, int W,
+                                     int co, int ci, int reflect,
+                                     void* stream) {
+  if (!reflect) {
+    return conv3x3x3_two_operand(dy, nullptr, 0, w_t, zero_bias, dx, B, D,
+                                 H, W, co, 0, ci, 0, 0, 0.f, 0, stream);
+  }
+  int rc = conv3x3x3_two_operand(dy, nullptr, 0, w_t, zero_bias, g_ext, B,
+                                 D, H, W, co, 0, ci, 0, 0, 0.f, 1, stream,
+                                 /*grow=*/1);
+  if (rc != 0) return rc;
+  const int64_t n = (int64_t)B * D * H * W * ci;
+  const int threads = 256;
+  int64_t blocks = (n + threads - 1) / threads;
+  if (blocks > (int64_t(1) << 20)) blocks = int64_t(1) << 20;
+  pad_adjoint_kernel<<<(unsigned)blocks, threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g_ext), static_cast<__nv_bfloat16*>(dx), n,
+      D, H, W, ci);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,4 @@
-"""Factor-8 depth-to-space, the ViT patch decoder's exit: wrapper, plain
-version, counter.
+"""The layout permutations of the port: wrappers, plain versions, counters.
 
 `depth_to_space8_ndhwc` replaces the JAX package's V1 Pallas kernel
 (`anatomix_tpu/ops/pallas/reshuffle.py` depth_to_space8, its `emit=
@@ -11,7 +10,18 @@ channel order `(a1, a2, a3, c)` of the three stacked transposed-conv GEMMs,
 `D = 8 dz + 4 z1 + 2 z2 + z3` (likewise H, W), minus `sub[b, channel]`
 where `sub` (B, 512 * C) f32 is given.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
+`space_to_depth2_ndhwc` and `depth_to_space2_ndhwc` replace the L Pallas
+kernels `space_to_depth` and `depth_to_space` of the same JAX file with
+the kernels of `csrc/reshuffle.cu`: `(B, 2d, 2h, 2w, C)` <-> the block
+layout `(B, d, h, w, 8 C)`, channel `((ad * 2 + ah) * 2 + aw) * C + c`
+holding voxel `(2 i + ad, 2 j + ah, 2 k + aw)`, for any 2- or 4-byte dtype.
+`space_to_depth2` and `depth_to_space2` are their differentiable forms: the
+backward of each is the other, as in the JAX package's
+`space_to_depth_vjp` / `depth_to_space_vjp`. The pretraining step's train
+walk goes through them at the max pool and the nearest upsample
+(`models/unet_train_block.py`).
+
+On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version (a reshape and a permute). `.launches` counts
 kernel launches.
 """
@@ -28,14 +38,23 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _fns: dict = {}
 
 
-def _fn():
-    fn = _fns.get("depth_to_space8_ndhwc")
+_SIGNATURES = {
+    # y, sub, out; B, d, h, w, C; stream
+    "depth_to_space8_ndhwc": ("depth_to_space8", [_P] * 3 + [_I] * 5 + [_P]),
+    # in, out; B, d, h, w, C, element bytes; stream
+    "space_to_depth2_ndhwc": ("reshuffle", [_P] * 2 + [_I] * 6 + [_P]),
+    "depth_to_space2_ndhwc": ("reshuffle", [_P] * 2 + [_I] * 6 + [_P]),
+}
+
+
+def _fn(name: str):
+    fn = _fns.get(name)
     if fn is None:
-        fn = build.load("depth_to_space8").depth_to_space8_ndhwc
-        # y, sub, out; B, d, h, w, C; stream
-        fn.argtypes = [_P] * 3 + [_I] * 5 + [_P]
+        lib, argtypes = _SIGNATURES[name]
+        fn = getattr(build.load(lib), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fns["depth_to_space8_ndhwc"] = fn
+        _fns[name] = fn
     return fn
 
 
@@ -74,11 +93,115 @@ def depth_to_space8_ndhwc(
     out = torch.empty((B, 8 * d, 8 * h, 8 * w, C), dtype=torch.float32,
                       device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
-    rc = _fn()(y.data_ptr(), None if sub is None else sub.data_ptr(),
-               out.data_ptr(), B, d, h, w, C, stream)
+    rc = _fn("depth_to_space8_ndhwc")(
+        y.data_ptr(), None if sub is None else sub.data_ptr(),
+        out.data_ptr(), B, d, h, w, C, stream)
     build.check(rc, "depth_to_space8_ndhwc")
     depth_to_space8_ndhwc.launches += 1
     return out
 
 
 depth_to_space8_ndhwc.launches = 0
+
+
+# -----------------------------------------------------------------------------
+# factor-2 space-to-depth and depth-to-space (the block layout)
+
+def space_to_depth2_ndhwc_plain(x):
+    """(B, 2d, 2h, 2w, C) -> (B, d, h, w, 8 C), by reshape and permute."""
+    B, D, H, W, C = x.shape
+    t = x.reshape(B, D // 2, 2, H // 2, 2, W // 2, 2, C)
+    t = t.permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return t.reshape(B, D // 2, H // 2, W // 2, 8 * C).contiguous()
+
+
+def depth_to_space2_ndhwc_plain(xb):
+    """(B, d, h, w, 8 C) -> (B, 2d, 2h, 2w, C), by reshape and permute."""
+    B, d, h, w, c8 = xb.shape
+    t = xb.reshape(B, d, h, w, 2, 2, 2, c8 // 8)
+    t = t.permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return t.reshape(B, 2 * d, 2 * h, 2 * w, c8 // 8).contiguous()
+
+
+def _check_reshuffle(t, name):
+    if t.dim() != 5 or not t.is_contiguous() or t.element_size() not in (
+            2, 4):
+        raise ValueError(f"{name} must be a contiguous (B, D, H, W, C) tensor "
+                         f"of 2- or 4-byte elements, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+
+
+def space_to_depth2_ndhwc(x: torch.Tensor) -> torch.Tensor:
+    """(B, 2d, 2h, 2w, C) -> the block layout (B, d, h, w, 8 C)."""
+    if x.device.type == "cpu":
+        return space_to_depth2_ndhwc_plain(x)
+    _check_reshuffle(x, "x")
+    B, D, H, W, C = x.shape
+    if D % 2 or H % 2 or W % 2:
+        raise ValueError(f"extents {(D, H, W)} must be even")
+    out = torch.empty((B, D // 2, H // 2, W // 2, 8 * C), dtype=x.dtype,
+                      device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _fn("space_to_depth2_ndhwc")(
+        x.data_ptr(), out.data_ptr(), B, D // 2, H // 2, W // 2, C,
+        x.element_size(), stream)
+    build.check(rc, "space_to_depth2_ndhwc")
+    space_to_depth2_ndhwc.launches += 1
+    return out
+
+
+space_to_depth2_ndhwc.launches = 0
+
+
+def depth_to_space2_ndhwc(xb: torch.Tensor) -> torch.Tensor:
+    """The block layout (B, d, h, w, 8 C) -> (B, 2d, 2h, 2w, C)."""
+    if xb.device.type == "cpu":
+        return depth_to_space2_ndhwc_plain(xb)
+    _check_reshuffle(xb, "xb")
+    B, d, h, w, c8 = xb.shape
+    if c8 % 8:
+        raise ValueError(f"channels {c8} must be a multiple of 8")
+    out = torch.empty((B, 2 * d, 2 * h, 2 * w, c8 // 8), dtype=xb.dtype,
+                      device=xb.device)
+    stream = torch.cuda.current_stream(xb.device).cuda_stream
+    rc = _fn("depth_to_space2_ndhwc")(
+        xb.data_ptr(), out.data_ptr(), B, d, h, w, c8 // 8,
+        xb.element_size(), stream)
+    build.check(rc, "depth_to_space2_ndhwc")
+    depth_to_space2_ndhwc.launches += 1
+    return out
+
+
+depth_to_space2_ndhwc.launches = 0
+
+
+class _SpaceToDepth2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return space_to_depth2_ndhwc(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return depth_to_space2_ndhwc(g.contiguous())
+
+
+class _DepthToSpace2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xb):
+        return depth_to_space2_ndhwc(xb)
+
+    @staticmethod
+    def backward(ctx, g):
+        return space_to_depth2_ndhwc(g.contiguous())
+
+
+def space_to_depth2(x: torch.Tensor) -> torch.Tensor:
+    """Differentiable `space_to_depth2_ndhwc`; its backward is
+    `depth_to_space2_ndhwc`."""
+    return _SpaceToDepth2.apply(x)
+
+
+def depth_to_space2(xb: torch.Tensor) -> torch.Tensor:
+    """Differentiable `depth_to_space2_ndhwc`; its backward is
+    `space_to_depth2_ndhwc`."""
+    return _DepthToSpace2.apply(xb)

@@ -8,6 +8,8 @@ by the same index as a string, with DHWIO convs `{"w", "b"}`, batch norms
 `{"scale", "bias", "mean", "var"}` and `instance_affine` norms
 `{"scale", "bias"}` (state dict `weight` / `bias`). Plain instance norms have
 no parameters.
+
+`from_jax_train_state` carries a JAX pretraining `TrainState` across.
 """
 
 from __future__ import annotations
@@ -138,3 +140,30 @@ def load_pth(path: str, plan: UnetPlan) -> dict[str, torch.Tensor]:
     return {
         k: (v.float() if v.is_floating_point() else v) for k, v in sd.items()
     }
+
+
+def from_jax_train_state(state_np: Mapping[str, Any], plan: UnetPlan, *,
+                         grad_accum: int = 1):
+    """A JAX pretraining `TrainState` given as nested numpy arrays (keys
+    `step`, `params_g`, `params_f`, optionally `lr_scale`) -> the port's
+    `TrainState` (CPU, float32). `params_g` goes through `from_jax_params`;
+    `params_f` (`mlp_<t>`: `linears` (in, out), `bns` {mean, var[, scale,
+    bias]}) keeps its structure. The optimizer states start fresh (zero
+    moments, count 0), as a JAX state from `init_train_state` does."""
+    from anatomix_tpu_torch.pretraining.train_step import (
+        TrainState,
+        init_opt_state,
+        tree_map,
+    )
+
+    params_g = {k: v for k, v in
+                from_jax_params(plan, state_np["params_g"]).items()
+                if v.is_floating_point()}
+    params_f = tree_map(_t, dict(state_np["params_f"]))
+    return TrainState(
+        step=int(np.asarray(state_np["step"])),
+        params_g=params_g, params_f=params_f,
+        opt_state_g=init_opt_state(params_g, grad_accum),
+        opt_state_f=init_opt_state(params_f, grad_accum),
+        lr_scale=float(np.asarray(state_np.get("lr_scale", 1.0))),
+    )

@@ -207,13 +207,16 @@ def init_params(
     plan: UnetPlan,
     generator: torch.Generator,
     *,
+    init_type: str = "kaiming",
     init_gain: float = 0.02,
 ) -> dict[str, torch.Tensor]:
     """Seeded init as a reference-keyed state dict (CPU, float32).
 
-    The same distributions as the JAX package's `init_params`: convs He
-    normal on fan-in (with a zero bias for `instance` models), batch-norm
-    scale N(1, gain), bias 0, running mean 0, running var 1,
+    The same distributions as the JAX package's `init_params`: convs normal
+    with std sqrt(2 / fan_in) (`kaiming`), gain * sqrt(2 / (fan_in +
+    fan_out)) (`xavier`) or gain (`normal`), with a zero bias for
+    `instance` models; batch-norm scale N(1, gain), bias 0, running mean 0,
+    running var 1,
     `instance_affine` scale 1 and bias 0 (torch's `InstanceNorm3d` init).
     The draws differ from JAX's (another generator); tests share weights
     through `convert.from_jax_params`.
@@ -224,7 +227,15 @@ def init_params(
     for idx, spec in enumerate(plan.layers):
         base = f"model.{idx}"
         if spec.kind == "conv":
-            std = math.sqrt(2.0 / (spec.in_ch * 27))
+            fan_in, fan_out = spec.in_ch * 27, spec.out_ch * 27
+            if init_type == "kaiming":
+                std = math.sqrt(2.0 / fan_in)
+            elif init_type == "xavier":
+                std = init_gain * math.sqrt(2.0 / (fan_in + fan_out))
+            elif init_type == "normal":
+                std = init_gain
+            else:
+                raise ValueError(f"Unsupported init_type: {init_type}")
             sd[f"{base}.weight"] = torch.randn(
                 (spec.out_ch, spec.in_ch, 3, 3, 3), generator=generator
             ) * std

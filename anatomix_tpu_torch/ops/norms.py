@@ -1,5 +1,6 @@
-"""Instance normalization on NDHWC volumes, global or per spatial tile, and
-the ViT's channel norms (`channel_layer_norm`, `channel_demean`).
+"""Instance normalization on NDHWC volumes, global or per spatial tile, the
+ViT's channel norms (`channel_layer_norm`, `channel_demean`) and the
+pretraining step's train-mode batch norm (`batch_norm_train`).
 
 The port of `anatomix_tpu/ops/norms.py:26-179` (the reference's
 `InstanceNorm3d`: per-sample, per-channel spatial statistics, biased
@@ -176,3 +177,34 @@ def channel_layer_norm(x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     mean = x32.mean(dim=-1, keepdim=True)
     var = (x32 - mean).square().mean(dim=-1, keepdim=True)
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def batch_norm_train(
+    x: torch.Tensor,
+    running_mean: torch.Tensor,
+    running_var: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    eps: float = 1e-5,
+    momentum: float = 0.1,
+):
+    """BatchNorm3d in train mode on channels-last `x` (`anatomix_tpu/ops/
+    norms.py` batch_norm_train): normalize with the batch's statistics over
+    every axis but the last (biased variance), statistics and the normalize
+    in f32, the result in `x`'s dtype. Returns `(y, new_running_mean,
+    new_running_var)`, the running stats updated with the unbiased variance
+    and `momentum`, as torch does; they carry no gradient. The backward is
+    torch autograd."""
+    dims = tuple(range(x.dim() - 1))
+    x32 = x.float()
+    mean = x32.mean(dim=dims)
+    xc = x32 - mean
+    var = xc.square().mean(dim=dims)
+    y = xc * (torch.rsqrt(var + eps) * scale.float()) + bias.float()
+    n = x.numel() // x.shape[-1]
+    with torch.no_grad():
+        new_mean = (1 - momentum) * running_mean + momentum * mean
+        new_var = ((1 - momentum) * running_var
+                   + momentum * var * (n / max(n - 1, 1)))
+    return y.to(x.dtype), new_mean, new_var

@@ -32,15 +32,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
      Gaussian-blended sliding windows at the reference settings on 256^3
      (`[vit-sliding]`, 343 windows, held against the f32 plain path at
      160^3);
-  7. the `kernels` JSON line (launches on each path, errors, times and
+  7. the 6M pretraining step (`[train-step128]`) at the reference
+     launcher's full configuration (`PretrainConfig()`: crop 128^3, the two
+     views as batch 2, six taps, 512 patches, netF 256x3, AdamW) with
+     seeded weights on a seeded synthetic batch: five steps through
+     `build_all` -> `step`; the first loss held against the plain f32 path
+     (`F.conv3d` under autograd), every conv's dW from the kernels against
+     the plain conv backward from the same forward, and the end-to-end dW
+     beside the floor a bf16 rounding of the views sets, on three batches;
+  8. the `kernels` JSON line (launches on each path, errors, times and
      bounds), then the device's JSON line last.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel the path should run that was not launched fails it.
 
 `--quick` runs phases 1 and 2 only; `--profile` runs phases 1 and 2, then
-profiles the 6M, the dev and the ViT sliding paths on 160^3 with
-torch.profiler.
+profiles the 6M, the dev and the ViT sliding paths on 160^3 and one
+pretraining step at 128^3 with torch.profiler.
 The JSON report and the profiles go to
 `chiprun_out/`.
 """
@@ -49,6 +57,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -67,6 +76,16 @@ PEAK_BYTES = 3.35e12
 TOL_CONV_BF16 = 1e-2
 TOL_CONV_F32 = 1e-4
 TOL_SCATTER = 1e-5
+# the conv's weight gradient: f32 out, sums of up to 4.2 M products in
+# another order (and f32 atomics across blocks)
+TOL_WGRAD = 1e-3
+# the pretraining step's first loss against its plain f32 path
+TOL_TRAIN_LOSS = 1e-2
+# each conv's dW, mean |error| / std, the step's backward on the kernels
+# against the plain conv backward from the same forward: the bound the JAX
+# package holds its kernel-vs-XLA train gradients to
+# (tests/test_conv_block_train.py:117-123)
+TOL_TRAIN_DW = 5e-2
 # the factor-8 reshuffle moves values and subtracts the same f32 numbers
 TOL_EXACT = 0.0
 # whole model, bf16 kernels vs the plain f32 path: the bound and the metric
@@ -467,7 +486,107 @@ def check_d2s8(kr8, torch, dev, gen, B, d, C, with_sub):
     )
 
 
+def check_reshuffle2(kr8, torch, dev, gen, B, S, C, which):
+    """space_to_depth2_ndhwc (B, S^3, C) -> (B, (S/2)^3, 8 C), or
+    depth_to_space2_ndhwc back to (B, S^3, C), bf16, against its plain
+    version. Exact: both move the same values."""
+    if which == "s2d":
+        x = torch.randn((B, S, S, S, C), generator=gen, device=dev).to(
+            torch.bfloat16)
+        fn = lambda: kr8.space_to_depth2_ndhwc(x)  # noqa: E731
+        plain = lambda: kr8.space_to_depth2_ndhwc_plain(x)  # noqa: E731
+        shape = f"B{B} {S}^3x{C} -> {S // 2}^3x{8 * C}"
+    else:
+        h = S // 2
+        x = torch.randn((B, h, h, h, 8 * C), generator=gen, device=dev).to(
+            torch.bfloat16)
+        fn = lambda: kr8.depth_to_space2_ndhwc(x)  # noqa: E731
+        plain = lambda: kr8.depth_to_space2_ndhwc_plain(x)  # noqa: E731
+        shape = f"B{B} {h}^3x{8 * C} -> {S}^3x{C}"
+    got = fn()
+    ref = plain()
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    ms = cuda_ms(fn)
+    plain_ms = cuda_ms(plain)
+    b_ms, b_by = bound(0.0, 2.0 * x.numel() * x.element_size())
+    return dict(shape=shape, max_abs_err=err, rel_err=rel, tol=TOL_EXACT,
+                ok=rel <= TOL_EXACT, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def conv_backward_library(torch, F, x, dy, w, pad, mask):
+    """One cuDNN backward call (bf16, channels-last) of the conv on the
+    pre-padded input: the weight gradient (mask (False, True, False)) or
+    the gradient of the padded input (mask (True, False, False), without
+    the pad's adjoint)."""
+    ci, co = x.shape[-1], dy.shape[-1]
+    xc = F.pad(x.permute(0, 4, 1, 2, 3), (1,) * 6,
+               mode="reflect" if pad == "reflect" else "constant").contiguous(
+        memory_format=torch.channels_last_3d)
+    wt = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    dyc = dy.permute(0, 4, 1, 2, 3)
+    return lambda: torch.ops.aten.convolution_backward(
+        dyc, xc, wt, None, [1, 1, 1], [0, 0, 0], [1, 1, 1], False,
+        [0, 0, 0], 1, list(mask))
+
+
+def check_conv_backward(kt, torch, F, dev, gen, B, S, ci, co, which,
+                        pad="reflect"):
+    """conv3x3x3_wgrad_ndhwc (dW f32) or conv3x3x3_dgrad_ndhwc (dx bf16)
+    at (B, S^3): ci -> co, against its plain version and cuDNN's backward."""
+    x = torch.randn((B, S, S, S, ci), generator=gen, device=dev).to(
+        torch.bfloat16)
+    dy = torch.randn((B, S, S, S, co), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = (torch.randn((27 * ci, co), generator=gen, device=dev)
+         * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+    if which == "wgrad":
+        fn = lambda: kt.conv3x3x3_wgrad_ndhwc(x, dy, pad_type=pad)  # noqa
+        plain = lambda: kt.conv3x3x3_wgrad_ndhwc_plain(  # noqa: E731
+            x, dy, pad_type=pad)
+        mask, tol = (False, True, False), TOL_WGRAD
+        out_bytes = 27 * ci * co * 4
+        in_bytes = B * S ** 3 * (ci + co) * 2
+    else:
+        fn = lambda: kt.conv3x3x3_dgrad_ndhwc(dy, w, pad_type=pad)  # noqa
+        plain = lambda: kt.conv3x3x3_dgrad_ndhwc_plain(  # noqa: E731
+            dy, w, pad_type=pad)
+        mask, tol = (True, False, False), TOL_CONV_BF16
+        out_bytes = B * S ** 3 * ci * 2
+        in_bytes = B * S ** 3 * co * 2 + 27 * ci * co * 2
+    got = fn()
+    ref = plain()
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    ms = cuda_ms(fn)
+    plain_ms = cuda_ms(plain)
+    lib_ms = cuda_ms(conv_backward_library(torch, F, x, dy, w, pad, mask))
+    b_ms, b_by = bound(2.0 * B * S ** 3 * 27 * ci * co, in_bytes + out_bytes)
+    return dict(
+        shape=f"B{B} {S}^3 {ci}->{co}" + ("" if pad == "reflect" else
+                                          " zeros"),
+        max_abs_err=err, rel_err=rel, tol=tol, ok=rel < tol, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+    )
+
+
 # -----------------------------------------------------------------------------
+
+def smooth_field(torch, dev, size: int, seed: int):
+    """A smooth seeded (size^3) field in [0, 1]: Gaussian blobs, no noise."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ax = torch.linspace(-1, 1, size, device=dev)
+    z, y, x = torch.meshgrid(ax, ax, ax, indexing="ij")
+    vol = torch.zeros((size, size, size), device=dev)
+    centers = torch.rand((8, 3), generator=gen, device=dev) * 1.6 - 0.8
+    widths = 0.05 + 0.2 * torch.rand((8,), generator=gen, device=dev)
+    for c, s in zip(centers, widths):
+        vol += torch.exp(-((z - c[0]) ** 2 + (y - c[1]) ** 2
+                           + (x - c[2]) ** 2) / s)
+    return (vol - vol.min()) / (vol.max() - vol.min())
+
 
 def synthetic_volume(torch, dev, size: int, seed: int):
     """A CT-like test volume in [0, 1]: smooth blobs plus noise, seeded."""
@@ -583,6 +702,7 @@ def main(argv) -> int:
     from anatomix_tpu_torch.kernels import build
     from anatomix_tpu_torch.kernels import conv as kc
     from anatomix_tpu_torch.kernels import conv_down as kd
+    from anatomix_tpu_torch.kernels import conv_train as kt
     from anatomix_tpu_torch.kernels import norm as kn
     from anatomix_tpu_torch.kernels import reshuffle as kr8
     from anatomix_tpu_torch.kernels import resize as kr
@@ -612,6 +732,10 @@ def main(argv) -> int:
         "conv_down2_ndhwc": kd.conv_down2_ndhwc,
         "flash_attention": ka.flash_attention,
         "depth_to_space8_ndhwc": kr8.depth_to_space8_ndhwc,
+        "conv3x3x3_wgrad_ndhwc": kt.conv3x3x3_wgrad_ndhwc,
+        "conv3x3x3_dgrad_ndhwc": kt.conv3x3x3_dgrad_ndhwc,
+        "space_to_depth2_ndhwc": kr8.space_to_depth2_ndhwc,
+        "depth_to_space2_ndhwc": kr8.depth_to_space2_ndhwc,
     }
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -696,6 +820,26 @@ def main(argv) -> int:
     for with_sub in (True, False):
         checks["depth_to_space8_ndhwc"].append(
             check_d2s8(kr8, torch, dev, gen, 2, 16, 32, with_sub))
+    # the pretraining step's conv backward: the 6M UNet's full-resolution
+    # conv, its decoder concat, the 64^3 decoder, the bottleneck; the entry
+    # conv (Ci = 1) takes no dx
+    for B, S, ci, co in [(2, 128, 16, 16), (2, 128, 48, 16), (2, 64, 96, 32),
+                         (2, 8, 256, 256), (2, 128, 1, 16)]:
+        for which in ("wgrad", "dgrad"):
+            if which == "dgrad" and ci == 1:
+                continue
+            checks[f"conv3x3x3_{which}_ndhwc"].append(check_conv_backward(
+                kt, torch, F, dev, gen, B, S, ci, co, which))
+    # the step's block-layout permutations: the first and last pools'
+    # inputs, the last upsample's gradient (s2d); the last upsample, the
+    # first pool's gradient, the first upsample (d2s)
+    for which, B, S, C in [("s2d", 2, 128, 16), ("s2d", 2, 16, 128),
+                           ("s2d", 2, 128, 32), ("d2s", 2, 128, 32),
+                           ("d2s", 2, 128, 16), ("d2s", 2, 16, 256)]:
+        name = ("space_to_depth2_ndhwc" if which == "s2d"
+                else "depth_to_space2_ndhwc")
+        checks[name].append(check_reshuffle2(kr8, torch, dev, gen, B, S, C,
+                                             which))
     failed = []
     for name, rows in checks.items():
         for row in rows:
@@ -738,6 +882,8 @@ def main(argv) -> int:
             vcfg, torch.Generator().manual_seed(0)).items()}
         report["profile_vit"] = profile_sliding(
             torch, make_feature_extractor, vcfg, vsd, dev, out_dir, "vit")
+        del vsd
+        report["profile_train"] = profile_train(torch, dev, out_dir)
         with open(os.path.join(out_dir, "chip_profile.json"), "w") as f:
             json.dump(report, f, indent=1)
         return 0
@@ -824,11 +970,14 @@ def main(argv) -> int:
         torch, dev, make_feature_extractor, wrappers, paths,
         primus_config(ANATOMIX_VARIANTS["anatomix-dev-vit"]["vit_kwargs"]),
         init_primus_params, Primus, vol256, vol128, vol160, sw_kw, sw)
+
+    # phase 7: the 6M pretraining step at the reference configuration
+    report["train"] = run_train(torch, dev, wrappers, paths, kt)
     for name in wrappers:
         log(f"[launches] {name}: " + ", ".join(
             f"{p} {v[name]}" for p, v in paths.items()))
 
-    # phase 7: the kernels line
+    # phase 8: the kernels line
     replaces = {
         "conv3x3x3_ndhwc": (
             "anatomix_tpu/ops/pallas/conv_block.py:248 "
@@ -854,6 +1003,15 @@ def main(argv) -> int:
                            "_flash_attention",
         "depth_to_space8_ndhwc": "anatomix_tpu/ops/pallas/reshuffle.py:478 "
                                  "depth_to_space8",
+        "conv3x3x3_wgrad_ndhwc": (
+            "anatomix_tpu/ops/pallas/conv_block_train.py:289 "
+            "_wgrad_halo_wide (+ _wgrad_halo :362, _wgrad :444)"),
+        "conv3x3x3_dgrad_ndhwc": "anatomix_tpu/ops/pallas/conv_block.py:691 "
+                                 "conv_block_sparse_dx",
+        "space_to_depth2_ndhwc": "anatomix_tpu/ops/pallas/reshuffle.py:620 "
+                                 "space_to_depth",
+        "depth_to_space2_ndhwc": "anatomix_tpu/ops/pallas/reshuffle.py:90 "
+                                 "depth_to_space",
     }
     csrc = "anatomix_tpu_torch/kernels/csrc/"
     sources = {
@@ -866,17 +1024,25 @@ def main(argv) -> int:
         "conv_down2_ndhwc": csrc + "conv_down.cu",
         "flash_attention": csrc + "flash_attention.cu",
         "depth_to_space8_ndhwc": csrc + "depth_to_space8.cu",
+        "conv3x3x3_wgrad_ndhwc": csrc + "conv3d_wgrad.cu",
+        "conv3x3x3_dgrad_ndhwc": csrc + "conv3d.cu",
+        "space_to_depth2_ndhwc": csrc + "reshuffle.cu",
+        "depth_to_space2_ndhwc": csrc + "reshuffle.cu",
     }
     # the line reports each kernel at its dominant main-path shape: the
     # 16-channel 128^3 conv, the 48->16 decoder conv, the 6M stitch chunk,
     # the dev 96->32 decoder conv, the 64^3 -> 128^3 upsample, the global
     # norm of a 128^3 window pair, the ViT's first stride-2 stage, its
-    # attention at B2 and its exit with the demean subtract
+    # attention at B2 and its exit with the demean subtract, the backward of
+    # the 16-channel 128^3 conv, the first pool's space-to-depth and the last
+    # upsample's depth-to-space
     headline = {"conv3x3x3_ndhwc": 1, "conv3x3x3_upcat_ndhwc": 3,
                 "blend_scatter": 0, "conv3x3x3_cat_ndhwc": 0,
                 "upsample2x_trilinear_ndhwc": 0, "norm_apply_ndhwc": 0,
                 "conv_down2_ndhwc": 0, "flash_attention": 0,
-                "depth_to_space8_ndhwc": 0}
+                "depth_to_space8_ndhwc": 0, "conv3x3x3_wgrad_ndhwc": 0,
+                "conv3x3x3_dgrad_ndhwc": 0, "space_to_depth2_ndhwc": 0,
+                "depth_to_space2_ndhwc": 0}
     kernels = []
     for name, rows in checks.items():
         row = rows[headline[name]]
@@ -1084,6 +1250,251 @@ def run_vit(torch, dev, make_feature_extractor, wrappers, paths, cfg,
     del got, ref, vslide
     torch.cuda.empty_cache()
     return out
+
+
+def train_batch(torch, dev, S: int, seed: int = 12, noisy: bool = False):
+    """A seeded synthetic pretraining batch: two views (1, 2, S^3, 1) of one
+    smooth volume (or, `noisy`, the CT-like volume of blobs plus noise) with
+    a per-view gain, gamma and shift, and labels (1, S^3, 1) from a smooth
+    field quantized to 10 classes."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    vol = (synthetic_volume(torch, dev, S, seed)[0, ..., 0] if noisy
+           else smooth_field(torch, dev, S, seed=seed))
+    gain = 0.8 + 0.4 * torch.rand((2,), generator=gen, device=dev)
+    gamma = 0.7 + 0.6 * torch.rand((2,), generator=gen, device=dev)
+    shift = 0.1 * torch.randn((2,), generator=gen, device=dev)
+    views = torch.stack([gain[k] * vol ** gamma[k] + shift[k]
+                         for k in range(2)])[None, ..., None].contiguous()
+    segs = (smooth_field(torch, dev, S, seed=13) * 10).long().clamp(
+        max=9)[None, ..., None]
+    return views, segs
+
+
+def profile_train(torch, dev, out_dir):
+    """Kernel time by name and the device's busy share over one pretraining
+    step at `PretrainConfig()`, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+    from anatomix_tpu_torch.pretraining.train import build_all
+
+    cfg = PretrainConfig()
+    _, _, state, step = build_all(cfg, 1000, device=dev)
+    views, segs = train_batch(torch, dev, cfg.crop_size)
+    sampler = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa
+    state, _ = step(state, views, segs, sampler())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, views, segs, sampler())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    attr = ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    rows = sorted(
+        ((getattr(ev, attr) / 1e3, ev.count, ev.key) for ev in events
+         if ev.device_type == DeviceType.CUDA and getattr(ev, attr) > 0),
+        reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    with open(os.path.join(out_dir, "profile_train_step128.txt"), "w") as f:
+        f.write(events.table(sort_by=attr, row_limit=60))
+    log(f"[profile] train step 128^3: wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    for ms, count, key in rows[:24]:
+        log(f"[profile]   {ms:9.3f} ms  {count:5d}x  {key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                top=[dict(ms=r[0], count=r[1], name=r[2]) for r in rows[:30]])
+
+
+def train_dw_check(torch, kt, plan, state0, views, segs, sampler, kw):
+    """The first step's loss and gradients from `state0` on one batch, on
+    the kernels and beside them: (a) the kernel path, recording each conv
+    backward launch with its inputs; (b) the same forward with the conv
+    backward on the plain versions (bf16 dx rounded where the kernel
+    rounds); (c) the plain f32 path (`F.conv3d`, torch's pool and
+    upsample); (d) the plain f32 path on the views rounded to bf16. (a)
+    against (b) holds the step's backward on the kernels, inside autograd
+    with batch norm, pool, upsample and gather, against the plain backward
+    of the same activations; (a) against (c) is the end-to-end dW error,
+    and (d) against (c) its floor: how far a bf16-size change of the input
+    alone moves the step's dW."""
+    from anatomix_tpu_torch.pretraining.train_step import nce_loss_and_grads
+
+    records = []
+
+    def rec(fn, which):
+        def call(a, b, *, pad_type):
+            out = fn(a, b, pad_type=pad_type)
+            records.append((which, (a, b), pad_type, out))
+            return out
+        return call
+
+    def run(v, **extra):
+        return nce_loss_and_grads(plan, state0.params_g, state0.params_f, v,
+                                  segs, sampler(), **kw, **extra)
+
+    with kt.backward_route(rec(kt.conv3x3x3_dgrad_ndhwc, "dgrad"),
+                           rec(kt.conv3x3x3_wgrad_ndhwc, "wgrad")):
+        loss_k, _, grads_k, _ = run(views)
+    with kt.backward_route(kt.conv3x3x3_dgrad_ndhwc_plain,
+                           kt.conv3x3x3_wgrad_ndhwc_plain):
+        loss_b, _, grads_b, _ = run(views)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_p, _, grads_p, _ = run(views, plain=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    _, _, grads_q, _ = run(views.to(torch.bfloat16).float(), plain=True)
+
+    def dw_err(grads, ref):
+        return {i: float((grads[f"model.{i}.weight"]
+                          - ref[f"model.{i}.weight"]).abs().mean()
+                         / ref[f"model.{i}.weight"].std())
+                for i in plan.conv_indices}
+
+    launches = {"wgrad": [], "dgrad": []}
+    for which, args, pad, got in records:
+        plain_fn = (kt.conv3x3x3_wgrad_ndhwc_plain if which == "wgrad"
+                    else kt.conv3x3x3_dgrad_ndhwc_plain)
+        launches[which].append(rel_err(got, plain_fn(*args,
+                                                     pad_type=pad))[1])
+    return dict(
+        loss_kernels=float(loss_k), loss_same_forward=float(loss_b),
+        loss_plain=float(loss_p), plain_seconds=plain_s,
+        dw_backward=dw_err(grads_k, grads_b), dw_end_to_end=dw_err(
+            grads_k, grads_p), dw_floor=dw_err(grads_q, grads_p),
+        launch_errs=launches)
+
+
+def fmt_dw(errs) -> str:
+    worst = max(errs, key=errs.get)
+    return f"max {errs[worst]:.3e} at layer {worst}: " + ", ".join(
+        f"{i}: {v:.2e}" for i, v in errs.items())
+
+
+def run_train(torch, dev, wrappers, paths, kt):
+    """Phase 7: the 6M pretraining step at `PretrainConfig()` (the reference
+    launcher's settings, nothing cut) with seeded weights, on a seeded
+    synthetic batch: views from one smooth 128^3 volume with a per-view
+    intensity change, labels from a smooth field quantized to 10 classes.
+    Five steps on the same batch with the same sampler seed; then the first
+    step's loss and every conv's dW against the plain paths
+    (`train_dw_check`), on this batch and on two others (another smooth
+    volume, and a noisy one) that show what sets the end-to-end floor."""
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+    from anatomix_tpu_torch.pretraining.train import build_all
+    from anatomix_tpu_torch.pretraining.train_step import NCEOptions
+
+    cfg = PretrainConfig()
+    # a dataset epoch of 1000 steps: the const_linear rate is constant here
+    plan, taps, state0, step = build_all(cfg, 1000, device=dev)
+    S = cfg.crop_size
+    views, segs = train_batch(torch, dev, S)
+    n_labels = int(segs.unique().numel())
+    n_conv = len(plan.conv_indices)
+    n_resize = sum(spec.kind in ("pool", "upsample") for spec in plan.layers)
+    log(f"[train-step128] PretrainConfig(): ngf {cfg.ngf}, num_downs "
+        f"{cfg.num_downs}, crop {S}^3 x batch {cfg.batch_size} (2 views), "
+        f"taps {taps} ({plan.tap_channels(taps)} ch), {cfg.num_patches} "
+        f"patches, netF {cfg.netF_nc}x{cfg.n_mlps}, {n_conv} convs, "
+        f"{sum(v.numel() for v in state0.params_g.values())} G parameters, "
+        f"{n_labels} labels")
+    sampler = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa
+
+    state = state0
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(5):
+        if i == 0:
+            reset_counts(wrappers)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, views, segs, sampler())
+        end.record()
+        torch.cuda.synchronize()
+        if i == 0:
+            c = paths["train"] = counts(wrappers)
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med_ms = statistics.median(step_ms[1:])
+    log(f"[train-step128] losses {losses}; step ms {step_ms} (median of "
+        f"steps 2-5 {med_ms:.4f} ms); peak {peak:.2f} GiB; launches per "
+        f"step {c}; {nvidia_smi()}")
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        raise RuntimeError(f"train-step128: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"train-step128: loss did not fall {losses}")
+    # every conv forward and weight gradient, every dx but the entry
+    # conv's; each pool and upsample permutes forward and backward
+    want = {"conv3x3x3_ndhwc": n_conv, "conv3x3x3_wgrad_ndhwc": n_conv,
+            "conv3x3x3_dgrad_ndhwc": n_conv - 1,
+            "space_to_depth2_ndhwc": n_resize,
+            "depth_to_space2_ndhwc": n_resize}
+    if any(c[k] != v for k, v in want.items()):
+        raise RuntimeError(f"train-step128: launches {c}, want {want}")
+    del state
+
+    # the first step against the plain paths, from the same state and
+    # sampler seed; these launches are not the path's
+    kw = dict(tap_layers=taps, num_patches=cfg.num_patches,
+              nce=NCEOptions(temperature=cfg.nce_T))
+    main = train_dw_check(torch, kt, plan, state0, views, segs, sampler, kw)
+    loss_rel = abs(losses[0] - main["loss_plain"]) / abs(main["loss_plain"])
+    errs = main["launch_errs"]
+    log(f"[train-step128] first loss {losses[0]:.6f} (nce_forward on the "
+        f"kernels {main['loss_kernels']!r}, with the plain conv backward "
+        f"{main['loss_same_forward']!r}) vs plain f32 path "
+        f"{main['loss_plain']:.6f}: rel {loss_rel:.3e} (tol "
+        f"{TOL_TRAIN_LOSS}); plain loss+grads {main['plain_seconds']:.4f} s")
+    log(f"[train-step128] this step's {len(errs['wgrad'])} wgrad and "
+        f"{len(errs['dgrad'])} dgrad launches vs their plain versions on the "
+        f"same tensors: max rel {max(errs['wgrad']):.3e} (tol {TOL_WGRAD}), "
+        f"{max(errs['dgrad']):.3e} (tol {TOL_CONV_BF16})")
+    log(f"[train-step128] dW mean|err|/std, the step's backward on the "
+        f"kernels vs the plain conv backward from the same forward (tol "
+        f"{TOL_TRAIN_DW}): {fmt_dw(main['dw_backward'])}")
+    log(f"[train-step128] dW mean|err|/std end to end, the kernel path vs "
+        f"the plain f32 path: {fmt_dw(main['dw_end_to_end'])}")
+    log(f"[train-step128] the plain f32 path on bf16-rounded views vs "
+        f"itself: {fmt_dw(main['dw_floor'])}")
+    if not loss_rel < TOL_TRAIN_LOSS:
+        raise RuntimeError(f"train-step128: loss {losses[0]} vs "
+                           f"{main['loss_plain']}")
+    if (len(errs["wgrad"]), len(errs["dgrad"])) != (n_conv, n_conv - 1):
+        raise RuntimeError(f"train-step128: recorded {errs}")
+    if not (max(errs["wgrad"]) < TOL_WGRAD
+            and max(errs["dgrad"]) < TOL_CONV_BF16):
+        raise RuntimeError(f"train-step128: kernel errors {errs}")
+    if not max(main["dw_backward"].values()) < TOL_TRAIN_DW:
+        raise RuntimeError(f"train-step128: backward dW {main['dw_backward']}"
+                           f" over {TOL_TRAIN_DW}")
+    # what sets the end-to-end floor: another smooth volume, and a noisy one
+    # (blobs plus noise: fewer near-ties in the pools' windows)
+    others = {}
+    for tag, (v, sg) in {
+        "smooth_seed21": train_batch(torch, dev, S, seed=21),
+        "noisy": train_batch(torch, dev, S, noisy=True),
+    }.items():
+        others[tag] = r = train_dw_check(torch, kt, plan, state0, v, sg,
+                                         sampler, kw)
+        log(f"[train-step128] {tag}: backward {fmt_dw(r['dw_backward'])}")
+        log(f"[train-step128] {tag}: end to end {fmt_dw(r['dw_end_to_end'])}")
+        log(f"[train-step128] {tag}: floor {fmt_dw(r['dw_floor'])}")
+        if not max(r["dw_backward"].values()) < TOL_TRAIN_DW:
+            raise RuntimeError(f"train-step128 {tag}: backward dW "
+                               f"{r['dw_backward']} over {TOL_TRAIN_DW}")
+    del state0
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=step_ms, median_step_ms=med_ms,
+                peak_gib=peak, launches_per_step=c, loss_rel=loss_rel,
+                labels=n_labels, first_step=main, other_batches=others)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,8 @@ names = ["anatomix_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             if m in ("jax", "optax", "flax", "h5py")
+             or m.startswith(("jax.", "jaxlib", "optax.", "flax.", "h5py."))
              or m == "anatomix_tpu" or m.startswith("anatomix_tpu."))
 print(len(names))
 print(bad)
@@ -39,8 +40,25 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
         cwd=ROOT, env=env, timeout=120, check=True,
     ).stdout.splitlines()
-    assert int(out[0]) >= 31
+    assert int(out[0]) >= 40
     assert out[1] == "[]"
+
+
+def test_pretraining_package_is_lazy():
+    """Importing `anatomix_tpu_torch.pretraining` loads none of its
+    modules, and nothing of JAX, optax, flax or h5py."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    code = ("import sys, anatomix_tpu_torch.pretraining as p\n"
+            "print(sorted(m for m in sys.modules if m.startswith("
+            "('anatomix_tpu_torch.pretraining.', 'jax', 'optax', 'flax', "
+            "'h5py', 'anatomix_tpu.'))))\n"
+            "print(p.build_all.__module__)")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=ROOT, env=env, timeout=120, check=True,
+    ).stdout.splitlines()
+    assert out == ["[]", "anatomix_tpu_torch.pretraining.train"]
 
 
 def test_chip_smoke_imports_no_jax():
@@ -54,7 +72,8 @@ def test_chip_smoke_imports_no_jax():
     assert "anatomix_tpu_torch.extract" in mods
     for m in mods:
         top = m.split(".")[0]
-        assert top not in ("jax", "jaxlib", "anatomix_tpu"), m
+        assert top not in ("jax", "jaxlib", "anatomix_tpu", "optax", "flax",
+                           "h5py"), m
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -91,6 +110,37 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                    compute_dtype=torch.float32)(
         np.zeros((1, 16, 16, 16, 1), np.float32))
     assert feats.shape == (1, 16, 16, 16, 32) and feats.device.type == "cpu"
+
+
+def test_build_all_raises_without_cuda(monkeypatch, tmp_path):
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+    from anatomix_tpu_torch.pretraining.train import build_all
+    from anatomix_tpu_torch.pretraining.train_step import init_train_state
+    from anatomix_tpu_torch.utils.checkpoint import (
+        load_train_state,
+        save_train_state,
+    )
+
+    cfg = PretrainConfig(ngf=4, num_downs=2, nce_layers=(17, 37),
+                         netF_nc=8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_all(cfg, 1)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        build_all(PretrainConfig(netG="primus"), 1, device="cpu")
+    # the CPU is used only when asked for
+    plan, taps, state, _ = build_all(cfg, 1, device="cpu")
+    assert state.params_g["model.0.weight"].device.type == "cpu"
+    # the state builders behind the step default to the card too
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(plan, torch.Generator().manual_seed(0),
+                         tap_layers=taps, netf_nc=8)
+    path = str(tmp_path / "state.npz")
+    save_train_state(path, state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_train_state(path)
+    back = load_train_state(path, device="cpu")
+    assert back.params_g["model.0.weight"].device.type == "cpu"
 
 
 def test_cli_defaults_to_cuda(monkeypatch, tmp_path):

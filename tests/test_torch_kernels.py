@@ -193,16 +193,32 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     assert conv3x3x3_ndhwc.launches == before
     assert build.SOURCES == ("conv3d", "blend_scatter", "norm_apply",
                              "upsample", "conv_down", "flash_attention",
-                             "depth_to_space8")
+                             "depth_to_space8", "conv3d_wgrad", "reshuffle")
     # the ViT's kernels take their plain versions on the CPU too
     from anatomix_tpu_torch.kernels.attention import flash_attention
     from anatomix_tpu_torch.kernels.conv_down import conv_down2_ndhwc
-    from anatomix_tpu_torch.kernels.reshuffle import depth_to_space8_ndhwc
+    from anatomix_tpu_torch.kernels.conv_train import (
+        conv3x3x3_dgrad_ndhwc,
+        conv3x3x3_wgrad_ndhwc,
+    )
+    from anatomix_tpu_torch.kernels.reshuffle import (
+        depth_to_space2_ndhwc,
+        depth_to_space8_ndhwc,
+        space_to_depth2_ndhwc,
+    )
 
-    wrappers = (conv_down2_ndhwc, flash_attention, depth_to_space8_ndhwc)
+    wrappers = (conv_down2_ndhwc, flash_attention, depth_to_space8_ndhwc,
+                conv3x3x3_wgrad_ndhwc, conv3x3x3_dgrad_ndhwc,
+                space_to_depth2_ndhwc, depth_to_space2_ndhwc)
     counts = [f.launches for f in wrappers]
     conv_down2_ndhwc(x, w, b)
     q = torch.randn(1, 2, 5, 4)
     flash_attention(q, q, q, 0.5)
     depth_to_space8_ndhwc(torch.randn(1, 1, 1, 1, 512))
+    # and the conv's backward kernels (the pretraining step)
+    dy = torch.randn(1, 4, 4, 4, 3)
+    conv3x3x3_wgrad_ndhwc(x, dy, pad_type="zeros")
+    conv3x3x3_dgrad_ndhwc(dy, w, pad_type="zeros")
+    # and the block-layout permutations of its train walk
+    depth_to_space2_ndhwc(space_to_depth2_ndhwc(x))
     assert [f.launches for f in wrappers] == counts
