@@ -13,6 +13,17 @@ it runs the plain version (f32 `F.conv3d` through `ops/conv.conv3d_down2`).
 `.launches` counts kernel launches. Weights are packed `(27 * Ci, Co)` bf16
 as for `kernels/conv.py`, the bias f32, accumulation f32, the output bf16
 or f32.
+
+`conv_down2_train(x, w, b)` is the differentiable stride-2 conv of the ViT's
+pretraining step (the JAX TPU kernel has no VJP; JAX differentiates XLA's
+`conv3d(stride=2)`). The forward runs on V2. The backward reuses the
+stride-1 conv's gradient kernels (`kernels/conv_train.py`, T-w and T-x)
+through an exact identity: with `dy_up` the output gradient zero-inserted
+onto the input grid (`dy_up[:, ::2, ::2, ::2] = dy`, zeros elsewhere), the
+stride-2 pad-1 conv's dW is the zero-padded "same" conv's dW of
+`(x, dy_up)` and its dx the zero-padded "same" conv's dx of `dy_up`. It
+multiplies zeros in 7/8 of its products; a parity-decomposed backward is
+later work. `conv_down2_backward_plain` is the same on the plain versions.
 """
 
 from __future__ import annotations
@@ -24,7 +35,12 @@ import torch
 from anatomix_tpu_torch.kernels import build
 from anatomix_tpu_torch.kernels.conv import _check_act, _check_common
 from anatomix_tpu_torch.ops.activations import EPILOGUE_ACTS, apply_activation
-from anatomix_tpu_torch.ops.conv import conv3d_down2, unpack_conv_weight
+from anatomix_tpu_torch.kernels import conv_train
+from anatomix_tpu_torch.ops.conv import (
+    conv3d_down2,
+    pack_conv_weight,
+    unpack_conv_weight,
+)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _fns: dict = {}
@@ -82,3 +98,63 @@ def conv_down2_ndhwc(
 
 
 conv_down2_ndhwc.launches = 0
+
+
+# -----------------------------------------------------------------------------
+# the differentiable stride-2 conv
+
+def zero_insert(dy: torch.Tensor, spatial) -> torch.Tensor:
+    """The stride-2 conv's output gradient (B, d, h, w, Co) on its input
+    grid `spatial`: dy at even positions, zeros elsewhere."""
+    B, d, h, w, co = dy.shape
+    up = dy.new_zeros((B, *spatial, co))
+    up[:, ::2, ::2, ::2] = dy
+    return up
+
+
+def conv_down2_backward_plain(x, dy, w_packed):
+    """`(dx, dW)` of the stride-2 conv through the zero-inserted gradient,
+    on the plain stride-1 gradient functions: dx in dy's dtype, dW f32
+    packed (27 * Ci, Co)."""
+    up = zero_insert(dy, x.shape[1:4])
+    return (conv_train.conv3x3x3_dgrad_ndhwc_plain(up, w_packed,
+                                                   pad_type="zeros"),
+            conv_train.conv3x3x3_wgrad_ndhwc_plain(x, up, pad_type="zeros"))
+
+
+class _ConvDown2Train(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        w_packed = pack_conv_weight(w).to(x.dtype)
+        y = conv_down2_ndhwc(x, w_packed, b.float().contiguous(),
+                             out_dtype=torch.float32)
+        ctx.save_for_backward(x, w_packed)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_packed = ctx.saved_tensors
+        # the same route as the stride-1 conv's backward
+        dgrad, wgrad = conv_train._route or (
+            conv_train.conv3x3x3_dgrad_ndhwc,
+            conv_train.conv3x3x3_wgrad_ndhwc)
+        up = zero_insert(dy.to(x.dtype), x.shape[1:4]).contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = dgrad(up, w_packed, pad_type="zeros")
+        if ctx.needs_input_grad[1]:
+            dw = unpack_conv_weight(wgrad(x, up, pad_type="zeros"),
+                                    x.shape[-1])
+        if ctx.needs_input_grad[2]:
+            db = dy.float().sum(dim=(0, 1, 2, 3))
+        return dx, dw, db
+
+
+def conv_down2_train(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """Differentiable stride-2 3x3x3 conv (zero padding 1) of NDHWC `x` with
+    the f32 torch-layout kernel `w` (O, I, 3, 3, 3) and bias `b`: the
+    forward on V2 in `x`'s dtype (weights rounded to it), stored in f32
+    (an instance norm follows it in the ViT's tokenizer); dx from T-x, dW
+    from T-w on the zero-inserted gradient, dW and db f32."""
+    return _ConvDown2Train.apply(x, w, b)

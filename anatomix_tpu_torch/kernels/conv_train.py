@@ -237,14 +237,14 @@ def backward_route(dgrad, wgrad):
 
 class _Conv3x3x3Train(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, pad_type):
+    def forward(ctx, x, w, b, pad_type, out_dtype):
         ci = x.shape[-1]
         w_packed = pack_conv_weight(w).to(x.dtype)
-        bias = (b.float() if b is not None else
+        bias = (b.float().contiguous() if b is not None else
                 torch.zeros((w.shape[0],), dtype=torch.float32,
                             device=x.device))
         y = conv3x3x3_ndhwc(x, w_packed, bias, act="none", pad_type=pad_type,
-                            out_dtype=x.dtype)
+                            out_dtype=out_dtype)
         ctx.save_for_backward(x, w_packed)
         ctx.pad_type = pad_type
         ctx.ci = ci
@@ -264,7 +264,7 @@ class _Conv3x3x3Train(torch.autograd.Function):
             dw = unpack_conv_weight(dw_packed, ctx.ci)
         if ctx.needs_input_grad[2]:
             db = dy.float().sum(dim=(0, 1, 2, 3))
-        return dx, dw, db, None
+        return dx, dw, db, None, None
 
 
 def conv3x3x3_train(
@@ -272,9 +272,11 @@ def conv3x3x3_train(
     w: torch.Tensor,
     b: torch.Tensor | None = None,
     pad_type: str = "reflect",
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Differentiable 3x3x3 "same" conv of NDHWC `x` with the f32 torch-layout
     kernel `w` (O, I, 3, 3, 3) and optional bias: the forward in `x`'s dtype
-    (weights rounded to it), gradients from the dgrad and wgrad kernels, dW
-    and db in f32."""
-    return _Conv3x3x3Train.apply(x, w, b, pad_type)
+    (weights rounded to it), stored in `out_dtype` (default `x`'s),
+    gradients from the dgrad and wgrad kernels (the output gradient rounded
+    to `x`'s dtype), dW and db in f32."""
+    return _Conv3x3x3Train.apply(x, w, b, pad_type, out_dtype or x.dtype)

@@ -9,7 +9,8 @@ by the same index as a string, with DHWIO convs `{"w", "b"}`, batch norms
 `{"scale", "bias"}` (state dict `weight` / `bias`). Plain instance norms have
 no parameters.
 
-`from_jax_train_state` carries a JAX pretraining `TrainState` across.
+`from_jax_train_state` carries a JAX pretraining `TrainState` across, of
+the UNet or of the Primus ViT.
 """
 
 from __future__ import annotations
@@ -142,11 +143,13 @@ def load_pth(path: str, plan: UnetPlan) -> dict[str, torch.Tensor]:
     }
 
 
-def from_jax_train_state(state_np: Mapping[str, Any], plan: UnetPlan, *,
+def from_jax_train_state(state_np: Mapping[str, Any], plan, *,
                          grad_accum: int = 1):
     """A JAX pretraining `TrainState` given as nested numpy arrays (keys
     `step`, `params_g`, `params_f`, optionally `lr_scale`) -> the port's
-    `TrainState` (CPU, float32). `params_g` goes through `from_jax_params`;
+    `TrainState` (CPU, float32). `params_g` goes through `from_jax_params`
+    (`plan` a `UnetPlan`) or `vit3d.convert.from_jax_primus_params` (`plan`
+    a `PrimusConfig`);
     `params_f` (`mlp_<t>`: `linears` (in, out), `bns` {mean, var[, scale,
     bias]}) keeps its structure. The optimizer states start fresh (zero
     moments, count 0), as a JAX state from `init_train_state` does."""
@@ -156,9 +159,16 @@ def from_jax_train_state(state_np: Mapping[str, Any], plan: UnetPlan, *,
         tree_map,
     )
 
-    params_g = {k: v for k, v in
-                from_jax_params(plan, state_np["params_g"]).items()
-                if v.is_floating_point()}
+    if isinstance(plan, UnetPlan):
+        params_g = {k: v for k, v in
+                    from_jax_params(plan, state_np["params_g"]).items()
+                    if v.is_floating_point()}
+    else:
+        from anatomix_tpu_torch.models.vit3d.convert import (
+            from_jax_primus_params,
+        )
+
+        params_g = from_jax_primus_params(plan, state_np["params_g"])
     params_f = tree_map(_t, dict(state_np["params_f"]))
     return TrainState(
         step=int(np.asarray(state_np["step"])),

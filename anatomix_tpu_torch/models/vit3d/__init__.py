@@ -15,6 +15,9 @@ from anatomix_tpu_torch.models.vit3d.convert import (  # noqa: E402
     from_jax_primus_params,
     load_primus_state_dict,
 )
+from anatomix_tpu_torch.models.vit3d.primus_train import (  # noqa: E402
+    primus_train_apply,
+)
 
 __all__ = [
     "PRIMUS_CONFIGS",
@@ -28,4 +31,5 @@ __all__ = [
     "primus_apply",
     "primus_config",
     "primus_param_count",
+    "primus_train_apply",
 ]

@@ -453,7 +453,8 @@ class Primus(nn.Module):
     def forward(self, x: torch.Tensor, *,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 plain: bool = False) -> torch.Tensor:
-        """Inference only: the kernels have no backward yet."""
+        """Inference, without gradients; the differentiable forward of the
+        pretraining step is `primus_train.primus_train_apply`."""
         cfg = self.cfg
         if x.dim() == 4:
             x = x[..., None]

@@ -1,6 +1,6 @@
 """Pretraining of the port: the contrastive train step (config, SupPatchNCE
-loss, patch sampling and projectors, schedules, train-mode UNet on the conv
-kernels and their backward kernels, AdamW) and `build_all`.
+loss, patch sampling and projectors, schedules, the train-mode UNet or ViT
+on the kernels and their backward kernels, AdamW) and `build_all`.
 
 Importing this package imports none of its modules; names load on first
 use.
@@ -16,6 +16,8 @@ _LAZY_ATTRS = {
     "init_train_state": "anatomix_tpu_torch.pretraining.train_step",
     "build_train_step": "anatomix_tpu_torch.pretraining.train_step",
     "nce_forward": "anatomix_tpu_torch.pretraining.train_step",
+    "nce_loss_and_grads": "anatomix_tpu_torch.pretraining.train_step",
+    "backbone_tap_channels": "anatomix_tpu_torch.pretraining.train_step",
     "make_optimizer": "anatomix_tpu_torch.pretraining.train_step",
     "build_all": "anatomix_tpu_torch.pretraining.train",
 }

@@ -2,9 +2,10 @@
 train_step.py`, the reference's `SupCLModel.optimize_parameters` and
 `calculate_NCE_loss`).
 
-Forward the two views through the UNet as one batch, collecting the tap
-activations; sample per-sample patch coordinates shared by the views;
-project with the per-tap MLPs; sum the per-tap SupPatchNCE losses (weights
+Forward the two views through the backbone as one batch, collecting the tap
+activations (the UNet's taps, or the ViT's single tap: its output
+volume); sample per-sample patch coordinates shared by the views; project
+with the per-tap MLPs; sum the per-tap SupPatchNCE losses (weights
 default to 1 / number of taps); take one AdamW step on both networks.
 
 The optimizer reproduces the JAX package's optax chain: optionally
@@ -14,11 +15,15 @@ running stats and frozen layers get a hard zero update; `MultiSteps`
 averages `grad_accum` gradients before an update. The step runs eagerly;
 convs of the UNet run on the conv kernels and their backward kernels
 (`kernels/conv_train.py`), in bf16 with f32 accumulation; batch norm, the
-projector, the loss and the optimizer in f32.
+projector, the loss and the optimizer in f32. The ViT (`plan` a
+`PrimusConfig`) runs `models/vit3d/primus_train.primus_train_apply`: its
+convs and attention on the kernels and their backward kernels, the rest in
+f32; every ViT leaf is trainable.
 
 Trees are nested dicts and lists of tensors: `params_g` is the UNet's
-reference-keyed state dict (`model.<idx>.weight`, `.running_mean`, ...),
-`params_f` maps `mlp_<t>` to `{"linears": [...], "bns": [...]}`.
+reference-keyed state dict (`model.<idx>.weight`, `.running_mean`, ...) or
+the ViT's state dict (`Primus.state_dict()` keys), `params_f` maps
+`mlp_<t>` to `{"linears": [...], "bns": [...]}`.
 """
 
 from __future__ import annotations
@@ -35,6 +40,11 @@ from anatomix_tpu_torch.models.unet_train_block import (
     train_block_eligible,
     unet_apply_train_block,
 )
+from anatomix_tpu_torch.models.vit3d.primus import (
+    PrimusConfig,
+    init_primus_params,
+)
+from anatomix_tpu_torch.models.vit3d.primus_train import primus_train_apply
 from anatomix_tpu_torch.pretraining.losses import sup_patch_nce_loss
 from anatomix_tpu_torch.pretraining.patch_sample import (
     apply_patch_mlp,
@@ -223,8 +233,15 @@ def make_optimizer(
     )
 
 
+def backbone_tap_channels(plan, tap_layers) -> tuple[int, ...]:
+    """Channels of each tap: the UNet's, or the ViT's `num_classes`."""
+    if isinstance(plan, PrimusConfig):
+        return (plan.num_classes,)
+    return plan.tap_channels(tuple(tap_layers))
+
+
 def init_train_state(
-    plan: UnetPlan,
+    plan: UnetPlan | PrimusConfig,
     generator: torch.Generator,
     *,
     tap_layers: Sequence[int],
@@ -236,14 +253,19 @@ def init_train_state(
     device: str | torch.device = "cuda",
 ) -> TrainState:
     """Seeded parameters of G and F (drawn on the CPU from `generator`, G
-    first) and fresh optimizer states, on `device` (the card unless the
-    caller asks for the CPU; raises without one)."""
+    first: the UNet's `init_params` or the ViT's `init_primus_params`, which
+    ignores `init_type` and `init_gain` as the JAX package does) and fresh
+    optimizer states, on `device` (the card unless the caller asks for the
+    CPU; raises without one)."""
     device = resolve_device(device)
-    params_g = {k: v for k, v in init_params(
-        plan, generator, init_type=init_type, init_gain=init_gain).items()
-        if v.is_floating_point()}
+    if isinstance(plan, PrimusConfig):
+        params_g = init_primus_params(plan, generator)
+    else:
+        params_g = {k: v for k, v in init_params(
+            plan, generator, init_type=init_type,
+            init_gain=init_gain).items() if v.is_floating_point()}
     params_f = init_patch_mlps(
-        generator, plan.tap_channels(tuple(tap_layers)), nc=netf_nc,
+        generator, backbone_tap_channels(plan, tap_layers), nc=netf_nc,
         n_mlps=n_mlps, init_type=init_type, init_gain=init_gain,
     )
     to_dev = lambda t: t.to(device)  # noqa: E731
@@ -268,8 +290,31 @@ class NCEOptions:
     weighting_mode: str = "raw"
 
 
+def _backbone_forward(plan, params_g, x, tap_layers, train, compute_dtype,
+                      eval_norm_layers, plain):
+    """`(taps, new_g_stats)`: the UNet's train walk, or the ViT's output
+    volume as its single tap (the JAX package's `_backbone_forward`)."""
+    if isinstance(plan, PrimusConfig):
+        return [primus_train_apply(plan, params_g, x,
+                                   compute_dtype=compute_dtype,
+                                   plain=plain)], {}
+    if not isinstance(plan, UnetPlan) or not train_block_eligible(plan):
+        raise NotImplementedError(
+            "the port's pretraining step covers the anatomix UNet family "
+            "(batch norm, Max pool, nearest, reflect) and the Primus ViT")
+    if not train:
+        eval_norm_layers = [i for i, s in enumerate(plan.layers)
+                            if s.kind == "norm"]
+    _, taps, new_g_stats = unet_apply_train_block(
+        plan, params_g, x, layers=tap_layers,
+        eval_norm_layers=eval_norm_layers, compute_dtype=compute_dtype,
+        plain=plain,
+    )
+    return taps, new_g_stats
+
+
 def nce_forward(
-    plan: UnetPlan,
+    plan: UnetPlan | PrimusConfig,
     params_g,
     params_f,
     views: torch.Tensor,  # (B, 2, D, H, W, C)
@@ -289,23 +334,14 @@ def nce_forward(
     """The multi-tap SupPatchNCE loss; returns `(loss, aux)` with aux =
     {new_g_stats, new_f_stats, per_layer}. With `fg_masks`, patches come
     from the foreground, the mask nearest-downsampled to each tap's grid.
-    `plain=True` runs the UNet's f32 reference path (`F.conv3d`)."""
-    if not isinstance(plan, UnetPlan) or not train_block_eligible(plan):
-        raise NotImplementedError(
-            "the port's pretraining step covers the anatomix UNet family "
-            "(batch norm, Max pool, nearest, reflect); ViT pretraining "
-            "arrives with ROADMAP Queue 2 entry 6")
+    `plain=True` runs the backbone's f32 reference path (`F.conv3d`, and
+    for the ViT einsum/softmax attention)."""
     tap_layers = tuple(tap_layers)
     B = views.shape[0]
     x = torch.cat([views[:, 0], views[:, 1]], dim=0)  # (2B, ...)
-    if not train:
-        eval_norm_layers = [i for i, s in enumerate(plan.layers)
-                            if s.kind == "norm"]
-    _, taps, new_g_stats = unet_apply_train_block(
-        plan, params_g, x, layers=tap_layers,
-        eval_norm_layers=eval_norm_layers, compute_dtype=compute_dtype,
-        plain=plain,
-    )
+    taps, new_g_stats = _backbone_forward(
+        plan, params_g, x, tap_layers, train, compute_dtype,
+        eval_norm_layers, plain)
     if nce_weights is None:
         nce_weights = [1.0 / len(tap_layers)] * len(tap_layers)
 
@@ -383,7 +419,7 @@ def _merge_bn_stats(params_g, new_g_stats):
 
 
 def build_train_step(
-    plan: UnetPlan,
+    plan: UnetPlan | PrimusConfig,
     *,
     tap_layers: Sequence[int],
     num_patches: int = 512,
@@ -420,7 +456,7 @@ def build_train_step(
                        if plan.layers[i].kind == "norm")
 
     def step(state: TrainState, views, segs, generator):
-        dev = state.params_g[f"model.{plan.conv_indices[0]}.weight"].device
+        dev = next(iter(state.params_g.values())).device
         views = torch.as_tensor(views, device=dev)
         segs = torch.as_tensor(segs, device=dev)
 

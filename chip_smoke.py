@@ -40,15 +40,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
      (`F.conv3d` under autograd), every conv's dW from the kernels against
      the plain conv backward from the same forward, and the end-to-end dW
      beside the floor a bf16 rounding of the views sets, on three batches;
-  8. the `kernels` JSON line (launches on each path, errors, times and
+  8. the 26M ViT's pretraining step (`[vit-train-step128]`,
+     `PretrainConfig(netG="primus")`: the ViT at full width and depth,
+     crop 128^3, the two views as batch 2, its single tap, 512 patches,
+     netF 256x3, AdamW) with seeded weights on the same synthetic batch:
+     five steps through `build_all` -> `step`; the first loss held against
+     the plain f32 path, every attention backward launch (dkv, dq) against
+     its plain version on the step's own tensors, and each attention's
+     (dq, dk, dv) through the whole backward against the plain attention
+     backward from the same forward; the tokenizer's two precision choices
+     against the plain f32 path;
+  9. the `kernels` JSON line (launches on each path, errors, times and
      bounds), then the device's JSON line last.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; a kernel the path should run that was not launched fails it.
 
 `--quick` runs phases 1 and 2 only; `--profile` runs phases 1 and 2, then
-profiles the 6M, the dev and the ViT sliding paths on 160^3 and one
-pretraining step at 128^3 with torch.profiler.
+profiles the 6M, the dev and the ViT sliding paths on 160^3 and one 6M and
+one ViT pretraining step at 128^3 with torch.profiler.
 The JSON report and the profiles go to
 `chiprun_out/`.
 """
@@ -86,8 +96,18 @@ TOL_TRAIN_LOSS = 1e-2
 # package holds its kernel-vs-XLA train gradients to
 # (tests/test_conv_block_train.py:117-123)
 TOL_TRAIN_DW = 5e-2
+# each attention's (dq, dk, dv), the ViT step's whole backward on the
+# kernels against the plain attention backward from the same forward: the
+# same bound and metric
+TOL_TRAIN_DATTN = 5e-2
 # the factor-8 reshuffle moves values and subtracts the same f32 numbers
 TOL_EXACT = 0.0
+# the ViT step's forward output volume against its plain f32 path, as a
+# multiple of the inference path's own error on the same batch (the same
+# kernels and precision split; the two read 4.080e-2 and 4.092e-2 on the
+# smooth step batch, 1.773e-2 and 1.795e-2 on the noisy one, NVIDIA H100
+# 80GB HBM3, 700 W)
+TOL_TRAIN_VS_INFER = 1.1
 # whole model, bf16 kernels vs the plain f32 path: the bound and the metric
 # (mean |error| / std of the f32 features) the JAX package holds its bf16
 # TPU path to (tests/test_tpu_numerics.py:23-64); the max error relative to
@@ -460,6 +480,121 @@ def check_attention(ka, torch, F, dev, gen, B, H, N, hd):
     )
 
 
+def check_attention_lse(ka, torch, dev, gen, B, H, N, hd):
+    """flash_attention with its log-sum-exp output: the output equal to the
+    forward's without it, the lse (f32) within 1e-4 of max |lse|."""
+    q, k, v = (torch.randn((B, H, N, hd), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    scale = hd ** -0.5
+    o, lse = ka.flash_attention(q, k, v, scale, return_lse=True)
+    ref_o, ref_lse = ka.flash_attention_lse_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(o, ka.flash_attention(q, k, v, scale)))
+    err, rel = rel_err(lse, ref_lse)
+    ms = cuda_ms(lambda: ka.flash_attention(q, k, v, scale,
+                                            return_lse=True))
+    plain_ms = cuda_ms(lambda: ka.flash_attention_lse_plain(q, k, v, scale))
+    lib_ms, form, lib_lse = sdpa_lse(torch, q, k, v, scale)
+    lse_diff = (float((lib_lse[..., :N].float() - lse).abs().max())
+                if lib_lse is not None else None)
+    log(f"[kernel] lse-returning sdpa at {tuple(q.shape)}: {form}; its lse "
+        f"vs the kernel's: max|diff| {lse_diff}")
+    flops = 4.0 * B * H * N * N * hd
+    b_ms, b_by = bound(flops, 4.0 * 2 * B * H * N * hd + 4.0 * B * H * N)
+    return dict(
+        shape=f"B{B} H{H} N{N} hd{hd} +lse", max_abs_err=err, rel_err=rel,
+        tol=TOL_CONV_F32, ok=same and rel < TOL_CONV_F32, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        out_unchanged=same, library_form=form, library_lse_diff=lse_diff,
+    )
+
+
+def sdpa_lse(torch, q, k, v, scale):
+    """(ms, form, lse) of one torch call that returns attention's output and
+    its log-sum-exp: aten's flash op (on head dims padded to a multiple of 8
+    inside the timed call, as `scaled_dot_product_attention` pads them, if
+    it refuses the unpadded ones), else the memory-efficient op with
+    `compute_log_sumexp`; (None, reason, None) if neither runs."""
+    import torch.nn.functional as F
+
+    aten = torch.ops.aten
+    hd = q.shape[-1]
+    pad = -hd % 8
+    tries = (
+        ("aten._scaled_dot_product_flash_attention", lambda: (
+            aten._scaled_dot_product_flash_attention(q, k, v, scale=scale))),
+        (f"aten._scaled_dot_product_flash_attention, hd padded to "
+         f"{hd + pad} in the call", lambda: (
+             aten._scaled_dot_product_flash_attention(
+                 *(F.pad(t, (0, pad)) for t in (q, k, v)), scale=scale))),
+        ("aten._scaled_dot_product_efficient_attention(compute_log_sumexp)",
+         lambda: aten._scaled_dot_product_efficient_attention(
+             q, k, v, None, True, scale=scale)),
+    )
+    reasons = []
+    for form, call in tries:
+        try:
+            lse = call()[1]
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 (a private op)
+            reasons.append(f"{form}: {str(e).splitlines()[0][:120]}")
+            continue
+        return cuda_ms(call), form, lse
+    return None, "none ran (" + "; ".join(reasons) + ")", None
+
+
+def sdpa_backward_ms(torch, F, q, k, v, do, scale):
+    """One backward of torch's scaled_dot_product_attention (dq, dk, dv
+    through `torch.autograd.grad`) on the same bf16 tensors, and its
+    backend: the yardstick of the dkv and dq kernels together."""
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+    return cuda_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do, retain_graph=True)), sdpa_backend(
+        torch, qs, ks, vs, scale)
+
+
+def check_attention_bwd(ka, torch, F, dev, gen, B, H, N, hd):
+    """flash_attention_bwd_dkv and flash_attention_bwd_dq at (B, H, N, hd)
+    bf16 from the kernel forward's lse, against their plain versions on the
+    same inputs; library: SDPA's whole backward."""
+    q, k, v, do = (torch.randn((B, H, N, hd), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    scale = hd ** -0.5
+    o, lse = ka.flash_attention(q, k, v, scale, return_lse=True)
+    di = ka.attention_di(o, do)
+    args = (q, k, v, lse, do, di, scale)
+    lib_ms, backend = sdpa_backward_ms(torch, F, q, k, v, do, scale)
+    log(f"[kernel] sdpa backward backend at {tuple(q.shape)}: {backend}")
+    rows = {}
+    in_bytes = 4.0 * 2 * B * H * N * hd + 2 * 4.0 * B * H * N
+    for name, fn, plain, flops, outs in (
+        ("flash_attention_bwd_dkv", ka.flash_attention_bwd_dkv,
+         ka.flash_attention_bwd_dkv_plain, 8.0 * B * H * N * N * hd, 2),
+        ("flash_attention_bwd_dq", ka.flash_attention_bwd_dq,
+         ka.flash_attention_bwd_dq_plain, 6.0 * B * H * N * N * hd, 1),
+    ):
+        got = fn(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        errs = [rel_err(a, r) for a, r in zip(got, ref)]
+        err = max(e[0] for e in errs)
+        rel = max(e[1] for e in errs)
+        del got, ref
+        ms = cuda_ms(lambda: fn(*args))
+        plain_ms = cuda_ms(lambda: plain(*args), max_reps=20)
+        b_ms, b_by = bound(flops, in_bytes + outs * 4.0 * B * H * N * hd)
+        rows[name] = dict(
+            shape=f"B{B} H{H} N{N} hd{hd}", max_abs_err=err, rel_err=rel,
+            tol=TOL_CONV_BF16, ok=rel < TOL_CONV_BF16, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+            bound_by=b_by, sdpa_backend=backend,
+        )
+    return rows
+
+
 def check_d2s8(kr8, torch, dev, gen, B, d, C, with_sub):
     """depth_to_space8_ndhwc: (B, d^3, 512 C) bf16 -> (B, (8d)^3, C) f32,
     with or without the demean subtract. Exact: both versions subtract the
@@ -474,6 +609,10 @@ def check_d2s8(kr8, torch, dev, gen, B, d, C, with_sub):
     err, rel = rel_err(got, ref)
     ms = cuda_ms(lambda: kr8.depth_to_space8_ndhwc(y, sub))
     plain_ms = cuda_ms(lambda: kr8.depth_to_space8_ndhwc_plain(y, sub))
+    # yardstick: the permutation alone as one strided copy (bf16 to bf16:
+    # no f32 store, no subtract)
+    lib_ms = cuda_ms(lambda: y.view(B, d, d, d, *(2,) * 9, C).permute(
+        0, 1, 4, 7, 10, 2, 5, 8, 11, 3, 6, 9, 12, 13).contiguous())
     n = y.numel()
     nbytes = 2.0 * n + 4.0 * n + (4.0 * sub.numel() if with_sub else 0.0)
     b_ms, b_by = bound(float(n) if with_sub else 0.0, nbytes,
@@ -482,7 +621,7 @@ def check_d2s8(kr8, torch, dev, gen, B, d, C, with_sub):
         shape=f"B{B} {d}^3x{512 * C} -> {8 * d}^3x{C}"
         + (" -sub" if with_sub else ""), max_abs_err=err, rel_err=rel,
         tol=TOL_EXACT, ok=rel <= TOL_EXACT, ms=ms, plain_ms=plain_ms,
-        library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
     )
 
 
@@ -495,6 +634,9 @@ def check_reshuffle2(kr8, torch, dev, gen, B, S, C, which):
             torch.bfloat16)
         fn = lambda: kr8.space_to_depth2_ndhwc(x)  # noqa: E731
         plain = lambda: kr8.space_to_depth2_ndhwc_plain(x)  # noqa: E731
+        h = S // 2
+        lib = lambda: x.view(B, h, 2, h, 2, h, 2, C).permute(  # noqa: E731
+            0, 1, 3, 5, 2, 4, 6, 7).contiguous()
         shape = f"B{B} {S}^3x{C} -> {S // 2}^3x{8 * C}"
     else:
         h = S // 2
@@ -502,6 +644,8 @@ def check_reshuffle2(kr8, torch, dev, gen, B, S, C, which):
             torch.bfloat16)
         fn = lambda: kr8.depth_to_space2_ndhwc(x)  # noqa: E731
         plain = lambda: kr8.depth_to_space2_ndhwc_plain(x)  # noqa: E731
+        lib = lambda: x.view(B, h, h, h, 2, 2, 2, C).permute(  # noqa: E731
+            0, 1, 4, 2, 5, 3, 6, 7).contiguous()
         shape = f"B{B} {h}^3x{8 * C} -> {S}^3x{C}"
     got = fn()
     ref = plain()
@@ -509,37 +653,57 @@ def check_reshuffle2(kr8, torch, dev, gen, B, S, C, which):
     err, rel = rel_err(got, ref)
     ms = cuda_ms(fn)
     plain_ms = cuda_ms(plain)
+    # yardstick: one strided copy (view, permute, contiguous)
+    lib_ms = cuda_ms(lib)
     b_ms, b_by = bound(0.0, 2.0 * x.numel() * x.element_size())
     return dict(shape=shape, max_abs_err=err, rel_err=rel, tol=TOL_EXACT,
                 ok=rel <= TOL_EXACT, ms=ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def conv_backward_library(torch, F, x, dy, w, pad, mask):
+def conv_backward_library(torch, F, x, dy, w, pad, mask, stride2=False):
     """One cuDNN backward call (bf16, channels-last) of the conv on the
     pre-padded input: the weight gradient (mask (False, True, False)) or
     the gradient of the padded input (mask (True, False, False), without
-    the pad's adjoint)."""
+    the pad's adjoint). With `stride2`, the stride-2 pad-1 conv's backward
+    on the unpadded input, from its own (S/2)^3 output gradient (the even
+    positions of the zero-inserted `dy`)."""
     ci, co = x.shape[-1], dy.shape[-1]
-    xc = F.pad(x.permute(0, 4, 1, 2, 3), (1,) * 6,
-               mode="reflect" if pad == "reflect" else "constant").contiguous(
-        memory_format=torch.channels_last_3d)
+    xc = x.permute(0, 4, 1, 2, 3)
+    if stride2:
+        dy = dy[:, ::2, ::2, ::2]
+    else:
+        xc = F.pad(xc, (1,) * 6,
+                   mode="reflect" if pad == "reflect" else "constant")
+    xc = xc.contiguous(memory_format=torch.channels_last_3d)
     wt = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous(
         memory_format=torch.channels_last_3d)
     dyc = dy.permute(0, 4, 1, 2, 3)
+    st, pd = ([2] * 3, [1] * 3) if stride2 else ([1] * 3, [0] * 3)
     return lambda: torch.ops.aten.convolution_backward(
-        dyc, xc, wt, None, [1, 1, 1], [0, 0, 0], [1, 1, 1], False,
-        [0, 0, 0], 1, list(mask))
+        dyc, xc, wt, None, st, pd, [1, 1, 1], False, [0, 0, 0], 1,
+        list(mask))
 
 
 def check_conv_backward(kt, torch, F, dev, gen, B, S, ci, co, which,
-                        pad="reflect"):
+                        pad="reflect", stride2=False):
     """conv3x3x3_wgrad_ndhwc (dW f32) or conv3x3x3_dgrad_ndhwc (dx bf16)
-    at (B, S^3): ci -> co, against its plain version and cuDNN's backward."""
+    at (B, S^3): ci -> co, against its plain version and cuDNN's backward.
+    With `stride2`, dy is a stride-2 conv's (S/2)^3 output gradient
+    zero-inserted onto the S^3 grid (the ViT tokenizer's down convs), and
+    the bound counts the stride-2 conv's work and bytes, not the
+    zero-inserted grid's."""
     x = torch.randn((B, S, S, S, ci), generator=gen, device=dev).to(
         torch.bfloat16)
     dy = torch.randn((B, S, S, S, co), generator=gen, device=dev).to(
         torch.bfloat16)
+    work = B * S ** 3
+    if stride2:
+        s2 = (S - 1) // 2 + 1
+        up = torch.zeros_like(dy)
+        up[:, ::2, ::2, ::2] = dy[:, :s2, :s2, :s2]
+        dy = up
+        work = B * s2 ** 3
     w = (torch.randn((27 * ci, co), generator=gen, device=dev)
          * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
     if which == "wgrad":
@@ -548,25 +712,27 @@ def check_conv_backward(kt, torch, F, dev, gen, B, S, ci, co, which,
             x, dy, pad_type=pad)
         mask, tol = (False, True, False), TOL_WGRAD
         out_bytes = 27 * ci * co * 4
-        in_bytes = B * S ** 3 * (ci + co) * 2
+        in_bytes = B * S ** 3 * ci * 2 + work * co * 2
     else:
         fn = lambda: kt.conv3x3x3_dgrad_ndhwc(dy, w, pad_type=pad)  # noqa
         plain = lambda: kt.conv3x3x3_dgrad_ndhwc_plain(  # noqa: E731
             dy, w, pad_type=pad)
         mask, tol = (True, False, False), TOL_CONV_BF16
         out_bytes = B * S ** 3 * ci * 2
-        in_bytes = B * S ** 3 * co * 2 + 27 * ci * co * 2
+        in_bytes = work * co * 2 + 27 * ci * co * 2
     got = fn()
     ref = plain()
     torch.cuda.synchronize()
     err, rel = rel_err(got, ref)
     ms = cuda_ms(fn)
     plain_ms = cuda_ms(plain)
-    lib_ms = cuda_ms(conv_backward_library(torch, F, x, dy, w, pad, mask))
-    b_ms, b_by = bound(2.0 * B * S ** 3 * 27 * ci * co, in_bytes + out_bytes)
+    lib_ms = cuda_ms(conv_backward_library(torch, F, x, dy, w, pad, mask,
+                                           stride2))
+    b_ms, b_by = bound(2.0 * work * 27 * ci * co, in_bytes + out_bytes)
     return dict(
         shape=f"B{B} {S}^3 {ci}->{co}" + ("" if pad == "reflect" else
-                                          " zeros"),
+                                          " zeros") + (
+            " stride-2 (zero-inserted dy)" if stride2 else ""),
         max_abs_err=err, rel_err=rel, tol=tol, ok=rel < tol, ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
     )
@@ -736,6 +902,8 @@ def main(argv) -> int:
         "conv3x3x3_dgrad_ndhwc": kt.conv3x3x3_dgrad_ndhwc,
         "space_to_depth2_ndhwc": kr8.space_to_depth2_ndhwc,
         "depth_to_space2_ndhwc": kr8.depth_to_space2_ndhwc,
+        "flash_attention_bwd_dkv": ka.flash_attention_bwd_dkv,
+        "flash_attention_bwd_dq": ka.flash_attention_bwd_dq,
     }
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -817,6 +985,14 @@ def main(argv) -> int:
     for B, H, N, hd in [(2, 6, 4104, 66), (1, 6, 4104, 66)]:
         checks["flash_attention"].append(
             check_attention(ka, torch, F, dev, gen, B, H, N, hd))
+    # the ViT step: the forward with its lse, then dkv and dq, at the step's
+    # shape and at a ragged N (two keys past a tile)
+    checks["flash_attention"].append(
+        check_attention_lse(ka, torch, dev, gen, 2, 6, 4104, 66))
+    for B, H, N, hd in [(2, 6, 4104, 66), (2, 6, 130, 66)]:
+        for name, row in check_attention_bwd(ka, torch, F, dev, gen, B, H,
+                                             N, hd).items():
+            checks[name].append(row)
     for with_sub in (True, False):
         checks["depth_to_space8_ndhwc"].append(
             check_d2s8(kr8, torch, dev, gen, 2, 16, 32, with_sub))
@@ -830,6 +1006,22 @@ def main(argv) -> int:
                 continue
             checks[f"conv3x3x3_{which}_ndhwc"].append(check_conv_backward(
                 kt, torch, F, dev, gen, B, S, ci, co, which))
+    # the ViT step's tokenizer (zero padding): the stem on (hi, lo) (no
+    # dx), a residual conv per stage; then the three stride-2 convs'
+    # backward on the zero-inserted gradient
+    for B, S, ci, co, stride2 in [(2, 128, 2, 32, False),
+                                  (2, 64, 64, 64, False),
+                                  (2, 32, 128, 128, False),
+                                  (2, 16, 256, 256, False),
+                                  (2, 128, 32, 64, True),
+                                  (2, 64, 64, 128, True),
+                                  (2, 32, 128, 256, True)]:
+        for which in ("wgrad", "dgrad"):
+            if which == "dgrad" and ci == 2:
+                continue
+            checks[f"conv3x3x3_{which}_ndhwc"].append(check_conv_backward(
+                kt, torch, F, dev, gen, B, S, ci, co, which, pad="zeros",
+                stride2=stride2))
     # the step's block-layout permutations: the first and last pools'
     # inputs, the last upsample's gradient (s2d); the last upsample, the
     # first pool's gradient, the first upsample (d2s)
@@ -884,6 +1076,8 @@ def main(argv) -> int:
             torch, make_feature_extractor, vcfg, vsd, dev, out_dir, "vit")
         del vsd
         report["profile_train"] = profile_train(torch, dev, out_dir)
+        report["profile_vit_train"] = profile_train(torch, dev, out_dir,
+                                                    netG="primus")
         with open(os.path.join(out_dir, "chip_profile.json"), "w") as f:
             json.dump(report, f, indent=1)
         return 0
@@ -973,11 +1167,14 @@ def main(argv) -> int:
 
     # phase 7: the 6M pretraining step at the reference configuration
     report["train"] = run_train(torch, dev, wrappers, paths, kt)
+
+    # phase 8: the 26M ViT's pretraining step
+    report["vit_train"] = run_vit_train(torch, dev, wrappers, paths, ka)
     for name in wrappers:
         log(f"[launches] {name}: " + ", ".join(
             f"{p} {v[name]}" for p, v in paths.items()))
 
-    # phase 8: the kernels line
+    # phase 9: the kernels line
     replaces = {
         "conv3x3x3_ndhwc": (
             "anatomix_tpu/ops/pallas/conv_block.py:248 "
@@ -1012,6 +1209,14 @@ def main(argv) -> int:
                                  "space_to_depth",
         "depth_to_space2_ndhwc": "anatomix_tpu/ops/pallas/reshuffle.py:90 "
                                  "depth_to_space",
+        "flash_attention_bwd_dkv": (
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:941 "
+            "_flash_attention_bwd_dkv (reached through "
+            "anatomix_tpu/models/vit3d/primus.py:322 under jax.grad)"),
+        "flash_attention_bwd_dq": (
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:1287 "
+            "_flash_attention_bwd_dq (reached through "
+            "anatomix_tpu/models/vit3d/primus.py:322 under jax.grad)"),
     }
     csrc = "anatomix_tpu_torch/kernels/csrc/"
     sources = {
@@ -1028,6 +1233,8 @@ def main(argv) -> int:
         "conv3x3x3_dgrad_ndhwc": csrc + "conv3d.cu",
         "space_to_depth2_ndhwc": csrc + "reshuffle.cu",
         "depth_to_space2_ndhwc": csrc + "reshuffle.cu",
+        "flash_attention_bwd_dkv": csrc + "flash_attention.cu",
+        "flash_attention_bwd_dq": csrc + "flash_attention.cu",
     }
     # the line reports each kernel at its dominant main-path shape: the
     # 16-channel 128^3 conv, the 48->16 decoder conv, the 6M stitch chunk,
@@ -1035,14 +1242,15 @@ def main(argv) -> int:
     # norm of a 128^3 window pair, the ViT's first stride-2 stage, its
     # attention at B2 and its exit with the demean subtract, the backward of
     # the 16-channel 128^3 conv, the first pool's space-to-depth and the last
-    # upsample's depth-to-space
+    # upsample's depth-to-space, the ViT step's attention backward
     headline = {"conv3x3x3_ndhwc": 1, "conv3x3x3_upcat_ndhwc": 3,
                 "blend_scatter": 0, "conv3x3x3_cat_ndhwc": 0,
                 "upsample2x_trilinear_ndhwc": 0, "norm_apply_ndhwc": 0,
                 "conv_down2_ndhwc": 0, "flash_attention": 0,
                 "depth_to_space8_ndhwc": 0, "conv3x3x3_wgrad_ndhwc": 0,
                 "conv3x3x3_dgrad_ndhwc": 0, "space_to_depth2_ndhwc": 0,
-                "depth_to_space2_ndhwc": 0}
+                "depth_to_space2_ndhwc": 0, "flash_attention_bwd_dkv": 0,
+                "flash_attention_bwd_dq": 0}
     kernels = []
     for name, rows in checks.items():
         row = rows[headline[name]]
@@ -1270,16 +1478,17 @@ def train_batch(torch, dev, S: int, seed: int = 12, noisy: bool = False):
     return views, segs
 
 
-def profile_train(torch, dev, out_dir):
+def profile_train(torch, dev, out_dir, netG="unet"):
     """Kernel time by name and the device's busy share over one pretraining
-    step at `PretrainConfig()`, from torch.profiler."""
+    step at `PretrainConfig(netG=netG)`, from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from anatomix_tpu_torch.pretraining.config import PretrainConfig
     from anatomix_tpu_torch.pretraining.train import build_all
 
-    cfg = PretrainConfig()
+    cfg = PretrainConfig(netG=netG)
+    tag = "train_step128" if netG == "unet" else "vit_train_step128"
     _, _, state, step = build_all(cfg, 1000, device=dev)
     views, segs = train_batch(torch, dev, cfg.crop_size)
     sampler = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa
@@ -1300,12 +1509,14 @@ def profile_train(torch, dev, out_dir):
          if ev.device_type == DeviceType.CUDA and getattr(ev, attr) > 0),
         reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    with open(os.path.join(out_dir, "profile_train_step128.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
         f.write(events.table(sort_by=attr, row_limit=60))
-    log(f"[profile] train step 128^3: wall {wall_ms:.2f} ms, device busy "
+    log(f"[profile] {tag}: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
     for ms, count, key in rows[:24]:
         log(f"[profile]   {ms:9.3f} ms  {count:5d}x  {key[:90]}")
+    del state
+    torch.cuda.empty_cache()
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
                 top=[dict(ms=r[0], count=r[1], name=r[2]) for r in rows[:30]])
 
@@ -1495,6 +1706,271 @@ def run_train(torch, dev, wrappers, paths, kt):
     return dict(losses=losses, step_ms=step_ms, median_step_ms=med_ms,
                 peak_gib=peak, launches_per_step=c, loss_rel=loss_rel,
                 labels=n_labels, first_step=main, other_batches=others)
+
+
+def attention_grad_check(torch, ka, cfg, state0, views, segs, sampler, kw):
+    """The first step's loss and attention gradients from `state0`, on the
+    kernels and beside them: (a) the kernel path, recording each dkv and dq
+    launch with its plain version on the same tensors; (b) the same forward
+    with the attention backward on the plain versions, recording their
+    outputs; (c) the plain f32 path. Each attention's (dk, dv) and dq of
+    (a) against (b): the step's whole backward on the kernels against the
+    plain attention backward from the same forward."""
+    from anatomix_tpu_torch.pretraining.train_step import nce_loss_and_grads
+
+    launches = {"dkv": [], "dq": []}
+    outs_k, outs_p = [], []
+
+    def rec(fn, plain, which):
+        def call(*args):
+            got = fn(*args)
+            ref = plain(*args)
+            got_t = got if isinstance(got, tuple) else (got,)
+            ref_t = ref if isinstance(ref, tuple) else (ref,)
+            launches[which].append(max(rel_err(a, r)[1]
+                                       for a, r in zip(got_t, ref_t)))
+            outs_k.append(got_t)
+            return got
+        return call
+
+    def keep(fn):
+        def call(*args):
+            got = fn(*args)
+            outs_p.append(got if isinstance(got, tuple) else (got,))
+            return got
+        return call
+
+    def run(**extra):
+        return nce_loss_and_grads(cfg, state0.params_g, state0.params_f,
+                                  views, segs, sampler(), **kw, **extra)
+
+    with ka.backward_route(
+            rec(ka.flash_attention_bwd_dkv, ka.flash_attention_bwd_dkv_plain,
+                "dkv"),
+            rec(ka.flash_attention_bwd_dq, ka.flash_attention_bwd_dq_plain,
+                "dq")):
+        loss_k, _, _, _ = run()
+    with ka.backward_route(keep(ka.flash_attention_bwd_dkv_plain),
+                           keep(ka.flash_attention_bwd_dq_plain)):
+        loss_b, _, _, _ = run()
+    # outs_*: per block, in backward order, (dk, dv) then (dq,)
+    grads = []
+    for i in range(0, len(outs_k), 2):
+        (dk, dv), (dq,) = outs_k[i], outs_k[i + 1]
+        (rk, rv), (rq,) = outs_p[i], outs_p[i + 1]
+        grads.append({
+            n: float((a - r).abs().mean() / r.std())
+            for n, a, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv))})
+    del outs_k, outs_p
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_p, _, _, _ = run(plain=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    return dict(loss_kernels=float(loss_k), loss_same_forward=float(loss_b),
+                loss_plain=float(loss_p), plain_seconds=plain_s,
+                launch_errs=launches, attention_grads=grads)
+
+
+def forward_check(torch, dev, vcfg, params, Primus, primus_train_apply,
+                  smooth, noisy) -> dict:
+    """The train walk's output volume (kernels, no grad) and the inference
+    path's against their plain f32 paths, and the two plain paths against
+    each other, on the smooth and the noisy batch ((1, 2, S^3, 1) views,
+    run as batch 2)."""
+    model = Primus.from_state_dict(vcfg, params, device=dev)
+    out = {}
+    with torch.no_grad():
+        for name, views in (("smooth", smooth), ("noisy", noisy)):
+            x = torch.cat([views[:, 0], views[:, 1]], dim=0)
+            ref = primus_train_apply(vcfg, params, x, plain=True)
+            out[f"step_{name}"] = model_err(
+                primus_train_apply(vcfg, params, x), ref)
+            inf_ref = model(x, compute_dtype=torch.float32, plain=True)
+            out[f"inference_{name}"] = model_err(model(x), inf_ref)
+            out[f"plain_paths_{name}"] = model_err(inf_ref, ref)
+            del ref, inf_ref
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def vit_step_floor(cfg, B: int) -> dict:
+    """The ViT pretraining step's work, in FLOP, from its shapes: the
+    forward (tokenizer convs, linears, attention, decoder GEMMs) and the
+    backward (dx and dW of every conv but the stem's dx, twice each linear
+    and decoder GEMM, 8 + 6 B H N^2 hd for the dkv and dq passes), and the
+    least time at 989 TFLOP/s bf16 with the linears at 67 TFLOP/s f32 (the
+    precision split of the port and of the JAX package)."""
+    S = cfg.input_shape[0]
+    ch, s = cfg.tokenizer_base_features, S
+    convs = [2 * S ** 3 * 27 * cfg.input_channels * ch]
+    for depth in cfg.tokenizer_depth_per_level:
+        out, s = min(ch * 2, cfg.embed_dim), s // 2
+        convs.append(2 * s ** 3 * 27 * ch * out)
+        convs += [2 * s ** 3 * 27 * out * out] * (2 * depth)
+        ch = out
+    E, N, H, hd = (cfg.embed_dim, cfg.num_tokens + cfg.num_register_tokens,
+                   cfg.eva_numheads, cfg.head_dim)
+    proj = 2 * cfg.num_tokens * ch * E
+    lin = cfg.eva_depth * 2 * N * (4 * E * E + 3 * E * cfg.mlp_hidden)
+    attn_f = cfg.eva_depth * 4 * H * N * N * hd
+    attn_b = cfg.eva_depth * 14 * H * N * N * hd
+    dec, ci, vox = 0, E, cfg.num_tokens
+    for i in range(3):
+        co = cfg.num_classes if i == 2 else max(ci // 2, 32)
+        dec += 2 * vox * ci * 8 * co
+        ci, vox = co, vox * 8
+    bf16 = B * (3 * sum(convs) - convs[0] + 3 * (proj + dec) + attn_f
+                + attn_b)
+    f32 = B * 3 * lin
+    return dict(flop_bf16=bf16, flop_f32_linears=f32,
+                floor_ms=bf16 / PEAK_BF16_FLOPS * 1e3
+                + f32 / PEAK_F32_FLOPS * 1e3)
+
+
+def run_vit_train(torch, dev, wrappers, paths, ka):
+    """Phase 8: the 26M ViT's pretraining step at
+    `PretrainConfig(netG="primus")` (the JAX package's primus branch: the
+    anatomix-dev-vit widths at crop 128^3, demean, qk_norm, inner norm,
+    LayerScale 0.1, output_nc 16 channels, one tap; nothing cut) with
+    seeded weights on the 6M phase's synthetic batch: five steps; then the
+    first step's loss and attention gradients against the plain paths
+    (`attention_grad_check`), and the output volume against the plain f32
+    path (`forward_check`)."""
+    from anatomix_tpu_torch.models.vit3d import Primus
+    from anatomix_tpu_torch.models.vit3d.primus_train import (
+        primus_train_apply,
+    )
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+    from anatomix_tpu_torch.pretraining.train import build_all
+    from anatomix_tpu_torch.pretraining.train_step import NCEOptions
+
+    cfg = PretrainConfig(netG="primus")
+    vcfg, taps, state0, step = build_all(cfg, 1000, device=dev)
+    S = cfg.crop_size
+    views, segs = train_batch(torch, dev, S)
+    n_g = sum(v.numel() for v in state0.params_g.values())
+    log(f"[vit-train-step128] PretrainConfig(netG='primus'): embed "
+        f"{vcfg.embed_dim}, {vcfg.eva_depth} blocks, {vcfg.eva_numheads} "
+        f"heads of {vcfg.head_dim}, N "
+        f"{vcfg.num_tokens + vcfg.num_register_tokens}, crop {S}^3 x batch {cfg.batch_size} (2 views), out "
+        f"{vcfg.num_classes} ch, {cfg.num_patches} patches, netF "
+        f"{cfg.netF_nc}x{cfg.n_mlps}, {n_g} G parameters, "
+        f"{len(state0.params_g)} G leaves")
+    sampler = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa
+    state = state0
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(5):
+        if i == 0:
+            reset_counts(wrappers)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, views, segs, sampler())
+        end.record()
+        torch.cuda.synchronize()
+        if i == 0:
+            c = paths["vit_train"] = counts(wrappers)
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med_ms = statistics.median(step_ms[1:])
+    floor = vit_step_floor(vcfg, 2 * cfg.batch_size)
+    log(f"[vit-train-step128] losses {losses}; step ms {step_ms} (median of "
+        f"steps 2-5 {med_ms:.4f} ms); work {floor['flop_bf16']:.4e} FLOP "
+        f"bf16 + {floor['flop_f32_linears']:.4e} f32, floor "
+        f"{floor['floor_ms']:.4f} ms; peak {peak:.2f} GiB; launches per "
+        f"step {c}; {nvidia_smi()}")
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        raise RuntimeError(f"vit-train-step128: non-finite loss {losses}")
+    n_stages = len(vcfg.tokenizer_depth_per_level)
+    n_conv = 1 + 2 * sum(vcfg.tokenizer_depth_per_level)
+    depth = vcfg.eva_depth
+    # K1 for the stride-1 convs; T-w for every conv, T-x for every conv but
+    # the stem (its input is the data); V2 for the stride-2 convs; V3, dkv
+    # and dq once per block; V1 once
+    want = {"conv3x3x3_ndhwc": n_conv,
+            "conv3x3x3_wgrad_ndhwc": n_conv + n_stages,
+            "conv3x3x3_dgrad_ndhwc": n_conv - 1 + n_stages,
+            "conv_down2_ndhwc": n_stages, "flash_attention": depth,
+            "flash_attention_bwd_dkv": depth, "flash_attention_bwd_dq": depth,
+            "depth_to_space8_ndhwc": 1}
+    if any(c[k] != v for k, v in want.items()):
+        raise RuntimeError(f"vit-train-step128: launches {c}, want {want}")
+    del state
+
+    # the first step against the plain paths, from the same state and
+    # sampler seed; these launches are not the path's
+    kw = dict(tap_layers=taps, num_patches=cfg.num_patches,
+              nce=NCEOptions(temperature=cfg.nce_T))
+    chk = attention_grad_check(torch, ka, vcfg, state0, views, segs, sampler,
+                               kw)
+    loss_rel = abs(losses[0] - chk["loss_plain"]) / abs(chk["loss_plain"])
+    errs = chk["launch_errs"]
+    worst = {n: max(g[n] for g in chk["attention_grads"])
+             for n in ("dq", "dk", "dv")}
+    log(f"[vit-train-step128] first loss {losses[0]:.6f} (nce_forward on the "
+        f"kernels {chk['loss_kernels']!r}, with the plain attention backward "
+        f"{chk['loss_same_forward']!r}) vs plain f32 path "
+        f"{chk['loss_plain']:.6f}: rel {loss_rel:.3e} (tol "
+        f"{TOL_TRAIN_LOSS}); plain loss+grads {chk['plain_seconds']:.4f} s")
+    log(f"[vit-train-step128] this step's {len(errs['dkv'])} dkv and "
+        f"{len(errs['dq'])} dq launches vs their plain versions on the same "
+        f"tensors: max rel {max(errs['dkv']):.3e}, {max(errs['dq']):.3e} "
+        f"(tol {TOL_CONV_BF16})")
+    log(f"[vit-train-step128] each attention's gradients, the step's "
+        f"backward on the kernels vs the plain attention backward from the "
+        f"same forward, mean|err|/std (tol {TOL_TRAIN_DATTN}): worst "
+        f"{worst}; by block (last first) " + ", ".join(
+            f"{g['dq']:.2e}/{g['dk']:.2e}/{g['dv']:.2e}"
+            for g in chk["attention_grads"]))
+    if not loss_rel < TOL_TRAIN_LOSS:
+        raise RuntimeError(f"vit-train-step128: loss {losses[0]} vs "
+                           f"{chk['loss_plain']}")
+    if (len(errs["dkv"]), len(errs["dq"])) != (depth, depth):
+        raise RuntimeError(f"vit-train-step128: recorded {errs}")
+    if not (max(errs["dkv"]) < TOL_CONV_BF16
+            and max(errs["dq"]) < TOL_CONV_BF16):
+        raise RuntimeError(f"vit-train-step128: kernel errors {errs}")
+    if not max(worst.values()) < TOL_TRAIN_DATTN:
+        raise RuntimeError(f"vit-train-step128: attention gradients "
+                           f"{chk['attention_grads']} over {TOL_TRAIN_DATTN}")
+    # the step's forward output volume (the tap) against the plain f32
+    # path, beside the inference path (`Primus.forward`, the same kernels
+    # and precision split) against its own plain path, on this smooth batch
+    # and on the noisy CT-like one; the two plain paths compute one function
+    fwd = forward_check(torch, dev, vcfg, state0.params_g, Primus,
+                        primus_train_apply, views,
+                        train_batch(torch, dev, S, noisy=True)[0])
+    log("[vit-train-step128] output volume vs the plain f32 path, mean"
+        "|err|/std (max/max): " + "; ".join(
+            f"{k}: {v['mean_err_over_std']:.3e} "
+            f"({v['max_err_over_max']:.3e})" for k, v in fwd.items())
+        + f" (tol: noisy batch {TOL_MODEL}, the step within "
+        f"{TOL_TRAIN_VS_INFER}x the inference path on each batch, plain "
+        f"paths {TOL_CONV_F32})")
+    for batch in ("smooth", "noisy"):
+        e = fwd[f"step_{batch}"]["mean_err_over_std"]
+        e_inf = fwd[f"inference_{batch}"]["mean_err_over_std"]
+        if not e <= TOL_TRAIN_VS_INFER * e_inf:
+            raise RuntimeError(f"vit-train-step128: the step's output on the "
+                               f"{batch} batch {e} vs the inference path's "
+                               f"{e_inf}")
+        if not fwd[f"plain_paths_{batch}"]["mean_err_over_std"] < \
+                TOL_CONV_F32:
+            raise RuntimeError(f"vit-train-step128: plain paths differ "
+                               f"{fwd}")
+    if not fwd["step_noisy"]["mean_err_over_std"] < TOL_MODEL:
+        raise RuntimeError(f"vit-train-step128: output on the noisy batch "
+                           f"{fwd['step_noisy']} over {TOL_MODEL}")
+    del state0
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=step_ms, median_step_ms=med_ms,
+                peak_gib=peak, launches_per_step=c, loss_rel=loss_rel,
+                floor=floor, first_step=chk, forward=fwd)
 
 
 if __name__ == "__main__":

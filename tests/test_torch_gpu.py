@@ -396,3 +396,144 @@ def test_pretrain_step_kernels_match_plain_path(cuda):
     n_resize = sum(spec.kind in ("pool", "upsample") for spec in plan.layers)
     assert [fn.launches - n for fn, n in zip(wrappers, before)] == [
         n_conv, n_conv - 1, n_resize, n_resize]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,N,hd", [
+    (2, 6, 4104, 66),   # the ViT step's shape: a ragged tail
+    (1, 2, 130, 66),    # two keys past a tile, 2 queries past a dkv tile
+    (2, 1, 50, 16),     # fewer rows than one tile
+    (1, 3, 97, 80),
+])
+def test_flash_attention_backward_kernels_match_plain(cuda, B, H, N, hd):
+    """The forward's log-sum-exp, dkv and dq against their plain versions
+    on the same bf16 inputs, within the bf16-operand bound 1e-2 (max |err|
+    / max |ref|); the forward's output is unchanged by asking for the
+    lse."""
+    from anatomix_tpu_torch.kernels import attention as ka
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do = (torch.randn((B, H, N, hd), generator=g,
+                               device=cuda).bfloat16() for _ in range(4))
+    scale = hd ** -0.5
+    o, lse = ka.flash_attention(q, k, v, scale, return_lse=True)
+    assert torch.equal(o, ka.flash_attention(q, k, v, scale))
+    ref_o, ref_lse = ka.flash_attention_lse_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, N) and lse.dtype == torch.float32
+    assert float((lse - ref_lse).abs().max()) < 1e-3
+    di = ka.attention_di(o, do)
+    n = (ka.flash_attention_bwd_dkv.launches,
+         ka.flash_attention_bwd_dq.launches)
+    dk, dv = ka.flash_attention_bwd_dkv(q, k, v, lse, do, di, scale)
+    dq = ka.flash_attention_bwd_dq(q, k, v, lse, do, di, scale)
+    torch.cuda.synchronize()
+    assert (ka.flash_attention_bwd_dkv.launches,
+            ka.flash_attention_bwd_dq.launches) == (n[0] + 1, n[1] + 1)
+    rk, rv = ka.flash_attention_bwd_dkv_plain(q, k, v, lse, do, di, scale)
+    rq = ka.flash_attention_bwd_dq_plain(q, k, v, lse, do, di, scale)
+    for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.dtype == torch.float32 and got.shape == q.shape
+        assert torch.isfinite(got).all()
+        assert _maxrel(got.cpu(), ref.cpu()) < 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ci,co", [
+    ((2, 16, 16, 16), 8, 16),
+    ((1, 10, 6, 12), 32, 64),   # ragged tiles
+])
+def test_conv_down_backward_on_kernels_matches_plain(cuda, shape, ci, co):
+    """The stride-2 conv's dx and dW through the zero-inserted gradient on
+    T-x and T-w (zero padding) against the same on their plain versions."""
+    from anatomix_tpu_torch.kernels import conv_down as kd
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((*shape, ci), generator=g, device=cuda)
+    w = torch.randn((co, ci, 3, 3, 3), generator=g, device=cuda) * 0.1
+    b = torch.randn((co,), generator=g, device=cuda)
+    xb = x.bfloat16().requires_grad_()
+    wl = w.clone().requires_grad_()
+    y = kd.conv_down2_train(xb, wl, b)
+    dy = torch.randn(y.shape, generator=g, device=cuda)
+    dx, dw = torch.autograd.grad(y, (xb, wl), dy)
+    rdx, rdw = kd.conv_down2_backward_plain(
+        xb.detach(), dy.bfloat16(), kd.pack_conv_weight(w).bfloat16())
+    torch.cuda.synchronize()
+    assert _maxrel(dx.float().cpu(), rdx.float().cpu()) < 1e-2
+    assert _maxrel(dw.cpu(), kd.unpack_conv_weight(rdw, ci).cpu()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_vit_pretrain_step_kernels_match_plain_path(cuda):
+    """One loss-and-gradient evaluation of the ViT pretraining step (a
+    small Primus at 32^3: embed 64, 2 blocks, 2 heads of 32) on the kernels
+    against the plain f32 path (loss within 1e-2), every dkv and dq launch
+    against its plain version on the same tensors (1e-2), and every
+    gradient of q, k and v through the whole backward against the plain
+    attention backward from the same forward (mean |err| / std < 5e-2);
+    then one step, with dkv and dq launched once per block."""
+    from anatomix_tpu_torch.kernels import attention as ka
+    from anatomix_tpu_torch.models.vit3d import PrimusConfig
+    from anatomix_tpu_torch.pretraining import train_step as ts
+
+    cfg = PrimusConfig(num_classes=8, embed_dim=64, eva_depth=2,
+                       eva_numheads=2, input_shape=(32, 32, 32),
+                       num_register_tokens=2, qk_norm=True,
+                       out_norm="demean", scale_attn_inner=True,
+                       tokenizer_base_features=8)
+    state = ts.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                tap_layers=(-1,), netf_nc=32, device=cuda)
+    rng = np.random.default_rng(0)
+    views = torch.from_numpy(rng.standard_normal(
+        (1, 2, 32, 32, 32, 1)).astype(np.float32)).to(cuda)
+    segs = torch.from_numpy(rng.integers(0, 5, (1, 32, 32, 32, 1))).to(cuda)
+    kw = dict(tap_layers=(-1,), num_patches=256, nce=ts.NCEOptions())
+
+    def run(**extra):
+        return ts.nce_loss_and_grads(
+            cfg, state.params_g, state.params_f, views, segs,
+            torch.Generator(device=cuda).manual_seed(3), **kw, **extra)
+
+    calls, plain_calls = [], []
+
+    def rec(fn, plain, out):
+        def call(*args):
+            got = fn(*args)
+            out.append((got, plain(*args)) if plain else got)
+            return got
+        return call
+
+    with ka.backward_route(
+            rec(ka.flash_attention_bwd_dkv, ka.flash_attention_bwd_dkv_plain,
+                calls),
+            rec(ka.flash_attention_bwd_dq, ka.flash_attention_bwd_dq_plain,
+                calls)):
+        loss, _, _, _ = run()
+    assert len(calls) == 2 * cfg.eva_depth
+    for got, ref in calls:
+        for a, r in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert _maxrel(a.cpu(), r.cpu()) < 1e-2
+    with ka.backward_route(
+            rec(ka.flash_attention_bwd_dkv_plain, None, plain_calls),
+            rec(ka.flash_attention_bwd_dq_plain, None, plain_calls)):
+        same, _, _, _ = run()
+    assert abs(float(same) - float(loss)) <= 1e-6 * abs(float(loss))
+    # each attention's (dk, dv) and dq, the whole backward on the kernels
+    # against the whole backward on the plain versions
+    for (got, _), ref in zip(calls, plain_calls):
+        for a, r in zip(got if isinstance(got, tuple) else (got,),
+                        ref if isinstance(ref, tuple) else (ref,)):
+            assert float((a - r).abs().mean() / r.std()) < 5e-2
+    ref, _, _, _ = run(plain=True)
+    assert abs(float(loss) - float(ref)) < 1e-2 * abs(float(ref))
+    n = (ka.flash_attention_bwd_dkv.launches,
+         ka.flash_attention_bwd_dq.launches)
+    step = ts.build_train_step(cfg, tap_layers=(-1,), num_patches=256)
+    state, metrics = step(state, views, segs,
+                          torch.Generator(device=cuda).manual_seed(3))
+    assert np.isfinite(float(metrics["loss"])) and state.step == 1
+    assert (ka.flash_attention_bwd_dkv.launches - n[0],
+            ka.flash_attention_bwd_dq.launches - n[1]) == (
+        cfg.eva_depth, cfg.eva_depth)

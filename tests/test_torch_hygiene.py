@@ -126,8 +126,14 @@ def test_build_all_raises_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_all(cfg, 1)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        build_all(PretrainConfig(netG="primus"), 1, device="cpu")
+    # the ViT's pretraining step too: on the card unless asked for the CPU
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_all(PretrainConfig(netG="primus"), 1)
+    vplan, _, vstate, _ = build_all(
+        PretrainConfig(netG="primus", crop_size=16, netF_nc=8), 1,
+        device="cpu")
+    assert vplan.input_shape == (16, 16, 16)
+    assert all(v.device.type == "cpu" for v in vstate.params_g.values())
     # the CPU is used only when asked for
     plan, taps, state, _ = build_all(cfg, 1, device="cpu")
     assert state.params_g["model.0.weight"].device.type == "cpu"
