@@ -26,6 +26,7 @@ _LAZY_ATTRS = {
     "Primus": ("anatomix_tpu_torch.models.vit3d", "Primus"),
     "PrimusConfig": ("anatomix_tpu_torch.models.vit3d", "PrimusConfig"),
     "load_model": ("anatomix_tpu_torch.models.load", "load_model"),
+    "load_from_hf": ("anatomix_tpu_torch.models.load", "load_from_hf"),
     "ANATOMIX_VARIANTS": (
         "anatomix_tpu_torch.models.registry", "ANATOMIX_VARIANTS"
     ),

@@ -31,7 +31,10 @@ from anatomix_tpu_torch.models.unet_fused import (
     unet_apply_fused,
 )
 from anatomix_tpu_torch.models.vit3d import Primus, PrimusConfig
-from anatomix_tpu_torch.ops.sliding_window import sliding_window_inference
+from anatomix_tpu_torch.ops.sliding_window import (
+    scatter_kernel_eligible,
+    sliding_window_inference,
+)
 
 
 def fold_batchnorm(plan: UnetPlan, state_dict: dict[str, torch.Tensor]):
@@ -92,7 +95,10 @@ def _make_vit_extractor(cfg: PrimusConfig, state_dict, *, sw_batch_size,
                         overlap, mode, sigma_scale, compute_dtype, impl, dev):
     """The ViT's sliding-window extractor (`anatomix_tpu/extract.py`
     make_feature_extractor's `PrimusConfig` branch): windows of
-    `cfg.input_shape`; `impl='eager'` runs the plain versions in f32."""
+    `cfg.input_shape`; `impl='eager'` runs the plain versions in f32. As in
+    JAX, the model emits the folded window rows (`emit="fold"`: the
+    stage-wise decoder, its exit straight into the stitch) when
+    `scatter_kernel_eligible` holds for the volume and the window."""
     if impl not in ("fused", "eager"):
         raise ValueError(f"unknown impl {impl!r}")
     plain = impl == "eager"
@@ -101,12 +107,16 @@ def _make_vit_extractor(cfg: PrimusConfig, state_dict, *, sw_batch_size,
         raise ValueError("the ViT's kernels compute in bfloat16 on the card")
     model = Primus.from_state_dict(cfg, state_dict, device=dev)
 
-    def window_fn(windows):
-        return model(windows, compute_dtype=cd, plain=plain)
-
     @torch.inference_mode()
     def extract(volume):
         x = torch.as_tensor(volume, dtype=torch.float32, device=dev)
+        emit = "fold" if scatter_kernel_eligible(
+            max(x.shape[3], cfg.input_shape[2]), cfg.input_shape[2],
+            cfg.num_classes) else "spatial"
+
+        def window_fn(windows):
+            return model(windows, compute_dtype=cd, plain=plain, emit=emit)
+
         return sliding_window_inference(
             x, window_fn, cfg.num_classes, roi_size=cfg.input_shape,
             sw_batch_size=sw_batch_size or 2, overlap=overlap, mode=mode,

@@ -124,11 +124,18 @@ def conv_down2_backward_plain(x, dy, w_packed):
 
 class _ConvDown2Train(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b):
-        w_packed = pack_conv_weight(w).to(x.dtype)
-        y = conv_down2_ndhwc(x, w_packed, b.float().contiguous(),
+    def forward(ctx, x, w, b, split):
+        if split:
+            xin, w_in, xs = conv_train.split_operands(x, w)
+            w_fwd = pack_conv_weight(w_in).to(torch.bfloat16)
+            w_packed = pack_conv_weight(w).to(torch.bfloat16)
+        else:
+            xin = xs = x
+            w_fwd = w_packed = pack_conv_weight(w).to(x.dtype)
+        y = conv_down2_ndhwc(xin, w_fwd, b.float().contiguous(),
                              out_dtype=torch.float32)
-        ctx.save_for_backward(x, w_packed)
+        ctx.save_for_backward(xs, w_packed)
+        ctx.x_dtype = x.dtype
         return y
 
     @staticmethod
@@ -141,20 +148,22 @@ class _ConvDown2Train(torch.autograd.Function):
         up = zero_insert(dy.to(x.dtype), x.shape[1:4]).contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = dgrad(up, w_packed, pad_type="zeros")
+            dx = dgrad(up, w_packed, pad_type="zeros").to(ctx.x_dtype)
         if ctx.needs_input_grad[1]:
             dw = unpack_conv_weight(wgrad(x, up, pad_type="zeros"),
                                     x.shape[-1])
         if ctx.needs_input_grad[2]:
             db = dy.float().sum(dim=(0, 1, 2, 3))
-        return dx, dw, db
+        return dx, dw, db, None
 
 
-def conv_down2_train(x: torch.Tensor, w: torch.Tensor,
-                     b: torch.Tensor) -> torch.Tensor:
+def conv_down2_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     split: bool = False) -> torch.Tensor:
     """Differentiable stride-2 3x3x3 conv (zero padding 1) of NDHWC `x` with
     the f32 torch-layout kernel `w` (O, I, 3, 3, 3) and bias `b`: the
     forward on V2 in `x`'s dtype (weights rounded to it), stored in f32
     (an instance norm follows it in the ViT's tokenizer); dx from T-x, dW
-    from T-w on the zero-inserted gradient, dW and db f32."""
-    return _ConvDown2Train.apply(x, w, b)
+    from T-w on the zero-inserted gradient, dW and db f32. `split` as in
+    `conv_train.conv3x3x3_train`: an f32 `x`, the forward through the
+    three-term split, the backward on the bf16 roundings."""
+    return _ConvDown2Train.apply(x, w, b, split)

@@ -33,7 +33,12 @@ import torch.nn.functional as F
 
 from anatomix_tpu_torch.kernels import build
 from anatomix_tpu_torch.kernels.conv import conv3x3x3_ndhwc
-from anatomix_tpu_torch.ops.conv import pack_conv_weight, unpack_conv_weight
+from anatomix_tpu_torch.ops.conv import (
+    pack_conv_weight,
+    split3,
+    split3_weight,
+    unpack_conv_weight,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -235,19 +240,34 @@ def backward_route(dgrad, wgrad):
         _route = saved
 
 
+def split_operands(x, w):
+    """The forward operands of a conv that reads f32 `x` and `w` through
+    the three-term split (`ops/conv.split3`): ([hi | lo | hi] of x bf16,
+    [w_hi; w_hi; w_lo] f32), and the bf16 `x_hi` its backward reads."""
+    xin = split3(x)
+    return xin, split3_weight(w), xin[..., :x.shape[-1]].contiguous()
+
+
 class _Conv3x3x3Train(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, pad_type, out_dtype):
+    def forward(ctx, x, w, b, pad_type, out_dtype, split):
         ci = x.shape[-1]
-        w_packed = pack_conv_weight(w).to(x.dtype)
         bias = (b.float().contiguous() if b is not None else
                 torch.zeros((w.shape[0],), dtype=torch.float32,
                             device=x.device))
-        y = conv3x3x3_ndhwc(x, w_packed, bias, act="none", pad_type=pad_type,
+        if split:
+            xin, w_in, xs = split_operands(x, w)
+            w_fwd = pack_conv_weight(w_in).to(torch.bfloat16)
+            w_packed = pack_conv_weight(w).to(torch.bfloat16)
+        else:
+            xin = xs = x
+            w_fwd = w_packed = pack_conv_weight(w).to(x.dtype)
+        y = conv3x3x3_ndhwc(xin, w_fwd, bias, act="none", pad_type=pad_type,
                             out_dtype=out_dtype)
-        ctx.save_for_backward(x, w_packed)
+        ctx.save_for_backward(xs, w_packed)
         ctx.pad_type = pad_type
         ctx.ci = ci
+        ctx.x_dtype = x.dtype
         return y
 
     @staticmethod
@@ -258,13 +278,13 @@ class _Conv3x3x3Train(torch.autograd.Function):
         dy = dy.to(x.dtype).contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = dgrad(dy, w_packed, pad_type=ctx.pad_type)
+            dx = dgrad(dy, w_packed, pad_type=ctx.pad_type).to(ctx.x_dtype)
         if ctx.needs_input_grad[1]:
             dw_packed = wgrad(x, dy, pad_type=ctx.pad_type)
             dw = unpack_conv_weight(dw_packed, ctx.ci)
         if ctx.needs_input_grad[2]:
             db = dy.float().sum(dim=(0, 1, 2, 3))
-        return dx, dw, db, None, None
+        return dx, dw, db, None, None, None
 
 
 def conv3x3x3_train(
@@ -273,10 +293,15 @@ def conv3x3x3_train(
     b: torch.Tensor | None = None,
     pad_type: str = "reflect",
     out_dtype: torch.dtype | None = None,
+    split: bool = False,
 ) -> torch.Tensor:
     """Differentiable 3x3x3 "same" conv of NDHWC `x` with the f32 torch-layout
     kernel `w` (O, I, 3, 3, 3) and optional bias: the forward in `x`'s dtype
     (weights rounded to it), stored in `out_dtype` (default `x`'s),
     gradients from the dgrad and wgrad kernels (the output gradient rounded
-    to `x`'s dtype), dW and db in f32."""
-    return _Conv3x3x3Train.apply(x, w, b, pad_type, out_dtype or x.dtype)
+    to `x`'s dtype), dW and db in f32. With `split`, `x` is f32 and the
+    forward reads `x` and `w` through the bf16 three-term split
+    (`ops/conv.split3`, f32 to about 2^-16), while the backward runs on
+    their bf16 roundings, as without it; dx is f32."""
+    return _Conv3x3x3Train.apply(x, w, b, pad_type, out_dtype or x.dtype,
+                                 split)

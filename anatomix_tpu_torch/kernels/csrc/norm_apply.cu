@@ -15,6 +15,12 @@
 // residual r (bf16, x's shape) is the ViT tokenizer's
 // `lrelu(IN(conv2(...)) + r)` (`anatomix_tpu/models/vit3d/primus.py`
 // `_tokenizer_v2`), which the TPU runs as XLA passes: here it is one pass.
+// With `split`, the output is (B, D, H, W, 3 C): each value v as the three
+// bf16 channel blocks [hi | lo | hi], hi = bf16(v), lo = bf16(v - hi), the
+// operand of a conv whose weights are packed [w_hi; w_hi; w_lo] along Ci,
+// which then reads v * w as x_hi w_hi + x_lo w_hi + x_hi w_lo, to about
+// 2^-16 of it (the port's ViT tokenizer, whose instance norms amplify a bf16
+// rounding on a smooth volume); a residual in that form is read as hi + lo.
 //
 // What bounds it on an H100: bytes. It reads each input element once and
 // writes each output element once (4 or 6 bytes per element) for two
@@ -78,7 +84,7 @@ norm_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
                   const __nv_bfloat16* __restrict__ res,
                   __nv_bfloat16* __restrict__ out, int64_t n_items, int D,
                   int H, int W, int C, int t0, int t1, int t2, int act,
-                  float slope) {
+                  float slope, int split) {
   const int G = C / V;  // items per voxel
   const int64_t first = (int64_t)blockIdx.x * NTHREADS;
   const int64_t e = first + threadIdx.x;
@@ -99,6 +105,8 @@ norm_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
       (((int64_t)b * t0 + zmap[zi]) * t1 + ymap[yi]) * t2 + xmap[xi];
   const float* ar = a + t * C + c;
   const float* sr = s + t * C + c;
+  // element offset of (v, c) in the output and the residual
+  const int64_t o = split ? (int64_t)v * 3 * C + c : e * V;
   if constexpr (V == 8) {
     float xv[8];
     load8(x + e * 8, xv);
@@ -109,18 +117,40 @@ norm_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
     const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
     const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
     float rv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (res != nullptr) load8(res + e * 8, rv);
-    Pack8 o;
+    if (res != nullptr) {
+      load8(res + o, rv);
+      if (split) {
+        float lo[8];
+        load8(res + o + C, lo);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) rv[j] += lo[j];
+      }
+    }
+    Pack8 hi, lo;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      o.h[j] = __float2bfloat16(
-          activate(xv[j] * av[j] + sv[j] + rv[j], act, slope));
+      const float val = activate(xv[j] * av[j] + sv[j] + rv[j], act, slope);
+      hi.h[j] = __float2bfloat16(val);
+      lo.h[j] = __float2bfloat16(val - __bfloat162float(hi.h[j]));
     }
-    reinterpret_cast<uint4*>(out)[e] = o.u;
+    *reinterpret_cast<uint4*>(out + o) = hi.u;
+    if (split) {
+      *reinterpret_cast<uint4*>(out + o + C) = lo.u;
+      *reinterpret_cast<uint4*>(out + o + 2 * C) = hi.u;
+    }
   } else {
     float val = to_float(x[e]) * ar[0] + sr[0];
-    if (res != nullptr) val += __bfloat162float(res[e]);
-    out[e] = __float2bfloat16(activate(val, act, slope));
+    if (res != nullptr) {
+      val += __bfloat162float(res[o]);
+      if (split) val += __bfloat162float(res[o + C]);
+    }
+    val = activate(val, act, slope);
+    const __nv_bfloat16 hi = __float2bfloat16(val);
+    out[o] = hi;
+    if (split) {
+      out[o + C] = __float2bfloat16(val - __bfloat162float(hi));
+      out[o + 2 * C] = hi;
+    }
   }
 }
 
@@ -134,16 +164,16 @@ void launch(bool vec, int64_t blocks, cudaStream_t st, const void* x,
             const int* xmap, const __nv_bfloat16* res, __nv_bfloat16* out,
             int64_t n_items, int D,
             int H, int W, int C, int t0, int t1, int t2, int act,
-            float slope) {
+            float slope, int split) {
   const T* xp = static_cast<const T*>(x);
   if (vec) {
     norm_apply_kernel<T, 8><<<(unsigned)blocks, NTHREADS, 0, st>>>(
         xp, a, s, zmap, ymap, xmap, res, out, n_items, D, H, W, C, t0, t1,
-        t2, act, slope);
+        t2, act, slope, split);
   } else {
     norm_apply_kernel<T, 1><<<(unsigned)blocks, NTHREADS, 0, st>>>(
         xp, a, s, zmap, ymap, xmap, res, out, n_items, D, H, W, C, t0, t1,
-        t2, act, slope);
+        t2, act, slope, split);
   }
 }
 
@@ -155,7 +185,7 @@ extern "C" int norm_apply_ndhwc(const void* x, int x_f32, const void* a,
                                 const void* res, void* out, int B, int D,
                                 int H, int W, int C,
                                 int t0, int t1, int t2, int act, float slope,
-                                void* stream) {
+                                int split, void* stream) {
   const int64_t voxels = (int64_t)B * D * H * W;
   if (voxels >= 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t elems = voxels * C;
@@ -176,10 +206,11 @@ extern "C" int norm_apply_ndhwc(const void* x, int x_f32, const void* a,
   auto* op = static_cast<__nv_bfloat16*>(out);
   if (x_f32) {
     launch<float>(vec, blocks, st, x, ap, sp, zp, yp, wp, rp, op, n_items,
-                  D, H, W, C, t0, t1, t2, act, slope);
+                  D, H, W, C, t0, t1, t2, act, slope, split);
   } else {
     launch<__nv_bfloat16>(vec, blocks, st, x, ap, sp, zp, yp, wp, rp, op,
-                          n_items, D, H, W, C, t0, t1, t2, act, slope);
+                          n_items, D, H, W, C, t0, t1, t2, act, slope,
+                          split);
   }
   return static_cast<int>(cudaGetLastError());
 }

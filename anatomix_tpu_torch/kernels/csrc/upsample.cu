@@ -10,7 +10,10 @@
 // 0.75 * x[i] + 0.25 * x[i - 1] and output 2i + 1 is 0.75 * x[i] +
 // 0.25 * x[i + 1], with the source index clamped to [0, n - 1] at the edges
 // (torch's boundary rule). The 8-corner product of the three axes' weights
-// is summed in f32 and rounded to bf16 once.
+// is summed in f32 and rounded to bf16 once. With `split`, input and output
+// are the three-term split (B, ., ., ., 3 C) [hi | lo | hi] of an f32
+// volume (`norm_apply.cu`): the kernel reads hi + lo and writes the split
+// of its f32 result, so the live-norm UNet's decoder keeps f32 values.
 //
 // What bounds it on an H100: bytes. Each output element is written once
 // (2 bytes) and each input element is needed once (2 bytes per 8 outputs);
@@ -33,11 +36,20 @@ union Pack8 {
   __nv_bfloat16 h[8];
 };
 
-template <int V>
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
+  Pack8 in;
+  in.u = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(in.h[j]);
+}
+
+template <int V, bool SPLIT>
 __global__ void __launch_bounds__(NTHREADS)
 upsample2x_trilinear_kernel(const __nv_bfloat16* __restrict__ x,
                             __nv_bfloat16* __restrict__ out,
                             int64_t n_items, int d, int h, int w, int C) {
+  // element stride of one voxel: C, or 3 C for the split form
+  constexpr int S = SPLIT ? 3 : 1;
   const int G = C / V;
   const int64_t first = (int64_t)blockIdx.x * NTHREADS;
   const int64_t e = first + threadIdx.x;
@@ -74,27 +86,60 @@ upsample2x_trilinear_kernel(const __nv_bfloat16* __restrict__ x,
       for (int kx = 0; kx < 2; ++kx) {
         const float wgt = wt[kz] * wt[ky] * wt[kx];
         const int64_t src =
-            ((((int64_t)b * d + iz[kz]) * h + iy[ky]) * w + ix[kx]) * C + c;
+            ((((int64_t)b * d + iz[kz]) * h + iy[ky]) * w + ix[kx]) * S * C +
+            c;
         if constexpr (V == 8) {
-          Pack8 in;
-          in.u = *reinterpret_cast<const uint4*>(x + src);
+          float in[8];
+          load8(x + src, in);
+          if constexpr (SPLIT) {
+            float lo[8];
+            load8(x + src + C, lo);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            acc[j] += wgt * __bfloat162float(in.h[j]);
+            for (int j = 0; j < 8; ++j) in[j] += lo[j];
           }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[j] += wgt * in[j];
         } else {
-          acc[0] += wgt * __bfloat162float(x[src]);
+          float in = __bfloat162float(x[src]);
+          if constexpr (SPLIT) in += __bfloat162float(x[src + C]);
+          acc[0] += wgt * in;
         }
       }
     }
   }
+  const int64_t o = (int64_t)v * S * C + c;
   if constexpr (V == 8) {
-    Pack8 o;
+    Pack8 hi, lo;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o.h[j] = __float2bfloat16(acc[j]);
-    reinterpret_cast<uint4*>(out)[e] = o.u;
+    for (int j = 0; j < 8; ++j) {
+      hi.h[j] = __float2bfloat16(acc[j]);
+      lo.h[j] = __float2bfloat16(acc[j] - __bfloat162float(hi.h[j]));
+    }
+    *reinterpret_cast<uint4*>(out + o) = hi.u;
+    if constexpr (SPLIT) {
+      *reinterpret_cast<uint4*>(out + o + C) = lo.u;
+      *reinterpret_cast<uint4*>(out + o + 2 * C) = hi.u;
+    }
   } else {
-    out[e] = __float2bfloat16(acc[0]);
+    const __nv_bfloat16 hi = __float2bfloat16(acc[0]);
+    out[o] = hi;
+    if constexpr (SPLIT) {
+      out[o + C] = __float2bfloat16(acc[0] - __bfloat162float(hi));
+      out[o + 2 * C] = hi;
+    }
+  }
+}
+
+template <bool SPLIT>
+void launch(bool vec, int64_t blocks, cudaStream_t st,
+            const __nv_bfloat16* xp, __nv_bfloat16* op, int64_t n_items,
+            int d, int h, int w, int C) {
+  if (vec) {
+    upsample2x_trilinear_kernel<8, SPLIT>
+        <<<(unsigned)blocks, NTHREADS, 0, st>>>(xp, op, n_items, d, h, w, C);
+  } else {
+    upsample2x_trilinear_kernel<1, SPLIT>
+        <<<(unsigned)blocks, NTHREADS, 0, st>>>(xp, op, n_items, d, h, w, C);
   }
 }
 
@@ -104,9 +149,10 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
+// C is the volume's channels (the split form holds 3 C per voxel)
 extern "C" int upsample2x_trilinear_ndhwc(const void* x, void* out, int B,
                                           int d, int h, int w, int C,
-                                          void* stream) {
+                                          int split, void* stream) {
   const int64_t voxels = (int64_t)B * 8 * d * h * w;
   if (voxels >= 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t elems = voxels * C;
@@ -118,12 +164,9 @@ extern "C" int upsample2x_trilinear_ndhwc(const void* x, void* out, int B,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   auto* op = static_cast<__nv_bfloat16*>(out);
-  if (vec) {
-    upsample2x_trilinear_kernel<8><<<(unsigned)blocks, NTHREADS, 0, st>>>(
-        xp, op, n_items, d, h, w, C);
-  } else {
-    upsample2x_trilinear_kernel<1><<<(unsigned)blocks, NTHREADS, 0, st>>>(
-        xp, op, n_items, d, h, w, C);
-  }
+  if (split)
+    launch<true>(vec, blocks, st, xp, op, n_items, d, h, w, C);
+  else
+    launch<false>(vec, blocks, st, xp, op, n_items, d, h, w, C);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,7 +14,10 @@ so even and uneven tiles and the global norm (one tile) are one kernel.
 The caller computes `(a, s)` from the statistics (`ops/norms.fold_affine`,
 which also folds an `instance_affine` scale and bias). On the card `x` is
 bf16 or f32, the optional residual `r` bf16 (the ViT tokenizer's
-`lrelu(IN(conv2(...)) + r)`) and the output bf16.
+`lrelu(IN(conv2(...)) + r)`) and the output bf16. With `split=True` the
+output is the three-term split `(..., 3 C)` [hi | lo | hi] of the f32
+value (`ops/conv.split3`), the operand form of a conv that reads it as f32,
+and a residual is taken in that form too (read as hi + lo).
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version. `.launches` counts kernel launches.
@@ -28,6 +31,7 @@ import torch
 
 from anatomix_tpu_torch.kernels import build
 from anatomix_tpu_torch.ops.activations import EPILOGUE_ACTS, apply_activation
+from anatomix_tpu_torch.ops.conv import merge3, split3
 from anatomix_tpu_torch.ops.norms import expand_tiles
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -39,20 +43,22 @@ def _fn():
     if fn is None:
         fn = build.load("norm_apply").norm_apply_ndhwc
         # x, x_f32, a, s, zmap, ymap, xmap, residual, out; B, D, H, W, C,
-        # t0, t1, t2; act, slope, stream
-        fn.argtypes = [_P, _I] + [_P] * 7 + [_I] * 8 + [_I, _F, _P]
+        # t0, t1, t2; act, slope, split, stream
+        fn.argtypes = [_P, _I] + [_P] * 7 + [_I] * 8 + [_I, _F, _I, _P]
         fn.restype = ctypes.c_int
         _fns["norm_apply_ndhwc"] = fn
     return fn
 
 
 def norm_apply_ndhwc_plain(x, a, s, tile_maps, *, act="none", slope=0.3,
-                           out_dtype=torch.bfloat16, residual=None):
+                           out_dtype=torch.bfloat16, residual=None,
+                           split=False):
     """f32 arithmetic on the same inputs."""
     y = x.float() * expand_tiles(a, tile_maps) + expand_tiles(s, tile_maps)
     if residual is not None:
-        y = y + residual.float()
-    return apply_activation(y, act, slope=slope).to(out_dtype)
+        y = y + (merge3(residual) if split else residual.float())
+    y = apply_activation(y, act, slope=slope)
+    return split3(y) if split else y.to(out_dtype)
 
 
 def norm_apply_ndhwc(
@@ -65,13 +71,16 @@ def norm_apply_ndhwc(
     slope: float = 0.3,
     out_dtype: torch.dtype = torch.bfloat16,
     residual: torch.Tensor | None = None,  # x's shape, bf16 on the card
+    split: bool = False,
 ) -> torch.Tensor:
     """act(x * a[tile] + s[tile] [+ residual]) per (sample, tile,
-    channel), stored in `out_dtype` (bf16 on the card)."""
+    channel), stored in `out_dtype` (bf16 on the card), or with `split` as
+    the bf16 (..., 3 C) [hi | lo | hi] of the f32 value, a residual then
+    in that form."""
     if x.device.type == "cpu":
         return norm_apply_ndhwc_plain(x, a, s, tile_maps, act=act,
                                       slope=slope, out_dtype=out_dtype,
-                                      residual=residual)
+                                      residual=residual, split=split)
     dev = x.device
     if (x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 5
             or not x.is_contiguous()):
@@ -80,6 +89,7 @@ def norm_apply_ndhwc(
     if out_dtype != torch.bfloat16:
         raise ValueError(f"the kernel stores bf16, got out_dtype {out_dtype}")
     B, D, H, W, C = x.shape
+    out_shape = (B, D, H, W, 3 * C) if split else tuple(x.shape)
     zmap, ymap, xmap = tile_maps
     t0, t1, t2 = a.shape[1:4] if a.dim() == 5 else (-1, -1, -1)
     for t, shape in ((a, (B, t0, t1, t2, C)), (s, (B, t0, t1, t2, C))):
@@ -95,19 +105,20 @@ def norm_apply_ndhwc(
     if act not in EPILOGUE_ACTS:
         raise ValueError(f"unsupported activation {act!r}")
     if residual is not None and (
-            residual.dtype != torch.bfloat16 or residual.shape != x.shape
+            residual.dtype != torch.bfloat16
+            or tuple(residual.shape) != out_shape
             or residual.device != dev or not residual.is_contiguous()):
-        raise ValueError(f"residual must be contiguous bf16 {tuple(x.shape)} "
+        raise ValueError(f"residual must be contiguous bf16 {out_shape} "
                          f"on {dev}, got {residual.dtype} "
                          f"{tuple(residual.shape)}")
-    out = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
+    out = torch.empty(out_shape, dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _fn()(
         x.data_ptr(), int(x.dtype == torch.float32), a.data_ptr(),
         s.data_ptr(), zmap.data_ptr(), ymap.data_ptr(), xmap.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         B, D, H, W, C,
-        t0, t1, t2, EPILOGUE_ACTS[act], float(slope), stream,
+        t0, t1, t2, EPILOGUE_ACTS[act], float(slope), int(split), stream,
     )
     build.check(rc, "norm_apply_ndhwc")
     norm_apply_ndhwc.launches += 1

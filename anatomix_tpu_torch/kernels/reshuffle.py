@@ -14,7 +14,23 @@ where `sub` (B, 512 * C) f32 is given.
 kernels `space_to_depth` and `depth_to_space` of the same JAX file with
 the kernels of `csrc/reshuffle.cu`: `(B, 2d, 2h, 2w, C)` <-> the block
 layout `(B, d, h, w, 8 C)`, channel `((ad * 2 + ah) * 2 + aw) * C + c`
-holding voxel `(2 i + ad, 2 j + ah, 2 k + aw)`, for any 2- or 4-byte dtype.
+holding voxel `(2 i + ad, 2 j + ah, 2 k + aw)`, for any 2- or 4-byte dtype
+and any C (the ViT decoder's odd 99 and 49 included).
+
+Three more kernels of `csrc/reshuffle.cu` replace the rest of that file's
+layout kernels, the exits and the entry of the ViT's stage-wise decoder and
+v1 tokenizer:
+- `depth_to_space_interleave_ndhwc` (`depth_to_space_interleave`): the
+  block layout, bf16 or f32, to `(B, 2d, 2h, 2w, C)` in `out_dtype`, minus
+  `sub` `(B, 8 C)` f32 per lane (the demean mean, tiled 8 times) in f32,
+  rounded once;
+- `depth_to_space_fold_ndhwc` (`depth_to_space_fold`): the same values as
+  the folded rows `(B, 2d, 2h, 2w C / 128, 128)` the TPU's stitch reads,
+  which on this card are a view of the channels-last bytes; bf16 out by
+  default, as the JAX stage path emits;
+- `space_to_depth_c1_ndhwc` (`space_to_depth_c1`): a channel-less
+  `(B, 2d, 2h, 2w)` volume to `(B, d, h, w, 8)`, lane `(ad * 2 + ah) * 2 +
+  aw`, any 2- or 4-byte dtype.
 `space_to_depth2` and `depth_to_space2` are their differentiable forms: the
 backward of each is the other, as in the JAX package's
 `space_to_depth_vjp` / `depth_to_space_vjp`. The pretraining step's train
@@ -44,6 +60,12 @@ _SIGNATURES = {
     # in, out; B, d, h, w, C, element bytes; stream
     "space_to_depth2_ndhwc": ("reshuffle", [_P] * 2 + [_I] * 6 + [_P]),
     "depth_to_space2_ndhwc": ("reshuffle", [_P] * 2 + [_I] * 6 + [_P]),
+    # yb, sub, out; B, d, h, w, C, in_f32, out_f32; stream
+    "depth_to_space_interleave_ndhwc": ("reshuffle",
+                                        [_P] * 3 + [_I] * 7 + [_P]),
+    "depth_to_space_fold_ndhwc": ("reshuffle", [_P] * 3 + [_I] * 7 + [_P]),
+    # x, out; B, d, h, w, element bytes; stream
+    "space_to_depth_c1_ndhwc": ("reshuffle", [_P] * 2 + [_I] * 5 + [_P]),
 }
 
 
@@ -205,3 +227,144 @@ def depth_to_space2(xb: torch.Tensor) -> torch.Tensor:
     """Differentiable `depth_to_space2_ndhwc`; its backward is
     `space_to_depth2_ndhwc`."""
     return _DepthToSpace2.apply(xb)
+
+
+# -----------------------------------------------------------------------------
+# the ViT's stage-wise exits and its v1 tokenizer's channel-less entry
+
+_SUB_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def depth_to_space_sub_plain(yb, sub=None, out_dtype=torch.float32):
+    """(B, d, h, w, 8 C) -> (B, 2d, 2h, 2w, C) in `out_dtype`: f32
+    arithmetic (the subtract of `sub` (B, 8 C) f32 per lane), rounded once."""
+    t = yb.float()
+    if sub is not None:
+        t = t - sub.float()[:, None, None, None, :]
+    return depth_to_space2_ndhwc_plain(t).to(out_dtype)
+
+
+def fold_rows(vol: torch.Tensor) -> torch.Tensor:
+    """A contiguous (B, D, H, W, C) volume as the folded rows (B, D, H,
+    W C / 128, 128): the same bytes, no copy."""
+    B, D, H, W, C = vol.shape
+    if (W * C) % 128:
+        raise ValueError(f"folded rows need W * C a multiple of 128, got "
+                         f"W={W}, C={C}")
+    return vol.view(B, D, H, W * C // 128, 128)
+
+
+def fold_supported(C: int, w: int) -> bool:
+    """The TPU fold kernel's envelope (`reshuffle.fold_supported`): the
+    folded row of 2 C lanes packs whole 128-lane rows."""
+    g = 128 // (2 * C) if 2 * C <= 128 and 128 % (2 * C) == 0 else 0
+    return g > 0 and w % g == 0
+
+
+def depth_to_space_interleave_ndhwc_plain(yb, sub=None,
+                                          out_dtype=torch.float32):
+    return depth_to_space_sub_plain(yb, sub, out_dtype)
+
+
+def depth_to_space_fold_ndhwc_plain(yb, sub=None, out_dtype=torch.bfloat16):
+    return fold_rows(depth_to_space_sub_plain(yb, sub, out_dtype))
+
+
+def _launch_d2s_sub(name, yb, sub, out_dtype):
+    if (yb.dim() != 5 or yb.dtype not in _SUB_DTYPES or yb.shape[-1] % 8
+            or not yb.is_contiguous()):
+        raise ValueError(f"{name}: yb must be a contiguous bf16 or f32 "
+                         f"(B, d, h, w, 8*C) tensor, got {yb.dtype} "
+                         f"{tuple(yb.shape)}")
+    if out_dtype not in _SUB_DTYPES:
+        raise ValueError(f"{name}: out_dtype must be bf16 or f32, got "
+                         f"{out_dtype}")
+    B, d, h, w, c8 = yb.shape
+    if sub is not None and (
+            sub.dtype != torch.float32 or tuple(sub.shape) != (B, c8)
+            or sub.device != yb.device or not sub.is_contiguous()):
+        raise ValueError(f"{name}: sub must be contiguous f32 {(B, c8)} on "
+                         f"{yb.device}, got {sub.dtype} {tuple(sub.shape)}")
+    out = torch.empty((B, 2 * d, 2 * h, 2 * w, c8 // 8), dtype=out_dtype,
+                      device=yb.device)
+    stream = torch.cuda.current_stream(yb.device).cuda_stream
+    rc = _fn(name)(
+        yb.data_ptr(), None if sub is None else sub.data_ptr(),
+        out.data_ptr(), B, d, h, w, c8 // 8,
+        int(yb.dtype == torch.float32), int(out_dtype == torch.float32),
+        stream)
+    build.check(rc, name)
+    return out
+
+
+def depth_to_space_interleave_ndhwc(
+    yb: torch.Tensor,                 # (B, d, h, w, 8 C) bf16 or f32
+    sub: torch.Tensor | None = None,  # (B, 8 C) f32
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """(B, d, h, w, 8 C) -> (B, 2d, 2h, 2w, C) in `out_dtype`, minus `sub`
+    in f32."""
+    if yb.device.type == "cpu":
+        return depth_to_space_interleave_ndhwc_plain(yb, sub, out_dtype)
+    out = _launch_d2s_sub("depth_to_space_interleave_ndhwc", yb, sub,
+                          out_dtype)
+    depth_to_space_interleave_ndhwc.launches += 1
+    return out
+
+
+depth_to_space_interleave_ndhwc.launches = 0
+
+
+def depth_to_space_fold_ndhwc(
+    yb: torch.Tensor,                 # (B, d, h, w, 8 C) bf16 or f32
+    sub: torch.Tensor | None = None,  # (B, 8 C) f32
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """(B, d, h, w, 8 C) -> the folded rows (B, 2d, 2h, 2w C / 128, 128) in
+    `out_dtype`, minus `sub` in f32; inside `fold_supported` only."""
+    B, d, h, w, c8 = yb.shape
+    if not fold_supported(c8 // 8, w):
+        raise ValueError(f"fold unsupported for C={c8 // 8}, w={w}")
+    if yb.device.type == "cpu":
+        return depth_to_space_fold_ndhwc_plain(yb, sub, out_dtype)
+    out = _launch_d2s_sub("depth_to_space_fold_ndhwc", yb, sub, out_dtype)
+    depth_to_space_fold_ndhwc.launches += 1
+    return fold_rows(out)
+
+
+depth_to_space_fold_ndhwc.launches = 0
+
+
+def space_to_depth_c1_ndhwc_plain(x4):
+    """(B, 2d, 2h, 2w) -> (B, d, h, w, 8), by reshape and permute."""
+    B, D, H, W = x4.shape
+    t = x4.reshape(B, D // 2, 2, H // 2, 2, W // 2, 2)
+    t = t.permute(0, 1, 3, 5, 2, 4, 6)
+    return t.reshape(B, D // 2, H // 2, W // 2, 8).contiguous()
+
+
+def space_to_depth_c1_ndhwc(x4: torch.Tensor) -> torch.Tensor:
+    """A channel-less (B, 2d, 2h, 2w) volume -> the block layout (B, d, h,
+    w, 8)."""
+    if x4.device.type == "cpu":
+        return space_to_depth_c1_ndhwc_plain(x4)
+    if x4.dim() != 4 or not x4.is_contiguous() or x4.element_size() not in (
+            2, 4):
+        raise ValueError(f"x4 must be a contiguous (B, D, H, W) tensor of 2- "
+                         f"or 4-byte elements, got {x4.dtype} "
+                         f"{tuple(x4.shape)}")
+    B, D, H, W = x4.shape
+    if D % 2 or H % 2 or W % 2:
+        raise ValueError(f"extents {(D, H, W)} must be even")
+    out = torch.empty((B, D // 2, H // 2, W // 2, 8), dtype=x4.dtype,
+                      device=x4.device)
+    stream = torch.cuda.current_stream(x4.device).cuda_stream
+    rc = _fn("space_to_depth_c1_ndhwc")(
+        x4.data_ptr(), out.data_ptr(), B, D // 2, H // 2, W // 2,
+        x4.element_size(), stream)
+    build.check(rc, "space_to_depth_c1_ndhwc")
+    space_to_depth_c1_ndhwc.launches += 1
+    return out
+
+
+space_to_depth_c1_ndhwc.launches = 0

@@ -6,7 +6,8 @@ version, counter.
 `csrc/blend_scatter.cu`, whose header says what bounds it on the card and
 what its design does about it. The canvas is `(D, H, W, C)` f32, the same
 row-major order as the JAX kernel's folded `(D, H, W*C/128, 128)` canvas, so
-no fold is needed.
+no fold is needed; the window outputs are f32 or bf16 (the ViT's fold exit
+writes bf16 windows), every product and sum f32.
 
 On a CUDA canvas the wrapper launches the kernel or raises; on a CPU canvas
 it runs the plain version (slice adds). `.launches` counts kernel launches.
@@ -28,7 +29,7 @@ def _fn():
     fn = _fns.get("blend_scatter")
     if fn is None:
         fn = build.load("blend_scatter").blend_scatter
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _F] + [_I] * 8 + [_P]
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _F] + [_I] * 9 + [_P]
         fn.restype = ctypes.c_int
         _fns["blend_scatter"] = fn
     return fn
@@ -50,7 +51,7 @@ def blend_scatter_plain(canvas, out, starts, mask, gd, gh, gw, minv):
 
 def blend_scatter(
     canvas: torch.Tensor,  # (D, H, W, C) f32, updated in place
-    out: torch.Tensor,     # (B, r0, r1, r2, C) f32 window outputs
+    out: torch.Tensor,     # (B, r0, r1, r2, C) f32 or bf16 window outputs
     starts: torch.Tensor,  # (B, 3) int32 window starts, in bounds
     mask: torch.Tensor,    # (B,) int32, 1 = real window, 0 = padding
     gd: torch.Tensor,      # (r0,) f32 separable blend factors
@@ -68,9 +69,11 @@ def blend_scatter(
     dev = canvas.device
     B, r0, r1, r2, C = out.shape
     D, H, W = canvas.shape[:3]
+    win_dtype = (torch.bfloat16 if out.dtype == torch.bfloat16
+                 else torch.float32)
     checks = [
         (canvas, torch.float32, (D, H, W, C)),
-        (out, torch.float32, (B, r0, r1, r2, C)),
+        (out, win_dtype, (B, r0, r1, r2, C)),
         (starts, torch.int32, (B, 3)),
         (mask, torch.int32, (B,)),
         (gd, torch.float32, (r0,)),
@@ -90,7 +93,8 @@ def blend_scatter(
     rc = _fn()(
         canvas.data_ptr(), out.data_ptr(), starts.data_ptr(),
         mask.data_ptr(), gd.data_ptr(), gh.data_ptr(), gw.data_ptr(),
-        float(minv), B, D, H, W, C, r0, r1, r2, stream,
+        float(minv), B, D, H, W, C, r0, r1, r2,
+        int(win_dtype == torch.bfloat16), stream,
     )
     build.check(rc, "blend_scatter")
     blend_scatter.launches += 1

@@ -14,7 +14,6 @@ returns the pytree. `load_primus_state_dict` reads either file.
 
 from __future__ import annotations
 
-import math
 import re
 from typing import Any, Mapping
 
@@ -45,6 +44,9 @@ def from_jax_primus_params(cfg: PrimusConfig, params: Mapping[str, Any]):
         sd[f"{key}.bias"] = _t(np.zeros(w.shape[-1]) if b is None else b)
 
     def ln(key, p):
+        if p["scale"] is None or p["bias"] is None:
+            raise ValueError(f"{key}: the LayerNorm's scale or bias is "
+                             "missing")
         sd[f"{key}.weight"] = _t(p["scale"])
         sd[f"{key}.bias"] = _t(p["bias"])
 
@@ -54,13 +56,18 @@ def from_jax_primus_params(cfg: PrimusConfig, params: Mapping[str, Any]):
             sd[f"{key}.bias"] = _t(p["b"])
 
     tok = params["tokenizer"]
-    conv("tokenizer.stem", tok["stem"])
-    for i, st in enumerate(tok["stages"]):
-        conv(f"tokenizer.stages.{i}.down", st["down"])
-        for j, blk in enumerate(st["blocks"]):
-            for name in ("conv1", "conv2"):
-                conv(f"tokenizer.stages.{i}.blocks.{j}.{name}", blk[name])
-    conv("tokenizer.proj", tok["proj"])
+    if cfg.version == "v1":
+        conv("tokenizer.proj", tok["proj"])
+        ln("tokenizer.norm", tok["norm"])
+    else:
+        conv("tokenizer.stem", tok["stem"])
+        for i, st in enumerate(tok["stages"]):
+            conv(f"tokenizer.stages.{i}.down", st["down"])
+            for j, blk in enumerate(st["blocks"]):
+                for name in ("conv1", "conv2"):
+                    conv(f"tokenizer.stages.{i}.blocks.{j}.{name}",
+                         blk[name])
+        conv("tokenizer.proj", tok["proj"])
     if "pos_embed" in params:
         sd["pos_embed"] = _t(params["pos_embed"])
     if "register_tokens" in params:
@@ -239,36 +246,48 @@ def convert_primus_state_dict(
         unfilled.append(f"{what} {shape}")
         return {"w": np.zeros(shape, np.float32)}
 
-    if cfg.version != "v2":
-        raise NotImplementedError("the port converts the v2 tokenizer only")
     tok_items = grab_convs("down_projection.", _conv_t)
-    base = cfg.tokenizer_base_features
-    stage_widths, ch = _tokenizer_widths(cfg)
-    tok: dict[str, Any] = {"stem": pop_match(
-        tok_items, (3, 3, 3, cfg.input_channels, base), "tokenizer stem")}
-    stages = []
-    for level, ((ci, co), depth) in enumerate(
-            zip(stage_widths, cfg.tokenizer_depth_per_level)):
-        stages.append({
-            "down": pop_match(tok_items, (3, 3, 3, ci, co),
-                              f"tokenizer stage{level} down"),
-            "blocks": [
-                {name: pop_match(tok_items, (3, 3, 3, co, co),
-                                 f"tokenizer stage{level} block{j} {name}")
-                 for name in ("conv1", "conv2")}
-                for j in range(depth)
-            ],
-        })
-    tok["stages"] = stages
-    tok["proj"] = pop_match(tok_items, (1, 1, 1, ch, cfg.embed_dim),
-                            "tokenizer proj")
-    params["tokenizer"] = tok
+    if cfg.version == "v1":
+        # the single stride-p patch-embed conv and the token LayerNorm
+        p = cfg.patch_embed_size
+        params["tokenizer"] = {
+            "proj": pop_match(
+                tok_items, (p[0], p[1], p[2], cfg.input_channels,
+                            cfg.embed_dim), "patch embed proj"),
+            "norm": {"scale": take("down_projection.norm.weight",
+                                   optional=True),
+                     "bias": take("down_projection.norm.bias",
+                                  optional=True)},
+        }
+    else:
+        base = cfg.tokenizer_base_features
+        stage_widths, ch = _tokenizer_widths(cfg)
+        tok: dict[str, Any] = {"stem": pop_match(
+            tok_items, (3, 3, 3, cfg.input_channels, base),
+            "tokenizer stem")}
+        stages = []
+        for level, ((ci, co), depth) in enumerate(
+                zip(stage_widths, cfg.tokenizer_depth_per_level)):
+            stages.append({
+                "down": pop_match(tok_items, (3, 3, 3, ci, co),
+                                  f"tokenizer stage{level} down"),
+                "blocks": [
+                    {name: pop_match(
+                        tok_items, (3, 3, 3, co, co),
+                        f"tokenizer stage{level} block{j} {name}")
+                     for name in ("conv1", "conv2")}
+                    for j in range(depth)
+                ],
+            })
+        tok["stages"] = stages
+        tok["proj"] = pop_match(tok_items, (1, 1, 1, ch, cfg.embed_dim),
+                                "tokenizer proj")
+        params["tokenizer"] = tok
 
     dec_items = grab_convs("up_projection.", _deconv_t)
-    n_up = int(round(math.log2(cfg.patch_embed_size[0])))
     params["decoder"] = [
         pop_match(dec_items, (2, 2, 2, ci, co), f"decoder up{i}")
-        for i, (ci, co) in enumerate(_decoder_widths(cfg)[:n_up])
+        for i, (ci, co) in enumerate(_decoder_widths(cfg))
     ]
     unmapped = sorted(set(sd) - used)
     return params, unmapped, unfilled

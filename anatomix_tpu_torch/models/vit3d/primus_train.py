@@ -63,6 +63,15 @@ from anatomix_tpu_torch.ops.norms import channel_layer_norm, instance_norm
 Params = Mapping[str, torch.Tensor]
 
 
+def check_train_supported(cfg: PrimusConfig) -> None:
+    """Raise on the configs the train walk does not run: it takes the v2
+    tokenizer (patch 8^3) only."""
+    check_supported(cfg)
+    if cfg.version != "v2":
+        raise NotImplementedError(
+            "the ViT's train walk runs the v2 tokenizer only")
+
+
 @functools.lru_cache(maxsize=8)
 def _rope(cfg: PrimusConfig, device: str):
     return tuple(t.to(device) for t in _rope_tables(cfg))
@@ -102,29 +111,26 @@ def _tokenizer(cfg, p: Params, x, cd, plain):
     """`_tokenizer_v2`: (B, D, H, W, 1) f32 -> (B, d, h, w, E) f32."""
     f32 = torch.float32
 
+    # in bf16 each conv reads its f32 input and weights through the
+    # three-term split (`ops/conv.split3`), as the inference path does; the
+    # backward runs on their bf16 roundings
+    split = cd == torch.bfloat16
+
     def conv(key, v):
         w, b = p[f"{key}.weight"], p[f"{key}.bias"]
         if plain:
             return conv3d_same(v, w, b, pad_type="zeros")
-        return conv3x3x3_train(v.to(cd).contiguous(), w, b, "zeros",
-                               out_dtype=f32)
+        v = v.contiguous() if split else v.to(cd).contiguous()
+        return conv3x3x3_train(v, w, b, "zeros", out_dtype=f32, split=split)
 
     def down(key, v):
         w, b = p[f"{key}.weight"], p[f"{key}.bias"]
         if plain:
             return conv3d_down2(v, w, b)
-        return conv_down2_train(v.to(cd).contiguous(), w, b)
+        v = v.contiguous() if split else v.to(cd).contiguous()
+        return conv_down2_train(v, w, b, split=split)
 
-    w, b = p["tokenizer.stem.weight"], p["tokenizer.stem.bias"]
-    if plain:
-        y = conv3d_same(x, w, b, pad_type="zeros")
-    else:
-        # the f32 volume exactly as hi + lo terms in the compute dtype
-        # against repeated weights (lo is zero when that is f32)
-        hi = x.to(cd)
-        xin = torch.cat([hi, (x - hi.float()).to(cd)], dim=-1)
-        y = conv3x3x3_train(xin, torch.cat([w, w], dim=1), b, "zeros",
-                            out_dtype=f32)
+    y = conv("tokenizer.stem", x)
     y = _norm_act(cfg, y)
     for i, depth in enumerate(cfg.tokenizer_depth_per_level):
         base = f"tokenizer.stages.{i}"
@@ -212,7 +218,7 @@ def primus_train_apply(
     """The f32 (B, D, H, W, num_classes) output volume of NDHWC `x` (spatial
     `cfg.input_shape`, or (B, D, H, W)), differentiable with respect to
     every leaf of `params`. `plain=True` runs the f32 plain path."""
-    check_supported(cfg)
+    check_train_supported(cfg)
     if _out_norm_mode(cfg.out_norm) not in ("demean", "center"):
         raise NotImplementedError(
             "the ViT's train walk takes the 'demean' output norm, which "

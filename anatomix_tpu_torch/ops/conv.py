@@ -11,6 +11,12 @@ Layouts:
   * DHWIO   (kD, kH, kW, I, O) -- the JAX package's pytree;
   * packed  (27 * I, O)        -- the kernels' GEMM B operand, row index
     `((kd * 3 + kh) * 3 + kw) * I + i`.
+
+The three-term split: a bf16 conv reads an f32 operand pair to about 2^-16
+of its product when the input is the channel blocks [hi | lo | hi]
+(`split3`: hi = bf16(x), lo = bf16(x - hi)) and the weights [w_hi; w_hi;
+w_lo] along I (`split3_weight`): x_hi w_hi + x_lo w_hi + x_hi w_lo, summed
+in f32. The ViT tokenizer takes it on the card (`models/vit3d`).
 """
 
 from __future__ import annotations
@@ -78,3 +84,23 @@ def unpack_conv_weight(w_packed: torch.Tensor, ci: int) -> torch.Tensor:
     """Packed (27 * I, O) -> torch layout (O, I, 3, 3, 3)."""
     co = w_packed.shape[1]
     return dhwio_to_torch(w_packed.reshape(3, 3, 3, ci, co))
+
+
+def split3(x: torch.Tensor) -> torch.Tensor:
+    """f32 (..., C) -> bf16 (..., 3 C) [hi | lo | hi]."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    return torch.cat([hi, lo, hi], dim=-1)
+
+
+def merge3(t: torch.Tensor) -> torch.Tensor:
+    """bf16 (..., 3 C) [hi | lo | hi] -> f32 (..., C) hi + lo."""
+    c = t.shape[-1] // 3
+    return t[..., :c].float() + t[..., c:2 * c].float()
+
+
+def split3_weight(w: torch.Tensor) -> torch.Tensor:
+    """f32 torch-layout (O, I, ...) -> (O, 3 I, ...) [w_hi; w_hi; w_lo]
+    along I, f32 (each term exact in bf16 but w_lo, which rounds)."""
+    hi = w.to(torch.bfloat16).float()
+    return torch.cat([hi, hi, w - hi], dim=1)

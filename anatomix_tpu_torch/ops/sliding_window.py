@@ -8,6 +8,9 @@ weight map, the symmetric zero pad to roi and the final `acc / weight` crop
 follow the JAX functions of the same names. Windows go through the model in
 chunks of `sw_batch_size`; every chunk is stitched into the `(D, H, W, C)`
 f32 canvas by the `blend_scatter` kernel (its plain version on the CPU).
+A window function may return its windows as the folded rows `(B, r0, r1,
+r2 C / 128, 128)` (the ViT's fold exit, f32 or bf16): they are the same
+bytes as `(B, r0, r1, r2, C)`, taken as a view.
 """
 
 from __future__ import annotations
@@ -95,6 +98,14 @@ def pad_to_roi(volume: torch.Tensor, roi_size):
     return volume, crops
 
 
+def scatter_kernel_eligible(W: int, r2: int, out_channels: int) -> bool:
+    """The JAX package's `scatter_kernel_eligible`: whether a model exit may
+    emit the folded `(…, r2 C / 128, 128)` window rows for the stitch. The
+    port's `blend_scatter` stitches into an f32 canvas on every device (its
+    plain version on the CPU), so only the shapes decide."""
+    return (W * out_channels) % 128 == 0 and (r2 * out_channels) % 128 == 0
+
+
 def sliding_window_inference(
     volume: torch.Tensor,
     apply_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -107,8 +118,8 @@ def sliding_window_inference(
     sigma_scale: float = 0.25,
 ) -> torch.Tensor:
     """`volume` (1, D, H, W, C); `apply_fn` maps windows (B, r0, r1, r2, C)
-    to (B, r0, r1, r2, out_channels). Returns (1, D, H, W, out_channels)
-    f32 on the volume's device."""
+    to (B, r0, r1, r2, out_channels), or to its folded rows, f32 or bf16.
+    Returns (1, D, H, W, out_channels) f32 on the volume's device."""
     if volume.dim() != 5 or volume.shape[0] != 1:
         raise ValueError("volume must be (1, D, H, W, C)")
     roi_size = tuple(roi_size)
@@ -152,7 +163,10 @@ def sliding_window_inference(
             vol3d[s0:s0 + r0, s1:s1 + r1, s2:s2 + r2]
             for s0, s1, s2 in starts_all[chunk].tolist()
         ])
-        out = apply_fn(windows).float().contiguous()
+        out = apply_fn(windows)
+        if out.dtype not in (torch.float32, torch.bfloat16):
+            out = out.float()
+        out = out.contiguous().view(len(windows), r0, r1, r2, out_channels)
         blend_scatter(canvas, out, starts_dev[chunk], mask_dev[chunk],
                       gd, gh, gw, minv)
 

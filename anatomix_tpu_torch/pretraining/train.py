@@ -24,8 +24,8 @@ from anatomix_tpu_torch.models.unet import (
 )
 from anatomix_tpu_torch.models.unet_train_block import train_block_eligible
 from anatomix_tpu_torch.models.vit3d.primus import PrimusConfig
-from anatomix_tpu_torch.models.vit3d.primus import \
-    check_supported as check_primus_supported
+from anatomix_tpu_torch.models.vit3d.primus_train import \
+    check_train_supported as check_primus_supported
 from anatomix_tpu_torch.pretraining.config import PretrainConfig
 from anatomix_tpu_torch.pretraining.schedulers import make_schedule
 from anatomix_tpu_torch.pretraining.train_step import (

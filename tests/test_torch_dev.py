@@ -28,7 +28,10 @@ from anatomix_tpu.ops.pool import avg_pool as jax_avg_pool
 from anatomix_tpu.ops.resize import upsample2x as jax_upsample2x
 from anatomix_tpu_torch import extract
 from anatomix_tpu_torch.extract_cli import main as cli_main
-from anatomix_tpu_torch.kernels.conv import conv3x3x3_cat_ndhwc
+from anatomix_tpu_torch.kernels.conv import (
+    conv3x3x3_cat_ndhwc,
+    conv3x3x3_ndhwc,
+)
 from anatomix_tpu_torch.kernels.norm import norm_apply_ndhwc
 from anatomix_tpu_torch.kernels.resize import upsample2x_trilinear_ndhwc
 from anatomix_tpu_torch.models.convert import from_jax_params, to_jax_params
@@ -45,7 +48,11 @@ from anatomix_tpu_torch.models.unet_fused import (
     unet_apply_fused,
 )
 from anatomix_tpu_torch.ops import norms
-from anatomix_tpu_torch.ops.conv import dhwio_to_torch, pack_conv_weight
+from anatomix_tpu_torch.ops.conv import (
+    dhwio_to_torch,
+    pack_conv_weight,
+    split3,
+)
 from anatomix_tpu_torch.ops.pool import avg_pool
 from anatomix_tpu_torch.ops.resize import upsample2x
 
@@ -293,26 +300,28 @@ def test_dev_fused_forward_matches_jax(tiles):
 
 
 def test_dev_entry_conv_reads_the_f32_volume():
-    """In bf16, the entry conv of a live-norm model takes the volume as
-    hi + lo bf16 terms: its output is the conv of the unrounded volume
-    (with bf16 weights), not of the bf16-rounded one."""
+    """In bf16, the entry conv of a live-norm model reads the volume and its
+    weights through the three-term split ([hi | lo | hi] against [w_hi;
+    w_hi; w_lo]): its output is the f32 conv of the unrounded volume with
+    the weights the split holds (w_hi + w_lo), not the conv of the
+    bf16-rounded volume."""
     _, params, plan = _models(DEV_SMALL, seed=9)
     sd = from_jax_params(plan, params)
     packed = prepack_fused(plan, sd, device="cpu")
     p = packed[0]
-    assert p["split_input"] and p["w"].shape == (27 * 2, 16)
+    assert p["split"] and p["w"].shape == (27 * 3, 16)
     x = torch.from_numpy(np.random.default_rng(11).uniform(
         0.3, 0.7, (1, 8, 8, 8, 1)).astype(np.float32))
-    hi = x.to(torch.bfloat16)
-    lo = (x - hi.float()).to(torch.bfloat16)
-    got = conv3x3x3_cat_ndhwc(hi, lo, p["w"], p["b"],
-                              out_dtype=torch.float32)
-    w1 = p["w"].reshape(27, 2, 16)[:, :1].reshape(27, 16)
-    exact = conv3x3x3_cat_ndhwc(x, torch.zeros_like(x), p["w"], p["b"],
-                                out_dtype=torch.float32)
-    rounded = conv3x3x3_cat_ndhwc(hi, torch.zeros_like(lo), p["w"], p["b"],
-                                  out_dtype=torch.float32)
-    assert torch.equal(p["w"].reshape(27, 2, 16)[:, 1], w1)
+    got = conv3x3x3_ndhwc(split3(x), p["w"], p["b"],
+                          out_dtype=torch.float32)
+    w3 = p["w"].reshape(27, 3, 16)
+    assert torch.equal(w3[:, 0], w3[:, 1])
+    assert torch.equal(w3[:, 0], pack_conv_weight(
+        sd["model.0.weight"].float()).to(torch.bfloat16))
+    w = w3[:, 0].float() + w3[:, 2].float()
+    exact = conv3x3x3_ndhwc(x, w, p["b"], out_dtype=torch.float32)
+    rounded = conv3x3x3_ndhwc(x.to(torch.bfloat16), w.to(torch.bfloat16),
+                              p["b"], out_dtype=torch.float32)
     assert _rel(got, exact) < 1e-5 < _rel(rounded, exact)
 
 

@@ -300,6 +300,9 @@ def test_conv_backward_kernels_match_plain(cuda, shape, ci, co, pad):
     ("d2s", (2, 8, 4, 6, 8 * 32), torch.bfloat16),
     ("d2s", (1, 3, 2, 5, 8 * 3), torch.bfloat16),
     ("d2s", (1, 2, 3, 4, 8 * 6), torch.float32),
+    ("d2s", (2, 4, 3, 2, 8 * 99), torch.bfloat16),  # the ViT decoder's 99
+    ("d2s", (1, 2, 2, 4, 8 * 49), torch.bfloat16),
+    ("s2d", (1, 8, 4, 6, 8), torch.float32),  # the v1 tokenizer chain
 ])
 def test_reshuffle2_kernels_match_plain(cuda, which, shape, dtype):
     from anatomix_tpu_torch.kernels import reshuffle as kr
@@ -537,3 +540,110 @@ def test_vit_pretrain_step_kernels_match_plain_path(cuda):
     assert (ka.flash_attention_bwd_dkv.launches - n[0],
             ka.flash_attention_bwd_dq.launches - n[1]) == (
         cfg.eva_depth, cfg.eva_depth)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["fold", "interleave"])
+@pytest.mark.parametrize("shape,C", [((2, 4, 6, 8), 32), ((1, 2, 3, 4), 99),
+                                     ((1, 4, 2, 16), 8)])
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32)])
+@pytest.mark.parametrize("with_sub", [True, False])
+def test_d2s_exit_kernels_match_plain(cuda, which, shape, C, in_dtype,
+                                      out_dtype, with_sub):
+    """The fold and interleave exits: exact against their plain versions
+    (the same f32 subtract, one rounding), each launch counted."""
+    from anatomix_tpu_torch.kernels import reshuffle as kr
+
+    if which == "fold" and not kr.fold_supported(C, shape[3]):
+        pytest.skip("outside the fold envelope (it raises there)")
+    g = torch.Generator(device=cuda).manual_seed(11)
+    y = torch.randn((*shape, 8 * C), generator=g, device=cuda).to(in_dtype)
+    sub = (torch.randn((shape[0], 8 * C), generator=g, device=cuda)
+           if with_sub else None)
+    fn = getattr(kr, f"depth_to_space_{which}_ndhwc")
+    plain = getattr(kr, f"depth_to_space_{which}_ndhwc_plain")
+    n = fn.launches
+    got = fn(y, sub, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1 and got.dtype == out_dtype
+    assert torch.equal(got.cpu(), plain(y, sub, out_dtype=out_dtype).cpu())
+
+
+@pytest.mark.gpu
+def test_fold_kernel_raises_outside_envelope(cuda):
+    from anatomix_tpu_torch.kernels import reshuffle as kr
+
+    with pytest.raises(ValueError, match="fold unsupported"):
+        kr.depth_to_space_fold_ndhwc(
+            torch.zeros((1, 2, 2, 3, 8 * 32), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 16, 8, 12), (1, 6, 4, 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_space_to_depth_c1_kernel_matches_plain(cuda, shape, dtype):
+    from anatomix_tpu_torch.kernels import reshuffle as kr
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    n = kr.space_to_depth_c1_ndhwc.launches
+    got = kr.space_to_depth_c1_ndhwc(x)
+    torch.cuda.synchronize()
+    assert kr.space_to_depth_c1_ndhwc.launches == n + 1
+    assert torch.equal(got.cpu(), kr.space_to_depth_c1_ndhwc_plain(x).cpu())
+    # a view at an odd offset takes the element-wise loads
+    flat = torch.randn(x.numel() + 1, generator=g, device=cuda).to(dtype)
+    xv = flat[1:].view(shape)
+    assert torch.equal(kr.space_to_depth_c1_ndhwc(xv).cpu(),
+                       kr.space_to_depth_c1_ndhwc_plain(xv).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [32, 12])
+def test_norm_apply_split_kernel_matches_plain(cuda, C):
+    """The three-term split store [hi | lo | hi] and its residual, against
+    the plain version: hi + lo holds the f32 value to about 2^-17 of it,
+    and an ulp of difference in the f32 affine (the kernel's fused
+    multiply-add) can move lo's rounding by that much, so 2^-16."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    shape = (2, 6, 4, 8, C)
+    x = torch.randn(shape, generator=g, device=cuda)
+    a = torch.rand((2, 1, 1, 1, C), generator=g, device=cuda) + 0.5
+    s = torch.randn((2, 1, 1, 1, C), generator=g, device=cuda)
+    r = norm_apply_ndhwc_plain(
+        torch.randn(shape, generator=g, device=cuda), a, s,
+        tile_maps(shape[1:4], (1, 1, 1), cuda), split=True)
+    maps = tile_maps(shape[1:4], (1, 1, 1), cuda)
+    for res in (None, r):
+        got = norm_apply_ndhwc(x, a, s, maps, act="lrelu", slope=0.01,
+                               residual=res, split=True)
+        ref = norm_apply_ndhwc_plain(x, a, s, maps, act="lrelu", slope=0.01,
+                                     residual=res, split=True)
+        torch.cuda.synchronize()
+        assert got.shape == (*shape[:4], 3 * C)
+        hi, lo = got[..., :C].float(), got[..., C:2 * C].float()
+        rhi, rlo = ref[..., :C].float(), ref[..., C:2 * C].float()
+        assert torch.equal(got[..., :C], got[..., 2 * C:])
+        assert _maxrel((hi + lo).cpu(), (rhi + rlo).cpu()) < 2.0 ** -16
+
+
+@pytest.mark.gpu
+def test_scatter_kernel_reads_bf16_windows(cuda):
+    r, C = 16, 32
+    axes, minv = gaussian_importance_axes((r, r, r), 0.25)
+    gd, gh, gw = (torch.as_tensor(a, dtype=torch.float32, device=cuda)
+                  for a in axes)
+    starts = torch.tensor([[0, 0, 0], [5, 3, 7]], dtype=torch.int32,
+                          device=cuda)
+    mask = torch.tensor([1, 1], dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    out = torch.randn((2, r, r, r, C), generator=g, device=cuda).to(
+        torch.bfloat16)
+    canvas = torch.randn((24, 20, 28, C), generator=g, device=cuda)
+    got = blend_scatter(canvas.clone(), out, starts, mask, gd, gh, gw, minv)
+    ref = blend_scatter_plain(canvas.clone(), out, starts, mask, gd, gh, gw,
+                              minv)
+    torch.cuda.synchronize()
+    assert _maxrel(got.cpu(), ref.cpu()) < 1e-5

@@ -61,6 +61,16 @@ def test_pretraining_package_is_lazy():
     assert out == ["[]", "anatomix_tpu_torch.pretraining.train"]
 
 
+def test_load_from_hf_at_the_top_level():
+    """`anatomix_tpu_torch.load_from_hf` is `models.load.load_from_hf`, as
+    the JAX package re-exports its own."""
+    import anatomix_tpu_torch
+    from anatomix_tpu_torch.models import load
+
+    assert anatomix_tpu_torch.load_from_hf is load.load_from_hf
+    assert "load_from_hf" in dir(anatomix_tpu_torch)
+
+
 def test_chip_smoke_imports_no_jax():
     tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
     mods = set()

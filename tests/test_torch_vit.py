@@ -171,6 +171,68 @@ def test_primus_apply_matches_jax(small):
         primus_apply(cfg, sd, torch.zeros((1, 16, 16, 16, 1)))
 
 
+def _smooth(seed, shape):
+    """A smooth field in [0, 1] (Gaussian blobs, no noise), (B, S, S, S,
+    1), as `chip_smoke.py`'s `smooth_field`."""
+    rng = np.random.default_rng(seed)
+    ax = np.linspace(-1, 1, shape[1])
+    z, y, x = np.meshgrid(ax, ax, ax, indexing="ij")
+    vols = []
+    for _ in range(shape[0]):
+        v = np.zeros(z.shape)
+        for c, w in zip(rng.uniform(-0.8, 0.8, (8, 3)),
+                        rng.uniform(0.05, 0.25, 8)):
+            v += np.exp(-((z - c[0]) ** 2 + (y - c[1]) ** 2
+                          + (x - c[2]) ** 2) / w)
+        vols.append((v - v.min()) / (v.max() - v.min()))
+    return np.stack(vols)[..., None].astype(np.float32)
+
+
+def test_stages_match_jax_on_smooth_input(small):
+    """P1: on a smooth input, the port's f32 stage outputs (`record`: the
+    tokenizer grid, each block's residual stream, the final norm, the exit)
+    against JAX's (`_tokenizer_v2`, its EVA block loop, `primus_apply`);
+    and the bf16 path, whose tokenizer reads every conv operand through the
+    three-term split, within 1e-3 of f32 at the tokenizer and under the
+    bf16 bound at the exit."""
+    jcfg, params, cfg, sd = small
+    x = _smooth(8, (2, 32, 32, 32, 1))
+    model = Primus.from_state_dict(cfg, sd)
+    rec, rec_bf16 = {}, {}
+    with torch.no_grad():
+        got = model(torch.from_numpy(x), compute_dtype=torch.float32,
+                    plain=True, record=lambda n, t: rec.__setitem__(n, t))
+        bf16 = model(torch.from_numpy(x),
+                     record=lambda n, t: rec_bf16.__setitem__(n, t))
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    f32 = jnp.float32
+    grid = jax_primus._tokenizer_v2(jcfg, jp["tokenizer"], jnp.asarray(x),
+                                    compute_dtype=f32)
+    assert _rel(rec["tokenizer"], grid) < TOK_TOL
+    B, R, E = 2, cfg.num_register_tokens, cfg.embed_dim
+    tokens = grid.reshape(B, cfg.num_tokens, E) + jp["pos_embed"]
+    tokens = jnp.concatenate([jnp.broadcast_to(jp["register_tokens"],
+                                               (B, R, E)), tokens], axis=1)
+    rope = jax_primus._rope_tables(jcfg)
+    for i, blk in enumerate(jp["blocks"]):
+        a = jax_primus._attention(
+            jcfg, blk, jax_primus._layer_norm(tokens, blk["norm1"]), rope, R,
+            compute_dtype=f32)
+        tokens = tokens + a * blk["gamma1"]
+        m = jax_primus._mlp(blk, jax_primus._layer_norm(tokens, blk["norm2"]))
+        tokens = tokens + m * blk["gamma2"]
+        assert _rel(rec[f"block {i}"], tokens) < TOK_TOL
+    final = jax_primus._layer_norm(tokens, jp["norm"])[:, R:]
+    assert _rel(rec["final norm"], final.reshape(B, 4, 4, 4, E)) < TOK_TOL
+    ref = jax_primus.primus_apply(jcfg, jp, jnp.asarray(x),
+                                  compute_dtype=f32)
+    assert _rel(got, ref) < MODEL_TOL
+    tok = rec_bf16["tokenizer"] - rec["tokenizer"]
+    assert (tok.abs().mean() / rec["tokenizer"].std()).item() < 1e-3
+    err = ((bf16 - got).abs().mean() / got.std()).item()
+    assert err < BF16_TOL, err
+
+
 def test_vit_sliding_extractor_matches_jax(small):
     """Eight 32^3 windows on a 48^3 volume (overlap 0.5, Gaussian), the
     port's f32 extractor against the JAX one; `strategy` is ignored."""
