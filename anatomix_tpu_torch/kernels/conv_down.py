@@ -16,14 +16,15 @@ or f32.
 
 `conv_down2_train(x, w, b)` is the differentiable stride-2 conv of the ViT's
 pretraining step (the JAX TPU kernel has no VJP; JAX differentiates XLA's
-`conv3d(stride=2)`). The forward runs on V2. The backward reuses the
-stride-1 conv's gradient kernels (`kernels/conv_train.py`, T-w and T-x)
-through an exact identity: with `dy_up` the output gradient zero-inserted
-onto the input grid (`dy_up[:, ::2, ::2, ::2] = dy`, zeros elsewhere), the
-stride-2 pad-1 conv's dW is the zero-padded "same" conv's dW of
-`(x, dy_up)` and its dx the zero-padded "same" conv's dx of `dy_up`. It
-multiplies zeros in 7/8 of its products; a parity-decomposed backward is
-later work. `conv_down2_backward_plain` is the same on the plain versions.
+`conv3d(stride=2)`). The forward runs on V2. The backward runs the stride-2
+modes of the conv's gradient kernels (`kernels/conv_train.py`, T-w and T-x
+with `stride=2`), which read the output gradient on its own grid. The
+zero-inserted route is the reference beside them: with `dy_up` the output
+gradient zero-inserted onto the input grid (`dy_up[:, ::2, ::2, ::2] =
+dy`, zeros elsewhere), the stride-2 pad-1 conv's dW is the zero-padded
+"same" conv's dW of `(x, dy_up)` and its dx the zero-padded "same" conv's
+dx of `dy_up`; `conv_down2_backward_plain` computes that on the plain
+stride-1 functions.
 """
 
 from __future__ import annotations
@@ -141,17 +142,18 @@ class _ConvDown2Train(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w_packed = ctx.saved_tensors
-        # the same route as the stride-1 conv's backward
+        # the same route as the stride-1 conv's backward, in stride-2 mode
         dgrad, wgrad = conv_train._route or (
             conv_train.conv3x3x3_dgrad_ndhwc,
             conv_train.conv3x3x3_wgrad_ndhwc)
-        up = zero_insert(dy.to(x.dtype), x.shape[1:4]).contiguous()
+        g = dy.to(x.dtype).contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = dgrad(up, w_packed, pad_type="zeros").to(ctx.x_dtype)
+            dx = dgrad(g, w_packed, pad_type="zeros", stride=2,
+                       spatial=tuple(x.shape[1:4])).to(ctx.x_dtype)
         if ctx.needs_input_grad[1]:
-            dw = unpack_conv_weight(wgrad(x, up, pad_type="zeros"),
-                                    x.shape[-1])
+            dw = unpack_conv_weight(
+                wgrad(x, g, pad_type="zeros", stride=2), x.shape[-1])
         if ctx.needs_input_grad[2]:
             db = dy.float().sum(dim=(0, 1, 2, 3))
         return dx, dw, db, None
@@ -163,7 +165,7 @@ def conv_down2_train(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     the f32 torch-layout kernel `w` (O, I, 3, 3, 3) and bias `b`: the
     forward on V2 in `x`'s dtype (weights rounded to it), stored in f32
     (an instance norm follows it in the ViT's tokenizer); dx from T-x, dW
-    from T-w on the zero-inserted gradient, dW and db f32. `split` as in
+    from T-w in their stride-2 modes, dW and db f32. `split` as in
     `conv_train.conv3x3x3_train`: an f32 `x`, the forward through the
     three-term split, the backward on the bf16 roundings."""
     return _ConvDown2Train.apply(x, w, b, split)

@@ -9,7 +9,12 @@ _wgrad_halo, _wgrad) with the kernel of `csrc/conv3d_wgrad.cu`;
 conv_block.py` conv_block_sparse_dx, with the pad adjoint its caller takes
 in `conv_block_train.py`) with the transposed conv and pad-adjoint kernels
 of `csrc/conv3d.cu`. The sources' headers say what bounds each on the card
-and what its design does about it.
+and what its design does about it. With `stride=2` both run the stride-2
+pad-1 conv's gradients (the ViT tokenizer's down convs) from its output
+gradient on its own grid, with no zeros inserted; their plain versions,
+`conv3x3x3_wgrad_s2_ndhwc_plain` and `conv3x3x3_dgrad_s2_ndhwc_plain`,
+follow the strided formulas. `wgrad_plan` is the wgrad kernel's launch
+plan, a pure function of the shapes, passed to C with every launch.
 
 `conv3x3x3_train(x, w, b, pad_type)` is the counterpart of
 `conv_block_sparse_train` (`conv_block_train.py`): forward on K1
@@ -27,12 +32,25 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from anatomix_tpu_torch.kernels import build
-from anatomix_tpu_torch.kernels.conv import conv3x3x3_ndhwc
+from anatomix_tpu_torch.kernels.conv import (
+    NUM_SMS,
+    RING_STAGES,
+    SMEM_PER_SM,
+    STEP_K,
+    TILE_M,
+    _cdiv,
+    brick_bits,
+    conv3x3x3_ndhwc,
+    conv_plan,
+    n_tile,
+    workspace,
+)
 from anatomix_tpu_torch.ops.conv import (
     pack_conv_weight,
     split3,
@@ -42,10 +60,13 @@ from anatomix_tpu_torch.ops.conv import (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, dy, dw; B, D, H, W, ci, co, reflect; stream
-    "conv3x3x3_wgrad_ndhwc": ("conv3d_wgrad", [_P] * 3 + [_I] * 7 + [_P]),
-    # dy, w_t, zero_bias, g_ext, dx; B, D, H, W, co, ci, reflect; stream
-    "conv3x3x3_dgrad_ndhwc": ("conv3d", [_P] * 5 + [_I] * 7 + [_P]),
+    # x, dy, dw, plan; B, D, H, W, ci, co, reflect, stride; stream
+    "conv3x3x3_wgrad_ndhwc": ("conv3d_wgrad", [_P] * 4 + [_I] * 8 + [_P]),
+    # dy, w_t, zero_bias, g_ext, dx, ws, plan; B, D, H, W, co, ci, reflect;
+    # stream
+    "conv3x3x3_dgrad_ndhwc": ("conv3d", [_P] * 7 + [_I] * 7 + [_P]),
+    # dy, w_t, zero_bias, dx, plan; B, d, h, w, D, H, W, co, ci; stream
+    "conv3x3x3_dgrad_s2_ndhwc": ("conv3d", [_P] * 5 + [_I] * 9 + [_P]),
 }
 _fns: dict = {}
 
@@ -75,12 +96,99 @@ def flip_transpose_packed(w_packed: torch.Tensor, ci: int) -> torch.Tensor:
     return w.reshape(27 * co, ci).contiguous()
 
 
+def transpose_packed(w_packed: torch.Tensor, ci: int) -> torch.Tensor:
+    """Packed (27 * Ci, Co) weights -> (27 * Co, Ci), row tap * Co + co:
+    each tap's matrix transposed, the taps in their order."""
+    co = w_packed.shape[1]
+    return w_packed.reshape(27, ci, co).transpose(1, 2).reshape(
+        27 * co, ci).contiguous()
+
+
+def s2_grid(spatial) -> tuple[int, int, int]:
+    """The output grid of the stride-2 pad-1 conv of a `spatial` input."""
+    return tuple((n - 1) // 2 + 1 for n in spatial)
+
+
+class WgradPlan(NamedTuple):
+    """How `csrc/conv3d_wgrad.cu` cuts one launch: the N tile `bn`; the
+    64-position brick of dy's grid as 2^bx x 2^by x 2^bz positions times
+    2^bb batch items (bx + by + bz + bb = 6); the bricks per axis; the
+    128-row tiles of dW's 27 * Ci (Ci padded to a multiple of 8) rows and
+    its N tiles; and the split of the bricks over `splits` blocks of
+    `bricks_per_split` each. `halo` 1 selects the halo-brick kernel: one
+    block holds all of dW's rows (`m_tiles` then counts 64-row tiles) for
+    bricks of 8 x 4 x 4 positions (bx, by, bz = 3, 2, 2). The order of the
+    fields is the C side's `PlanField`."""
+    bn: int
+    bx: int
+    by: int
+    bz: int
+    bb: int
+    tiles_x: int
+    tiles_y: int
+    tiles_z: int
+    tiles_b: int
+    m_tiles: int
+    n_tiles: int
+    splits: int
+    bricks_per_split: int
+    halo: int = 0
+
+    @property
+    def n_bricks(self) -> int:
+        return self.tiles_x * self.tiles_y * self.tiles_z * self.tiles_b
+
+    def as_c(self):
+        return (ctypes.c_int * len(self))(*self)
+
+
+def wgrad_plan(B: int, grid, ci: int, co: int, stride: int = 1
+               ) -> WgradPlan:
+    """The launch plan of `csrc/conv3d_wgrad.cu` for dy's (B, gz, gy, gx)
+    grid: the positions are split over as many blocks as fill every SM
+    once (each dW tile's blocks reduce disjoint runs of bricks, at least 4
+    each), whatever the grid's size. A narrow stride-1 conv (each
+    warpgroup's share of dW's 64-row tiles at most 11 at Co <= 16, 4 at
+    Co <= 32) takes the halo-brick kernel."""
+    bn = n_tile(co)
+    gz, gy, gx = grid
+    cp = _cdiv(ci, 8) * 8
+    m64 = _cdiv(27 * cp, 64)
+    if stride == 1 and _cdiv(m64, 2) <= {16: 11, 32: 4}.get(bn, 0):
+        tiles = (_cdiv(gx, 8), _cdiv(gy, 4), _cdiv(gz, 4), B)
+        n_bricks = tiles[0] * tiles[1] * tiles[2] * tiles[3]
+        n_tiles = _cdiv(co, bn)
+        stage = cp // 8 * 360 * 16 + 128 * bn * 2
+        per_sm = max(1, SMEM_PER_SM // (RING_STAGES * stage))
+        splits = max(1, min(NUM_SMS * per_sm // n_tiles, n_bricks // 4))
+        per_split = _cdiv(n_bricks, splits)
+        return WgradPlan(bn, 3, 2, 2, 0, *tiles, m64, n_tiles,
+                         _cdiv(n_bricks, per_split), per_split, 1)
+    bx, by, bz, bb = brick_bits(B, grid, 6)
+    tiles = (_cdiv(gx, 1 << bx), _cdiv(gy, 1 << by), _cdiv(gz, 1 << bz),
+             _cdiv(B, 1 << bb))
+    n_bricks = tiles[0] * tiles[1] * tiles[2] * tiles[3]
+    m_tiles = _cdiv(27 * cp, TILE_M)
+    n_tiles = _cdiv(co, bn)
+    stage = TILE_M * STEP_K * 2 + STEP_K * bn * 2
+    per_sm = max(1, SMEM_PER_SM // (RING_STAGES * stage))
+    splits = max(1, min(NUM_SMS * per_sm // (m_tiles * n_tiles),
+                        n_bricks // 4))
+    per_split = _cdiv(n_bricks, splits)
+    return WgradPlan(bn, bx, by, bz, bb, *tiles, m_tiles, n_tiles,
+                     _cdiv(n_bricks, per_split), per_split)
+
+
 # -----------------------------------------------------------------------------
 # plain versions (f32 arithmetic on the same inputs)
 
-def conv3x3x3_wgrad_ndhwc_plain(x, dy, *, pad_type="reflect"):
+def conv3x3x3_wgrad_ndhwc_plain(x, dy, *, pad_type="reflect", stride=1):
     """dW (27 * Ci, Co) f32: for each tap, the shifted padded input against
-    dy, summed over batch and space."""
+    dy, summed over batch and space (`stride` 2: the stride-2 conv's,
+    `conv3x3x3_wgrad_s2_ndhwc_plain`)."""
+    if stride == 2:
+        _check_s2_pad(pad_type)
+        return conv3x3x3_wgrad_s2_ndhwc_plain(x, dy)
     B, D, H, W, ci = x.shape
     co = dy.shape[-1]
     xp = F.pad(x.float().permute(0, 4, 1, 2, 3), (1,) * 6,
@@ -93,6 +201,52 @@ def conv3x3x3_wgrad_ndhwc_plain(x, dy, *, pad_type="reflect"):
                 xs = xp[:, kd:kd + D, kh:kh + H, kw:kw + W].reshape(-1, ci)
                 rows.append(xs.t() @ g)
     return torch.cat(rows, dim=0)
+
+
+def _check_s2_pad(pad_type):
+    if pad_type != "zeros":
+        raise ValueError("the stride-2 conv pads with zeros, got "
+                         f"{pad_type!r}")
+
+
+def conv3x3x3_wgrad_s2_ndhwc_plain(x, dy):
+    """dW (27 * Ci, Co) f32 of the stride-2 pad-1 conv of `x` (B, D, H, W,
+    Ci) given its output gradient `dy` (B, d, h, w, Co), d = (D + 1) // 2:
+    dW[tap * Ci + c, co] = sum over (b, o) of x_zpad[b, 2 o + tap - 1, c]
+    * dy[b, o, co], each tap's input read at stride 2."""
+    ci, co = x.shape[-1], dy.shape[-1]
+    d, h, w = dy.shape[1:4]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
+    g = dy.float().reshape(-1, co)
+    rows = []
+    for kd in range(3):
+        for kh in range(3):
+            for kw in range(3):
+                xs = xp[:, kd:kd + 2 * d - 1:2, kh:kh + 2 * h - 1:2,
+                        kw:kw + 2 * w - 1:2].reshape(-1, ci)
+                rows.append(xs.t() @ g)
+    return torch.cat(rows, dim=0)
+
+
+def conv3x3x3_dgrad_s2_ndhwc_plain(dy, w_packed, spatial, *, out_dtype=None):
+    """dx (B, D, H, W, Ci) of the stride-2 pad-1 conv with packed weights
+    `w_packed` (27 * Ci, Co) on a `spatial` = (D, H, W) input, from its
+    output gradient `dy` (B, d, h, w, Co): each tap adds dy @ w_tap^T at the
+    input positions 2 o + tap - 1 it was read from (on each axis an even
+    position takes tap 1, an odd one taps 0 and 2). Returned in
+    `out_dtype` (default dy's)."""
+    B, d, h, w, co = dy.shape
+    D, H, W = spatial
+    ci = w_packed.shape[0] // 27
+    wt = w_packed.float().reshape(27, ci, co)
+    g = dy.new_zeros((B, D + 2, H + 2, W + 2, ci), dtype=torch.float32)
+    dyf = dy.float()
+    for t in range(27):
+        kd, kh, kw = t // 9, (t // 3) % 3, t % 3
+        g[:, kd:kd + 2 * d - 1:2, kh:kh + 2 * h - 1:2,
+          kw:kw + 2 * w - 1:2] += dyf @ wt[t].t()
+    return g[:, 1:D + 1, 1:H + 1, 1:W + 1].contiguous().to(
+        out_dtype or dy.dtype)
 
 
 def _reflect_pad_adjoint(g: torch.Tensor) -> torch.Tensor:
@@ -108,10 +262,16 @@ def _reflect_pad_adjoint(g: torch.Tensor) -> torch.Tensor:
 
 
 def conv3x3x3_dgrad_ndhwc_plain(dy, w_packed, *, pad_type="reflect",
-                                out_dtype=None):
+                                out_dtype=None, stride=1, spatial=None):
     """dx (B, D, H, W, Ci) of the conv: the transposed conv over the (S+2)^3
     grid of the padded input (dy zero outside the volume), then the pad's
-    adjoint. Returned in `out_dtype` (default dy's)."""
+    adjoint. Returned in `out_dtype` (default dy's). `stride` 2: the
+    stride-2 conv's on a `spatial` input
+    (`conv3x3x3_dgrad_s2_ndhwc_plain`)."""
+    if stride == 2:
+        _check_s2_pad(pad_type)
+        return conv3x3x3_dgrad_s2_ndhwc_plain(dy, w_packed, spatial,
+                                              out_dtype=out_dtype)
     _pad_mode(pad_type)
     B, D, H, W, co = dy.shape
     ci = w_packed.shape[0] // 27
@@ -150,25 +310,37 @@ def _check_extents(spatial, pad_type):
 
 def conv3x3x3_wgrad_ndhwc(
     x: torch.Tensor, dy: torch.Tensor, *, pad_type: str = "reflect",
+    stride: int = 1,
 ) -> torch.Tensor:
     """dW (27 * Ci, Co) f32, packed as `kernels/conv.py` packs weights, of
     the "same" conv of `x` (B, D, H, W, Ci) given its output gradient `dy`
-    (B, D, H, W, Co)."""
+    (B, D, H, W, Co); with `stride` 2, of the stride-2 pad-1 conv given its
+    output gradient on its own grid (B, (D+1)//2, (H+1)//2, (W+1)//2, Co)
+    (`pad_type` "zeros")."""
     if x.device.type == "cpu":
-        return conv3x3x3_wgrad_ndhwc_plain(x, dy, pad_type=pad_type)
+        return conv3x3x3_wgrad_ndhwc_plain(x, dy, pad_type=pad_type,
+                                           stride=stride)
     _check_bf16_cuda(x, "x")
     _check_bf16_cuda(dy, "dy")
-    if dy.device != x.device or dy.shape[:4] != x.shape[:4]:
-        raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)} must "
-                         "share (B, D, H, W) and a device")
     B, D, H, W, ci = x.shape
+    if stride == 2:
+        _check_s2_pad(pad_type)
+        grid = s2_grid((D, H, W))
+    elif stride == 1:
+        grid = (D, H, W)
+    else:
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    if dy.device != x.device or dy.shape[:4] != (B, *grid):
+        raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)} must "
+                         f"share a device, dy's grid (B, D, H, W) {grid}")
     co = dy.shape[4]
     _check_extents((D, H, W), pad_type)
     dw = torch.zeros((27 * ci, co), dtype=torch.float32, device=x.device)
+    plan = wgrad_plan(B, grid, ci, co, stride)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _fn("conv3x3x3_wgrad_ndhwc")(
-        x.data_ptr(), dy.data_ptr(), dw.data_ptr(), B, D, H, W, ci, co,
-        int(pad_type == "reflect"), stream,
+        x.data_ptr(), dy.data_ptr(), dw.data_ptr(), plan.as_c(), B, D, H, W,
+        ci, co, int(pad_type == "reflect"), stride, stream,
     )
     build.check(rc, "conv3x3x3_wgrad_ndhwc")
     conv3x3x3_wgrad_ndhwc.launches += 1
@@ -180,32 +352,62 @@ conv3x3x3_wgrad_ndhwc.launches = 0
 
 def conv3x3x3_dgrad_ndhwc(
     dy: torch.Tensor, w_packed: torch.Tensor, *, pad_type: str = "reflect",
+    stride: int = 1, spatial=None,
 ) -> torch.Tensor:
     """dx (B, D, H, W, Ci) of the "same" conv with packed weights `w_packed`
     (27 * Ci, Co), given its output gradient `dy` (B, D, H, W, Co); bf16 on
-    the card."""
+    the card. With `stride` 2: of the stride-2 pad-1 conv of a `spatial` =
+    (D, H, W) input, given its output gradient on its own grid
+    (B, (D+1)//2, (H+1)//2, (W+1)//2, Co) (`pad_type` "zeros")."""
     if dy.device.type == "cpu":
-        return conv3x3x3_dgrad_ndhwc_plain(dy, w_packed, pad_type=pad_type)
+        return conv3x3x3_dgrad_ndhwc_plain(dy, w_packed, pad_type=pad_type,
+                                           stride=stride, spatial=spatial)
     _check_bf16_cuda(dy, "dy")
-    B, D, H, W, co = dy.shape
+    B, d, h, w, co = dy.shape
     if (w_packed.dim() != 2 or w_packed.shape[0] % 27
             or w_packed.shape[1] != co or w_packed.dtype != torch.bfloat16
             or w_packed.device != dy.device):
         raise ValueError(f"packed weights must be bf16 (27*Ci, {co}) on "
                          f"{dy.device}; got {tuple(w_packed.shape)} "
                          f"{w_packed.dtype}")
-    _check_extents((D, H, W), pad_type)
     ci = w_packed.shape[0] // 27
-    w_t = flip_transpose_packed(w_packed, ci)
     zero_bias = torch.zeros((ci,), dtype=torch.float32, device=dy.device)
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    if stride == 2:
+        _check_s2_pad(pad_type)
+        if spatial is None or s2_grid(spatial) != (d, h, w):
+            raise ValueError(f"dy's grid {(d, h, w)} is not the stride-2 "
+                             f"output grid of {spatial}")
+        D, H, W = spatial
+        dx = torch.empty((B, D, H, W, ci), dtype=torch.bfloat16,
+                         device=dy.device)
+        plan = conv_plan(B, (d, h, w), co, ci, stride2_dgrad=True)
+        rc = _fn("conv3x3x3_dgrad_s2_ndhwc")(
+            dy.data_ptr(), transpose_packed(w_packed, ci).data_ptr(),
+            zero_bias.data_ptr(), dx.data_ptr(), plan.as_c(), B, d, h, w,
+            D, H, W, co, ci, stream,
+        )
+        build.check(rc, "conv3x3x3_dgrad_s2_ndhwc")
+        conv3x3x3_dgrad_ndhwc.launches += 1
+        return dx
+    if stride != 1:
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    D, H, W = d, h, w
+    _check_extents((D, H, W), pad_type)
+    w_t = flip_transpose_packed(w_packed, ci)
     dx = torch.empty((B, D, H, W, ci), dtype=torch.bfloat16, device=dy.device)
     reflect = pad_type == "reflect"
     g_ext = (torch.empty((B, D + 2, H + 2, W + 2, ci), dtype=torch.float32,
                          device=dy.device) if reflect else None)
-    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    # the transposed conv runs over the grid grown by 1 (reflect) or the
+    # volume (zeros)
+    grid = (D + 2, H + 2, W + 2) if reflect else (D, H, W)
+    plan = conv_plan(B, grid, co, ci)
+    ws = workspace(plan, B * grid[0] * grid[1] * grid[2], ci, dy.device)
     rc = _fn("conv3x3x3_dgrad_ndhwc")(
         dy.data_ptr(), w_t.data_ptr(), zero_bias.data_ptr(),
-        g_ext.data_ptr() if reflect else None, dx.data_ptr(), B, D, H, W,
+        g_ext.data_ptr() if reflect else None, dx.data_ptr(),
+        ws.data_ptr() if ws is not None else None, plan.as_c(), B, D, H, W,
         co, ci, int(reflect), stream,
     )
     build.check(rc, "conv3x3x3_dgrad_ndhwc")

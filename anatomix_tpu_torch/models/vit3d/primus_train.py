@@ -8,7 +8,7 @@ with gradients:
 - the tokenizer's stride-1 convs (zero padding) on
   `kernels/conv_train.conv3x3x3_train` (K1 forward, T-x dx, T-w dW; the stem
   takes no dx) and its stride-2 convs on `kernels/conv_down.conv_down2_train`
-  (V2 forward, T-x and T-w on the zero-inserted gradient); as on the
+  (V2 forward, T-x and T-w in their stride-2 mode); as on the
   inference path, the stem reads the f32 volume as two bf16 terms `hi + lo`
   (its weights repeated along Ci) and every tokenizer conv stores f32, since
   an instance norm follows each one;

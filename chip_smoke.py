@@ -148,6 +148,50 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def ptxas_report(text: str) -> list[str]:
+    """nvcc's `-Xptxas=-v` output as one line per kernel: its name and
+    template arguments, registers, barriers, stack, spill stores and loads
+    (dynamic shared memory is sized at launch), and the count of each
+    remark ptxas made about its wgmma (C75xx); then every error."""
+    import re
+
+    def short(mangled):
+        # the length-prefixed name that ends in "kernel", then its
+        # template arguments
+        for m in re.finditer(r"\d+", mangled):
+            name = mangled[m.end():m.end() + int(m.group())]
+            if re.fullmatch(r"[A-Za-z_]\w*kernel", name):
+                rest = mangled[m.end() + len(name):]
+                t = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+                args = re.findall(r"L[ib](\d+)E", t.group(1)) if t else []
+                return name + (f"<{', '.join(args)}>" if args else "")
+        return mangled
+
+    remarks, rows, errors, name, props = {}, [], [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        r = re.search(r"\((C75\d\d)\).*function '(\S+)'", line)
+        if m:
+            name = short(m.group(1))
+        elif r:
+            per = remarks.setdefault(short(r.group(2)), {})
+            per[r.group(1)] = per.get(r.group(1), 0) + 1
+        elif "bytes stack frame" in line:
+            props = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            rows.append((name, line.split("Used", 1)[1].strip(), props))
+            name, props = None, ""
+        elif "error" in line:
+            errors.append(line.strip())
+    out = []
+    for name, used, props in rows:
+        notes = ", ".join(f"{c} x{n}"
+                          for c, n in sorted(remarks.get(name, {}).items()))
+        out.append(f"{name}: used {used}; {props}"
+                   + (f"; wgmma remarks {notes}" if notes else ""))
+    return out + errors
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -245,7 +289,25 @@ def check_conv(kc, torch, F, dev, gen, B, S, ci, co, out_f32=False,
         + ("" if pad == "reflect" else " zeros"),
         max_abs_err=err, rel_err=rel, tol=tol, ok=rel < tol, ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        plan=conv_plan_desc(kc.conv_plan(B, (S, S, S), ci, co)),
     )
+
+
+def check_determinism(kc, torch, dev, gen):
+    """Two launches of the split-K forward conv at the dev bottleneck (B2
+    4^3 3072 -> 1024, f32 out): the largest difference between them."""
+    ci, co = 3 * 1024, 1024
+    x = torch.randn((2, 4, 4, 4, ci), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = (torch.randn((27 * ci, co), generator=gen, device=dev)
+         * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+    b = torch.randn((co,), generator=gen, device=dev) * 0.1
+    kw = dict(act="none", out_dtype=torch.float32)
+    first = kc.conv3x3x3_ndhwc(x, w, b, **kw)
+    second = kc.conv3x3x3_ndhwc(x, w, b, **kw)
+    torch.cuda.synchronize()
+    return dict(max_abs_diff=(first - second).abs().max().item(),
+                splits=kc.conv_plan(2, (4, 4, 4), ci, co).splits)
 
 
 def check_upcat(kc, torch, F, dev, gen, B, S, c1, c2, co):
@@ -288,6 +350,7 @@ def check_upcat(kc, torch, F, dev, gen, B, S, c1, c2, co):
         shape=f"B{B} {S}^3 [{c1}+up({c2})]->{co}", max_abs_err=err,
         rel_err=rel, tol=TOL_CONV_BF16, ok=rel < TOL_CONV_BF16, ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        plan=conv_plan_desc(kc.conv_plan(B, (S, S, S), ci, co)),
     )
 
 
@@ -374,6 +437,7 @@ def check_cat(kc, torch, F, dev, gen, B, S, c1, c2, co):
         shape=f"B{B} {S}^3 [{c1}+{c2}]->{co}", max_abs_err=err,
         rel_err=rel, tol=TOL_CONV_BF16, ok=rel < TOL_CONV_BF16, ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        plan=conv_plan_desc(kc.conv_plan(B, (S, S, S), ci, co)),
     )
 
 
@@ -771,13 +835,10 @@ def conv_backward_library(torch, F, x, dy, w, pad, mask, stride2=False):
     pre-padded input: the weight gradient (mask (False, True, False)) or
     the gradient of the padded input (mask (True, False, False), without
     the pad's adjoint). With `stride2`, the stride-2 pad-1 conv's backward
-    on the unpadded input, from its own (S/2)^3 output gradient (the even
-    positions of the zero-inserted `dy`)."""
+    on the unpadded input, from its own (S/2)^3 output gradient `dy`."""
     ci, co = x.shape[-1], dy.shape[-1]
     xc = x.permute(0, 4, 1, 2, 3)
-    if stride2:
-        dy = dy[:, ::2, ::2, ::2]
-    else:
+    if not stride2:
         xc = F.pad(xc, (1,) * 6,
                    mode="reflect" if pad == "reflect" else "constant")
     xc = xc.contiguous(memory_format=torch.channels_last_3d)
@@ -790,41 +851,89 @@ def conv_backward_library(torch, F, x, dy, w, pad, mask, stride2=False):
         list(mask))
 
 
+def conv_plan_desc(plan, stride2_dgrad=False) -> str:
+    """A conv launch plan of `kernels/conv.py` as the [kernel] lines print
+    it: the M tile, the N tile, the split of K, the grid (the stride-2
+    input gradient's gather grid runs its 8 parity classes on z) and the
+    dynamic shared memory a block takes (as `csrc/conv3d.cu` sizes it)."""
+    if plan.brick:
+        tile = f"halo brick 8x8x4, K chunk {plan.chunk}"
+        grid = (plan.m_tiles, plan.n_tiles)
+        halo = 9 * 9 * 5 if stride2_dgrad else 10 * 10 * 6
+        smem = halo * plan.chunk * 2 + 27 * plan.chunk * plan.bn * 2
+    else:
+        tile = (f"tile {1 << plan.bx}x{1 << plan.by}x{1 << plan.bz}"
+                f"x{1 << plan.bb}b, ring {plan.stages}")
+        grid = (plan.m_tiles, plan.n_tiles,
+                8 if stride2_dgrad else plan.splits)
+        smem = plan.stages * (128 * 64 * 2 + 64 * plan.bn * 2)
+    blocks = 1
+    for g in grid:
+        blocks *= g
+    return (f"{tile}, N tile {plan.bn}, split {plan.splits}, grid "
+            f"{grid} = {blocks} blocks, {smem} B shared memory")
+
+
+def wgrad_plan_desc(plan, ci) -> str:
+    """A weight-gradient launch plan of `kernels/conv_train.py`, with the
+    dynamic shared memory a block takes (as `csrc/conv3d_wgrad.cu` sizes
+    it: a 4-stage ring)."""
+    if plan.halo:
+        tile = f"halo brick 8x4x4, all {plan.m_tiles} m64 row tiles"
+        grid = (plan.n_tiles, plan.splits)
+        smem = 4 * (-(-ci // 8) * 360 * 16 + 128 * plan.bn * 2)
+    else:
+        tile = (f"brick {1 << plan.bx}x{1 << plan.by}x{1 << plan.bz}"
+                f"x{1 << plan.bb}b, 128-row tiles")
+        grid = (plan.m_tiles, plan.n_tiles, plan.splits)
+        smem = 4 * (128 * 64 * 2 + 64 * plan.bn * 2)
+    blocks = 1
+    for g in grid:
+        blocks *= g
+    return (f"{tile}, N tile {plan.bn}, split {plan.splits} x "
+            f"{plan.bricks_per_split} bricks, grid {grid} = {blocks} blocks, "
+            f"{smem} B shared memory")
+
+
 def check_conv_backward(kt, torch, F, dev, gen, B, S, ci, co, which,
                         pad="reflect", stride2=False):
     """conv3x3x3_wgrad_ndhwc (dW f32) or conv3x3x3_dgrad_ndhwc (dx bf16)
     at (B, S^3): ci -> co, against its plain version and cuDNN's backward.
-    With `stride2`, dy is a stride-2 conv's (S/2)^3 output gradient
-    zero-inserted onto the S^3 grid (the ViT tokenizer's down convs), and
-    the bound counts the stride-2 conv's work and bytes, not the
-    zero-inserted grid's."""
+    With `stride2`, the stride-2 pad-1 conv's (the ViT tokenizer's down
+    convs): dy on its own ((S+1)/2)^3 grid, the kernels' stride-2 mode."""
     x = torch.randn((B, S, S, S, ci), generator=gen, device=dev).to(
         torch.bfloat16)
-    dy = torch.randn((B, S, S, S, co), generator=gen, device=dev).to(
+    s2 = (S - 1) // 2 + 1
+    g = s2 if stride2 else S
+    dy = torch.randn((B, g, g, g, co), generator=gen, device=dev).to(
         torch.bfloat16)
-    work = B * S ** 3
-    if stride2:
-        s2 = (S - 1) // 2 + 1
-        up = torch.zeros_like(dy)
-        up[:, ::2, ::2, ::2] = dy[:, :s2, :s2, :s2]
-        dy = up
-        work = B * s2 ** 3
+    work = B * g ** 3
+    stride = 2 if stride2 else 1
     w = (torch.randn((27 * ci, co), generator=gen, device=dev)
          * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+    spatial = (S, S, S)
     if which == "wgrad":
-        fn = lambda: kt.conv3x3x3_wgrad_ndhwc(x, dy, pad_type=pad)  # noqa
+        fn = lambda: kt.conv3x3x3_wgrad_ndhwc(  # noqa: E731
+            x, dy, pad_type=pad, stride=stride)
         plain = lambda: kt.conv3x3x3_wgrad_ndhwc_plain(  # noqa: E731
-            x, dy, pad_type=pad)
+            x, dy, pad_type=pad, stride=stride)
         mask, tol = (False, True, False), TOL_WGRAD
         out_bytes = 27 * ci * co * 4
         in_bytes = B * S ** 3 * ci * 2 + work * co * 2
+        plan = wgrad_plan_desc(kt.wgrad_plan(B, (g, g, g), ci, co, stride),
+                               ci)
     else:
-        fn = lambda: kt.conv3x3x3_dgrad_ndhwc(dy, w, pad_type=pad)  # noqa
+        fn = lambda: kt.conv3x3x3_dgrad_ndhwc(  # noqa: E731
+            dy, w, pad_type=pad, stride=stride, spatial=spatial)
         plain = lambda: kt.conv3x3x3_dgrad_ndhwc_plain(  # noqa: E731
-            dy, w, pad_type=pad)
+            dy, w, pad_type=pad, stride=stride, spatial=spatial)
         mask, tol = (True, False, False), TOL_CONV_BF16
         out_bytes = B * S ** 3 * ci * 2
         in_bytes = work * co * 2 + 27 * ci * co * 2
+        grid = ((g, g, g) if stride2 or pad != "reflect"
+                else (S + 2, S + 2, S + 2))
+        plan = conv_plan_desc(kt.conv_plan(B, grid, co, ci,
+                                           stride2_dgrad=stride2), stride2)
     got = fn()
     ref = plain()
     torch.cuda.synchronize()
@@ -837,9 +946,10 @@ def check_conv_backward(kt, torch, F, dev, gen, B, S, ci, co, which,
     return dict(
         shape=f"B{B} {S}^3 {ci}->{co}" + ("" if pad == "reflect" else
                                           " zeros") + (
-            " stride-2 (zero-inserted dy)" if stride2 else ""),
+            " stride-2 (dy on its own grid)" if stride2 else ""),
         max_abs_err=err, rel_err=rel, tol=tol, ok=rel < tol, ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        plan=plan,
     )
 
 
@@ -1031,9 +1141,8 @@ def main(argv) -> int:
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] {report['build_s']:.1f} s for {list(build.SOURCES)}")
     for name, text in build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"[build:{name}] {line.strip()}")
+        for line in ptxas_report(text):
+            log(f"[build:{name}] {line}")
 
     # phase 2: kernels vs plain at the main paths' shapes
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1123,7 +1232,7 @@ def main(argv) -> int:
                 kt, torch, F, dev, gen, B, S, ci, co, which))
     # the ViT step's tokenizer (zero padding): the stem on (hi, lo) (no
     # dx), a residual conv per stage; then the three stride-2 convs'
-    # backward on the zero-inserted gradient
+    # backward in the kernels' stride-2 mode (dy on its own grid)
     for B, S, ci, co, stride2 in [(2, 128, 2, 32, False),
                                   (2, 64, 64, 64, False),
                                   (2, 32, 128, 128, False),
@@ -1173,10 +1282,19 @@ def main(argv) -> int:
                 f"{row['max_abs_err']:.3e} rel {row['rel_err']:.3e} "
                 f"(tol {row['tol']:g}) ms {row['ms']:.4f} plain_ms "
                 f"{row['plain_ms']:.4f} library_ms {row['library_ms']} "
-                f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
+                f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})"
+                + (f"; plan: {row['plan']}" if "plan" in row else ""))
             if not row["ok"]:
                 failed.append(f"{name} {row['shape']}")
     report["checks"] = checks
+    # the forward conv stays the same bits from run to run (split K sums
+    # its partials in a fixed order): two launches of the dev bottleneck
+    report["determinism"] = check_determinism(kc, torch, dev, gen)
+    log(f"[determinism] conv3x3x3_ndhwc B2 4^3 3072->1024 f32-out, split "
+        f"{report['determinism']['splits']}: two launches max|diff| "
+        f"{report['determinism']['max_abs_diff']}")
+    if report["determinism"]["max_abs_diff"] != 0.0:
+        failed.append("conv3x3x3_ndhwc determinism")
     if failed:
         raise RuntimeError(f"kernel disagrees with its plain version: {failed}")
     torch.cuda.empty_cache()
@@ -2268,9 +2386,20 @@ def run_vit_train(torch, dev, wrappers, paths, ka):
     losses, step_ms = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the stride-2 convs' backward reads dy on its own grid: count the
+    # zero-inserted gradients the first step builds (none)
+    from anatomix_tpu_torch.kernels import conv_down as kd
+
+    zero_insert, inserted = kd.zero_insert, []
+
+    def counted_zero_insert(*args, **kwargs):
+        inserted.append(1)
+        return zero_insert(*args, **kwargs)
+
     for i in range(5):
         if i == 0:
             reset_counts(wrappers)
+            kd.zero_insert = counted_zero_insert
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2279,6 +2408,12 @@ def run_vit_train(torch, dev, wrappers, paths, ka):
         torch.cuda.synchronize()
         if i == 0:
             c = paths["vit_train"] = counts(wrappers)
+            kd.zero_insert = zero_insert
+            log(f"[vit-train-step128] zero-inserted gradients built by the "
+                f"first step: {len(inserted)}")
+            if inserted:
+                raise RuntimeError("vit-train-step128: the stride-2 backward "
+                                   "built a zero-inserted gradient")
         step_ms.append(start.elapsed_time(end))
         losses.append(float(metrics["loss"]))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30

@@ -293,6 +293,86 @@ def test_conv_backward_kernels_match_plain(cuda, shape, ci, co, pad):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S,c1,c2,co,out_dtype", [
+    (4, 3 * 1024, 0, 1024, torch.float32),      # the dev bottleneck (split)
+    (8, 3 * 512, 0, 512, torch.float32),        # the dev 8^3 level
+    (8, 3 * 512, 3 * 1024, 512, torch.bfloat16),  # its D3 decoder (cat)
+])
+def test_split_k_convs_match_plain_and_repeat_bit_for_bit(cuda, S, c1, c2,
+                                                          co, out_dtype):
+    """The deep convs whose K the plan splits over the card (f32 partials,
+    summed in a fixed order by a second kernel) against their plain
+    versions (bf16 out 1e-2; f32 out k 2^-24 for a k-product reduction),
+    and two launches giving the same bits."""
+    from anatomix_tpu_torch.kernels.conv import conv_plan
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ci = c1 + c2
+    x = torch.randn((2, S, S, S, c1), generator=g, device=cuda).bfloat16()
+    up = (torch.randn((2, S, S, S, c2), generator=g, device=cuda).bfloat16()
+          if c2 else None)
+    w = (torch.randn((27 * ci, co), generator=g, device=cuda)
+         * (2.0 / (27 * ci)) ** 0.5).bfloat16()
+    b = torch.randn((co,), generator=g, device=cuda) * 0.1
+    plan = conv_plan(2, (S, S, S), ci, co)
+    assert plan.splits > 1
+    assert plan.m_tiles * plan.n_tiles * plan.splits >= 132
+    kw = dict(act="none", pad_type="reflect", out_dtype=out_dtype)
+    if up is None:
+        run = lambda: conv3x3x3_ndhwc(x, w, b, **kw)  # noqa: E731
+        ref = conv3x3x3_ndhwc_plain(x, w, b, **kw)
+    else:
+        run = lambda: conv3x3x3_cat_ndhwc(x, up, w, b, **kw)  # noqa: E731
+        ref = conv3x3x3_cat_ndhwc_plain(x, up, w, b, **kw)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    tol = (1e-2 if out_dtype == torch.bfloat16
+           else max(1e-4, 27 * ci * 2.0 ** -24))
+    assert got.dtype == out_dtype
+    assert _maxrel(got.float().cpu(), ref.float().cpu()) < tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ci,co", [
+    ((1, 15, 16, 17), 8, 16),   # odd extents
+    ((2, 9, 7, 11), 32, 64),    # the first tokenizer stage's widths
+    ((1, 7, 9, 5), 96, 32),     # wide dx: the gather kernel's classes
+    ((1, 6, 10, 13), 5, 12),    # widths that are not a multiple of 8
+])
+def test_stride2_gradient_kernels_match_plain(cuda, shape, ci, co):
+    """The stride-2 modes of T-w and T-x, which read dy on its own grid,
+    against their plain versions (dW 1e-3, dx 1e-2) and against the plain
+    zero-inserted route."""
+    from anatomix_tpu_torch.kernels import conv_down as kd
+    from anatomix_tpu_torch.kernels import conv_train as kt
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    spatial = shape[1:4]
+    x = torch.randn((*shape, ci), generator=g, device=cuda).bfloat16()
+    dy = torch.randn((shape[0], *kt.s2_grid(spatial), co), generator=g,
+                     device=cuda).bfloat16()
+    w = (torch.randn((27 * ci, co), generator=g, device=cuda)
+         * 0.1).bfloat16()
+    n = (kt.conv3x3x3_wgrad_ndhwc.launches, kt.conv3x3x3_dgrad_ndhwc.launches)
+    dw = kt.conv3x3x3_wgrad_ndhwc(x, dy, pad_type="zeros", stride=2)
+    dx = kt.conv3x3x3_dgrad_ndhwc(dy, w, pad_type="zeros", stride=2,
+                                  spatial=spatial)
+    torch.cuda.synchronize()
+    assert (kt.conv3x3x3_wgrad_ndhwc.launches,
+            kt.conv3x3x3_dgrad_ndhwc.launches) == (n[0] + 1, n[1] + 1)
+    assert dw.dtype == torch.float32 and dx.dtype == torch.bfloat16
+    assert dx.shape == x.shape
+    rdw = kt.conv3x3x3_wgrad_s2_ndhwc_plain(x, dy)
+    rdx = kt.conv3x3x3_dgrad_s2_ndhwc_plain(dy, w, spatial)
+    assert _maxrel(dw.cpu(), rdw.cpu()) < 1e-3
+    assert _maxrel(dx.float().cpu(), rdx.float().cpu()) < 1e-2
+    zdx, zdw = kd.conv_down2_backward_plain(x, dy, w)
+    assert _maxrel(dw.cpu(), zdw.cpu()) < 1e-3
+    assert _maxrel(dx.float().cpu(), zdx.float().cpu()) < 1e-2
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("which,shape,dtype", [
     ("s2d", (2, 16, 8, 12, 16), torch.bfloat16),
     ("s2d", (1, 4, 6, 2, 3), torch.bfloat16),   # 6-byte runs: 2-byte units
@@ -447,8 +527,9 @@ def test_flash_attention_backward_kernels_match_plain(cuda, B, H, N, hd):
     ((1, 10, 6, 12), 32, 64),   # ragged tiles
 ])
 def test_conv_down_backward_on_kernels_matches_plain(cuda, shape, ci, co):
-    """The stride-2 conv's dx and dW through the zero-inserted gradient on
-    T-x and T-w (zero padding) against the same on their plain versions."""
+    """The stride-2 conv's dx and dW through `conv_down2_train`'s backward
+    (T-x and T-w in their stride-2 mode) against the zero-inserted route on
+    the plain stride-1 gradient functions."""
     from anatomix_tpu_torch.kernels import conv_down as kd
 
     g = torch.Generator(device=cuda).manual_seed(4)

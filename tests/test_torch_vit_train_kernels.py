@@ -2,9 +2,10 @@
 CPU, in f32: attention's forward with its log-sum-exp and its backward
 (`kernels/attention.py`, the plain versions the dkv and dq kernels are held
 to on the card) against `jax.vjp` of the JAX package's einsum attention;
-the stride-2 conv's backward through the zero-inserted gradient and the
-zero-padded stride-1 conv's backward (`kernels/conv_down.py`,
-`kernels/conv_train.py`) against `jax.vjp` of the JAX package's `conv3d`;
+the stride-2 conv's backward (from the strided formulas, and through the
+zero-inserted gradient) and the zero-padded stride-1 conv's backward
+(`kernels/conv_down.py`, `kernels/conv_train.py`) against `jax.vjp` of the
+JAX package's `conv3d`;
 the V1 exit's autograd Function; and the differentiable ViT forward
 (`models/vit3d/primus_train.py`) against `primus_apply`.
 
@@ -177,6 +178,91 @@ def test_conv_down_backward_plain_matches_jax_vjp(shape):
     assert _rel(gx, rdx) <= 1e-5
     assert _rel(gw.permute(2, 3, 4, 1, 0), rdw) <= 1e-5
     assert _rel(gb, rdb) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,ci,co", [
+    ((2, 16, 16, 16), 8, 16),
+    ((1, 15, 16, 17), 8, 16),   # odd extents
+    ((1, 9, 6, 11), 5, 12),     # widths that are not a multiple of 8
+    ((2, 5, 7, 4), 3, 10),
+])
+def test_conv_down_backward_strided_plain_matches_jax_vjp(shape, ci, co):
+    """The stride-2 conv's dx and dW from the strided formulas (the plain
+    versions of the stride-2 gradient kernels, which read dy on its own
+    grid) against `jax.vjp` of `conv3d(stride=2, padding=[(1, 1)] * 3)`, and
+    against the zero-inserted route of `conv_down2_backward_plain`."""
+    from anatomix_tpu_torch.kernels import conv_train as kt
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((*shape, ci)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 3, ci, co)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(co).astype(np.float32)
+    ref_y, vjp = jax.vjp(
+        lambda x_, w_, b_: jconv3d(x_, w_, b_, stride=2,
+                                   padding=[(1, 1)] * 3),
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    assert ref_y.shape[1:4] == kt.s2_grid(shape[1:4])
+    dy = rng.standard_normal(ref_y.shape).astype(np.float32)
+    rdx, rdw, _ = vjp(jnp.asarray(dy))
+    w_packed = pack_conv_weight(_t(np.transpose(w, (4, 3, 0, 1, 2))))
+    dx = kt.conv3x3x3_dgrad_s2_ndhwc_plain(_t(dy), w_packed, shape[1:4])
+    dw_packed = kt.conv3x3x3_wgrad_s2_ndhwc_plain(_t(x), _t(dy))
+    assert _rel(dx, rdx) <= 1e-5
+    assert _rel(unpack_conv_weight(dw_packed, ci).permute(2, 3, 4, 1, 0),
+                rdw) <= 1e-5
+    zdx, zdw = kd.conv_down2_backward_plain(_t(x), _t(dy), w_packed)
+    assert _rel(dx, zdx) <= 1e-5
+    assert _rel(dw_packed, zdw) <= 1e-5
+    # the wrappers' stride-2 mode on CPU tensors is the same plain path
+    assert torch.equal(kt.conv3x3x3_dgrad_ndhwc(
+        _t(dy), w_packed, pad_type="zeros", stride=2, spatial=shape[1:4]),
+        dx)
+    assert torch.equal(kt.conv3x3x3_wgrad_ndhwc(
+        _t(x), _t(dy), pad_type="zeros", stride=2), dw_packed)
+
+
+def test_conv_down_train_backward_reads_dy_on_its_grid(monkeypatch):
+    """`conv_down2_train`'s backward calls the stride-2 gradient functions
+    once each and never builds a zero-inserted gradient, and still matches
+    `jax.vjp`."""
+    from anatomix_tpu_torch.kernels import conv_train as kt
+
+    def no_zero_insert(*args, **kwargs):
+        raise AssertionError("the backward built a zero-inserted gradient")
+
+    calls = []
+
+    def count(fn, name):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(kd, "zero_insert", no_zero_insert)
+    monkeypatch.setattr(kt, "conv3x3x3_dgrad_s2_ndhwc_plain",
+                        count(kt.conv3x3x3_dgrad_s2_ndhwc_plain, "dgrad"))
+    monkeypatch.setattr(kt, "conv3x3x3_wgrad_s2_ndhwc_plain",
+                        count(kt.conv3x3x3_wgrad_s2_ndhwc_plain, "wgrad"))
+    rng = np.random.default_rng(10)
+    ci, co = 6, 8
+    x = rng.standard_normal((1, 9, 8, 7, ci)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 3, ci, co)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(co).astype(np.float32)
+    ref_y, vjp = jax.vjp(
+        lambda x_, w_, b_: jconv3d(x_, w_, b_, stride=2,
+                                   padding=[(1, 1)] * 3),
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    dy = rng.standard_normal(ref_y.shape).astype(np.float32)
+    ref = vjp(jnp.asarray(dy))
+    leaves = [_t(x).requires_grad_(),
+              _t(np.transpose(w, (4, 3, 0, 1, 2))).requires_grad_(),
+              _t(b).requires_grad_()]
+    y = kd.conv_down2_train(*leaves)
+    gx, gw, gb = torch.autograd.grad(y, leaves, _t(dy))
+    assert sorted(calls) == ["dgrad", "wgrad"]
+    assert _rel(gx, ref[0]) <= 1e-5
+    assert _rel(gw.permute(2, 3, 4, 1, 0), ref[1]) <= 1e-5
+    assert _rel(gb, ref[2]) <= 1e-5
 
 
 def test_conv_train_zero_padding_matches_jax_vjp():
