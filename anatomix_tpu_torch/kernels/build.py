@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("conv3d", "blend_scatter", "norm_apply", "upsample", "conv_down",
+SOURCES = ("conv3d", "blend_scatter", "norm_apply", "upsample",
            "flash_attention", "depth_to_space8", "conv3d_wgrad", "reshuffle")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -10,9 +10,10 @@ conv_block_sparse_cat_halo / _halo_wide): the trilinear decoder's conv over
 concat(enc, up) with both operands at one resolution. All three launch the
 implicit-GEMM wgmma kernels of `csrc/conv3d.cu` (a halo brick and a gather
 ring), whose header says what bounds them on the card and what their
-designs do about it. `conv_plan` is their launch plan (which kernel, tile,
-N tile, split of K), a pure function of the shapes, passed to C with every
-launch.
+designs do about it; so does V2, the stride-2 conv of `kernels/conv_down.py`
+(a parity-split halo brick or the gather ring in its stride-2 mode).
+`conv_plan` is their launch plan (which kernel, tile, N tile, split of K),
+a pure function of the shapes, passed to C with every launch.
 
 On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor it
 runs the plain version (f32 `F.conv3d` through `ops/conv.py`). Each wrapper
@@ -67,8 +68,15 @@ RING_STAGES = 4          # the gather kernel's ring depth (`ConvPlan.stages`)
 SMEM_PER_SM = 227 * 1024
 BRICK_HALO = 10 * 10 * 6  # the halo of an 8 x 8 x 4 output tile
 BRICK_HALO_S2 = 9 * 9 * 5  # the gradient an 8 x 8 x 4 tile of it reads
+BRICK_HALO_S2F = 17 * 17 * 9  # the input an 8 x 8 x 4 stride-2 tile reads
+S2F_CHUNK = 8             # the stride-2 brick's K chunk: one 16-byte voxel
+S2F_STEPS = 14            # its K16 steps a chunk: 27 taps in pairs
 BRICK_SMEM = 100 * 1024   # at most: 2 blocks per SM
 BRICK_MIN_CHUNK = 16      # a wide conv's K chunk in the halo brick, at least
+# what a launch computes (the C side's `ConvArgs.mode`)
+MODE_S1 = 0               # the stride-1 conv
+MODE_S2_DGRAD = 1         # the stride-2 conv's input gradient
+MODE_S2 = 2               # the stride-2 conv (V2)
 
 
 class ConvPlan(NamedTuple):
@@ -140,19 +148,21 @@ def brick_bits(B: int, grid, total: int) -> tuple[int, int, int, int]:
 
 
 def conv_plan(B: int, grid, ci: int, co: int, *,
-              stride2_dgrad: bool = False) -> ConvPlan:
+              mode: int = MODE_S1) -> ConvPlan:
     """The launch plan of `csrc/conv3d.cu` for a conv of Ci -> `co`
-    channels whose tiled grid is `grid` = (gz, gy, gx) with batch `B`: a
-    stride-1 conv (K = 27 taps x Ci, Ci padded to a multiple of 8), or with
-    `stride2_dgrad` the stride-2 conv's input gradient, tiled over the
-    gradient's grid, whose 8 parity classes of 1-8 taps are never split.
-    The halo-brick kernel takes the convs `brick_chunk` gives a chunk.
+    channels whose tiled grid is `grid` = (gz, gy, gx) with batch `B`, by
+    `mode`: `MODE_S1` a stride-1 conv (K = 27 taps x Ci, Ci padded to a
+    multiple of 8); `MODE_S2` the stride-2 conv (V2), tiled over its output
+    grid, K the same; `MODE_S2_DGRAD` the stride-2 conv's input gradient,
+    tiled over the gradient's grid, whose 8 parity classes of 1-8 taps are
+    never split. The halo-brick kernels take the convs `brick_chunk` gives a
+    chunk.
     Otherwise, where the tiles leave SMs idle (fewer blocks than
     `NUM_SMS`), K is split over as many blocks as fill every SM once, at
     least 4 steps each."""
     bn = n_tile(co)
     gz, gy, gx = grid
-    chunk = brick_chunk(B, grid, ci, bn, stride2_dgrad)
+    chunk = brick_chunk(B, grid, ci, bn, mode)
     if chunk:
         return ConvPlan(bn, 3, 3, 2, 0, _cdiv(gx, 8), _cdiv(gy, 8),
                         _cdiv(gz, 4), B, _cdiv(co, bn), 1, 0, 1, 0, chunk)
@@ -160,10 +170,11 @@ def conv_plan(B: int, grid, ci: int, co: int, *,
     tiles = (_cdiv(gx, 1 << bx), _cdiv(gy, 1 << by), _cdiv(gz, 1 << bz),
              _cdiv(B, 1 << bb))
     n_tiles = _cdiv(co, bn)
-    steps = _cdiv((8 if stride2_dgrad else 27) * _cdiv(ci, 8) * 8, STEP_K)
+    steps = _cdiv((8 if mode == MODE_S2_DGRAD else 27) * _cdiv(ci, 8) * 8,
+                  STEP_K)
     blocks = tiles[0] * tiles[1] * tiles[2] * tiles[3] * n_tiles
     splits, stages = 1, RING_STAGES
-    if not stride2_dgrad and blocks < NUM_SMS:
+    if mode != MODE_S2_DGRAD and blocks < NUM_SMS:
         # a split grid of N tile 128 runs a 3-stage ring: 96 KB, two blocks
         # per SM, so the split fills the card with twice the blocks
         stages = 3 if bn == 128 else RING_STAGES
@@ -175,22 +186,29 @@ def conv_plan(B: int, grid, ci: int, co: int, *,
                     _cdiv(steps, per_split), per_split, 0, stages)
 
 
-def brick_chunk(B: int, grid, ci: int, bn: int, stride2_dgrad: bool) -> int:
+def brick_chunk(B: int, grid, ci: int, bn: int, mode: int = MODE_S1) -> int:
     """The K chunk (channels, a multiple of 16 dividing Ci padded to 16) of
     the halo-brick kernel for this conv, or 0 where the gather kernel runs
     it. The brick takes N tiles up to 64. A narrow conv (Ci padded to 16 at
     most 64) takes it in one chunk where its halo and weights fit
     `BRICK_SMEM` (the stride-2 gradient's smaller halo: twice that, one
     block per SM); a wider one in the largest chunk of at least
-    `BRICK_MIN_CHUNK` channels that fits, where its tiles fill the card."""
+    `BRICK_MIN_CHUNK` channels that fits, where its tiles fill the card.
+    The stride-2 conv's parity-split brick walks Ci padded to 8 in chunks
+    of `S2F_CHUNK` through two buffers, where its tiles fill the card."""
     if bn > 64:
         return 0
-    cp16 = _cdiv(ci, 16) * 16
-    if stride2_dgrad:
-        fits = 2 * cp16 * (BRICK_HALO_S2 + 27 * bn) <= 2 * BRICK_SMEM
-        return cp16 if cp16 <= 64 and fits else 0
     gz, gy, gx = grid
     tiles = _cdiv(gx, 8) * _cdiv(gy, 8) * _cdiv(gz, 4) * B
+    if mode == MODE_S2:
+        # two chunk buffers and the halo's source map: one block per SM
+        fits = (2 * (BRICK_HALO_S2F * 16 + S2F_STEPS * 16 * bn * 2)
+                + BRICK_HALO_S2F * 4 <= SMEM_PER_SM)
+        return S2F_CHUNK if fits and tiles >= NUM_SMS else 0
+    cp16 = _cdiv(ci, 16) * 16
+    if mode == MODE_S2_DGRAD:
+        fits = 2 * cp16 * (BRICK_HALO_S2 + 27 * bn) <= 2 * BRICK_SMEM
+        return cp16 if cp16 <= 64 and fits else 0
     for chunk in range(min(cp16, 64), 15, -16):
         if cp16 % chunk or 2 * chunk * (BRICK_HALO + 27 * bn) > BRICK_SMEM:
             continue

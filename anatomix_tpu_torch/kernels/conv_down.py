@@ -3,10 +3,14 @@ counter.
 
 `conv_down2_ndhwc` replaces the JAX package's V2 Pallas kernel
 (`anatomix_tpu/ops/pallas/conv_down.py` conv_down2_block), the ViT
-tokenizer's downsample convs, with the kernel of `csrc/conv_down.cu`, whose
-header says what bounds it on the card and what its design does about it.
-The TPU kernel reads the space-to-depth block tensor; this one reads
-channels-last `(B, D, H, W, Ci)` and writes `(B, (D-1)//2+1, ..., Co)`.
+tokenizer's downsample convs, with the stride-2 mode of the wgmma conv
+kernels of `csrc/conv3d.cu` (`conv3x3x3_down2_ndhwc`): a halo brick whose
+halo is stored split by parity, or the gather ring through the stride-2
+index map, as `kernels/conv.conv_plan(..., mode=MODE_S2)` picks; that
+file's header says what bounds it on the card and what the design does
+about it. The TPU kernel reads the space-to-depth block tensor; this one
+reads channels-last `(B, D, H, W, Ci)` and writes `(B, (D-1)//2+1, ...,
+Co)`.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version (f32 `F.conv3d` through `ops/conv.conv3d_down2`).
@@ -34,7 +38,13 @@ import ctypes
 import torch
 
 from anatomix_tpu_torch.kernels import build
-from anatomix_tpu_torch.kernels.conv import _check_act, _check_common
+from anatomix_tpu_torch.kernels.conv import (
+    MODE_S2,
+    _check_act,
+    _check_common,
+    conv_plan,
+    workspace,
+)
 from anatomix_tpu_torch.ops.activations import EPILOGUE_ACTS, apply_activation
 from anatomix_tpu_torch.kernels import conv_train
 from anatomix_tpu_torch.ops.conv import (
@@ -48,13 +58,14 @@ _fns: dict = {}
 
 
 def _fn():
-    fn = _fns.get("conv_down2_ndhwc")
+    fn = _fns.get("conv3x3x3_down2_ndhwc")
     if fn is None:
-        fn = build.load("conv_down").conv_down2_ndhwc
-        # x, w, bias, out; B, D, H, W, ci, co, act; slope; out_f32, stream
-        fn.argtypes = [_P] * 4 + [_I] * 7 + [_F, _I, _P]
+        fn = build.load("conv3d").conv3x3x3_down2_ndhwc
+        # x, w, bias, out, ws, plan; B, D, H, W, ci, co, act; slope;
+        # out_f32, stream
+        fn.argtypes = [_P] * 6 + [_I] * 7 + [_F, _I, _P]
         fn.restype = ctypes.c_int
-        _fns["conv_down2_ndhwc"] = fn
+        _fns["conv3x3x3_down2_ndhwc"] = fn
     return fn
 
 
@@ -84,12 +95,14 @@ def conv_down2_ndhwc(
     B, D, H, W, ci = x.shape
     co = _check_common(x, w_packed, bias, ci, (D, H, W), act, "zeros",
                        out_dtype)
-    out = torch.empty((B, (D - 1) // 2 + 1, (H - 1) // 2 + 1,
-                       (W - 1) // 2 + 1, co), dtype=out_dtype,
-                      device=x.device)
+    grid = conv_train.s2_grid((D, H, W))
+    out = torch.empty((B, *grid, co), dtype=out_dtype, device=x.device)
+    plan = conv_plan(B, grid, ci, co, mode=MODE_S2)
+    ws = workspace(plan, out.numel() // co, co, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _fn()(
         x.data_ptr(), w_packed.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, plan.as_c(),
         B, D, H, W, ci, co, EPILOGUE_ACTS[act], float(slope),
         int(out_dtype == torch.float32), stream,
     )

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from anatomix_tpu_torch.kernels import build
 from anatomix_tpu_torch.kernels.conv import (
+    MODE_S2_DGRAD,
     NUM_SMS,
     RING_STAGES,
     SMEM_PER_SM,
@@ -381,7 +382,7 @@ def conv3x3x3_dgrad_ndhwc(
         D, H, W = spatial
         dx = torch.empty((B, D, H, W, ci), dtype=torch.bfloat16,
                          device=dy.device)
-        plan = conv_plan(B, (d, h, w), co, ci, stride2_dgrad=True)
+        plan = conv_plan(B, (d, h, w), co, ci, mode=MODE_S2_DGRAD)
         rc = _fn("conv3x3x3_dgrad_s2_ndhwc")(
             dy.data_ptr(), transpose_packed(w_packed, ci).data_ptr(),
             zero_bias.data_ptr(), dx.data_ptr(), plan.as_c(), B, d, h, w,

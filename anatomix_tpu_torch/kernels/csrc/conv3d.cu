@@ -18,6 +18,10 @@
 //   T-x anatomix_tpu/ops/pallas/conv_block.py  conv_block_sparse_dx
 //       (dx of K1 on the (d+2)^3 extended grid with the gradient's zero
 //       halo built in the kernel, then the caller's pad adjoint)
+//   V2  anatomix_tpu/ops/pallas/conv_down.py   conv_down2_block
+//       (the ViT tokenizer's stride-2 convs, zero padding 1; the TPU kernel
+//       reads the space-to-depth block tensor, whose block grid is the
+//       output grid; this one reads channels-last directly)
 // GEMM: M = output voxels, N = Co, K = taps x Ci, on Hopper's warpgroup
 // MMA (wgmma m64nNk16, bf16 operands from shared memory, f32 accumulators
 // in registers).
@@ -31,8 +35,11 @@
 // deep convs at 4^3 and 8^3 (K1 3072 -> 1024, the D3 decoder over 4608
 // channels) read a weight matrix of 42-170 MB for 128-1024 output voxels:
 // they are bound by reading the weights once, which takes the whole card.
+// The ViT tokenizer's stride-2 convs (V2, on the three-term split at 3 Ci)
+// are bound by bytes at the first stage (B2 128^3 x 96 -> 64^3 x 64: 0.8
+// GB of input for 0.2 TFLOP) and by operations at the two deeper ones.
 //
-// Three designs share the entry points; `kernels/conv.py` `conv_plan`, a
+// Four designs share the entry points; `kernels/conv.py` `conv_plan`, a
 // pure function of the shapes, picks one per launch and passes its tiling.
 //
 // 1. The halo brick (`conv_brick_kernel`), for N tiles up to 64 where the
@@ -70,7 +77,21 @@
 //    applies bias and the activation and stores bf16 or f32, so the result
 //    is the same bits from run to run. Each block of the 4^3 3072 -> 1024
 //    conv reads its own 1/264 of the 170 MB weight matrix once.
-// 3. The stride-2 conv's input gradient, below.
+// 3. The stride-2 conv (mode 2; V2). Output voxel o, tap k reads input
+//    2 o - 1 + k, zeros outside the volume (odd extents give (n - 1) / 2 + 1
+//    outputs). The gather ring runs it through that index map, with N
+//    tiles of 128 and split K where its tiles leave SMs idle (the 64^3 ->
+//    32^3 and 32^3 -> 16^3 stages). The first stage, bound by bytes, runs a
+//    halo brick whose 17 x 17 x 9 halo is stored split by parity into 8
+//    class bricks written straight from device memory by the cp.async index
+//    map: a gather would read each input voxel 27 / 8 = 3.4x, the brick
+//    about 1.3x. A core matrix needs 8 contiguous 16-byte rows, so a
+//    descriptor cannot step 2 voxels; in a class brick each tap is a shift
+//    of 0 or 1 voxel per axis, a plain descriptor move as in design 1.
+//    Chunks of 8 channels (the halo 41 KB) pair two taps in each K16 step,
+//    through two buffers, the next chunk loading while this one's MMAs run
+//    (`conv_down_brick_kernel`).
+// 4. The stride-2 conv's input gradient, below.
 // Every accumulator is first written by an MMA (scale-d 0), so no other
 // instruction defines it and ptxas keeps the MMAs asynchronous.
 //
@@ -133,7 +154,8 @@ struct ConvArgs {
   int oD, oH, oW, org;         // the output grid; mode 0 reads o + org
   int gD, gH, gW;              // the tiled grid (mode 1: a class's)
   int c1, c2, cp, co;          // cp: c1 + c2 padded to 8 (brick: 16)
-  int f_shift, mode;           // mode 0: stride 1; 1: stride-2 dgrad
+  int f_shift, mode;           // mode 0: stride 1; 1: stride-2 dgrad;
+                               // 2: stride-2 forward (zero padding 1)
   int bx, by, bz;              // log2 of the tile's x, y, z extents
   int tiles_x, tiles_y, tiles_z;
   int splits, steps_per_split;
@@ -211,9 +233,10 @@ __device__ __forceinline__ int class_taps(int cls) {
 }
 
 // the 27-tap index (kd * 9 + kh * 3 + kw) of a class's tap ti; in mode 1
-// an even coordinate takes tap 1, an odd one taps 0 and 2
+// an even coordinate takes tap 1, an odd one taps 0 and 2 (DOWN: mode 2)
+template <bool DOWN>
 __device__ __forceinline__ int tap_of(const ConvArgs& a, int ti, int cls) {
-  if (a.mode == 0) return ti;
+  if (DOWN || a.mode == 0) return ti;
   const int px = cls & 1, py = (cls >> 1) & 1, pz = cls >> 2;
   const int nx = 1 + px, ny = 1 + py;
   const int kw = px ? 2 * (ti % nx) : 1;
@@ -225,12 +248,23 @@ __device__ __forceinline__ int tap_of(const ConvArgs& a, int ti, int cls) {
 // the gathered voxel that tap `tap` (of 27) of output voxel `o` reads,
 // with the padding's index map; `ok` false where it reads a zero. Mode 0
 // reads o + k - 1 + org; mode 1 (the stride-2 conv's input gradient) reads
-// the gradient at (o + 1 - k) / 2, where that is whole and in range
+// the gradient at (o + 1 - k) / 2, where that is whole and in range; mode
+// 2 (the stride-2 conv; DOWN, a separate instantiation so that the other
+// modes compile without it) reads 2 o - 1 + k, zeros outside the volume
+template <bool DOWN>
 __device__ __forceinline__ void source_voxel(const ConvArgs& a,
                                              const Voxel& o, int tap,
                                              int& iz, int& iy, int& ix,
                                              bool& ok) {
   const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
+  if (DOWN) {
+    iz = 2 * o.z - 1 + kd;
+    iy = 2 * o.y - 1 + kh;
+    ix = 2 * o.x - 1 + kw;
+    ok = ok && iz >= 0 && iz < a.D && iy >= 0 && iy < a.H && ix >= 0 &&
+         ix < a.W;
+    return;
+  }
   if (a.mode == 1) {
     const int tz = o.z + 1 - kd, ty = o.y + 1 - kh, tx = o.x + 1 - kw;
     iz = tz >> 1;
@@ -289,8 +323,8 @@ __device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
                : "memory");
 }
 
-// STAGES: the ring's depth; loads run STAGES - 2 steps ahead
-template <int BN, int STAGES>
+// STAGES: the ring's depth; loads run STAGES - 2 steps ahead; DOWN: mode 2
+template <int BN, int STAGES, bool DOWN>
 __global__ void __launch_bounds__(NTHREADS) conv_kernel(const ConvArgs a) {
   constexpr int NB8 = BN / 8;
   constexpr int STAGE = A_BYTES + BK * BN * 2;
@@ -324,7 +358,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_kernel(const ConvArgs a) {
       const int c = kb - ti * a.cp;
       bool ok = row.valid && kb < k_total;
       int iz = 0, iy = 0, ix = 0;
-      source_voxel(a, row, tap_of(a, ti, cls), iz, iy, ix, ok);
+      source_voxel<DOWN>(a, row, tap_of<DOWN>(a, ti, cls), iz, iy, ix, ok);
       const __nv_bfloat16* src =
           ok ? chunk_src(a, row.b, iz, iy, ix, c) : a.w;
 #pragma unroll
@@ -339,7 +373,10 @@ __global__ void __launch_bounds__(NTHREADS) conv_kernel(const ConvArgs a) {
         const int c = kb - ti * a.cp;
         bool ok = row.valid && kb < k_total;
         int iz = 0, iy = 0, ix = 0;
-        if (ok) source_voxel(a, row, tap_of(a, ti, cls), iz, iy, ix, ok);
+        if (ok) {
+          source_voxel<DOWN>(a, row, tap_of<DOWN>(a, ti, cls), iz, iy, ix,
+                             ok);
+        }
         const uint32_t dst = sa + a_row + jj * 128;
         if (a.xvec) {
           cp_async16_ca(dst, ok ? chunk_src(a, row.b, iz, iy, ix, c) : a.w,
@@ -361,7 +398,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_kernel(const ConvArgs a) {
       const bool ok = kg < k_total && c < ci && col < a.co;
       const uint32_t dst = sb + ((kr >> 3) * NB8 + ng) * 128 + (kr & 7) * 16;
       const int64_t off =
-          ok ? ((int64_t)tap_of(a, ti, cls) * ci + c) * a.co + col : 0;
+          ok ? ((int64_t)tap_of<DOWN>(a, ti, cls) * ci + c) * a.co + col : 0;
       if (a.wvec) {
         cp_async16_cg(dst, a.w + off, ok);
       } else {
@@ -571,7 +608,7 @@ conv_brick_kernel(const ConvArgs a) {
       fence_regs(acc1);
       wgmma_fence();
       for (int ti = 0; ti < ntaps; ++ti) {
-        const int tap = S2 ? tap_of(a, ti, cls) : ti;
+        const int tap = S2 ? tap_of<false>(a, ti, cls) : ti;
         const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
         // the halo voxel that output plane 2 wg, row 0, column 0 reads
         const int sz = S2 ? ((cls >> 2) + 1 - kd) >> 1 : kd;
@@ -650,6 +687,271 @@ conv_brick_kernel(const ConvArgs a) {
   }
 }
 
+// the stride-2 brick's epilogue: planes 2 wg and 2 wg + 1 of the 8 x 8 x 4
+// output tile at (z0, y0, x0), rows 16 w + l / 4 (+ 8) = (y, x) of a
+// plane, columns 8 j + 2 (l % 4) (+ 1) from n0: bias, activation, bf16 or
+// f32 store
+template <int BN>
+__device__ __forceinline__ void store_down_tile(const ConvArgs& a,
+                                                const float (&acc0)[BN / 2],
+                                                const float (&acc1)[BN / 2],
+                                                int b, int z0, int y0, int x0,
+                                                int n0) {
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, w = (tid >> 5) & 3, l = tid & 31;
+#pragma unroll
+  for (int zz = 0; zz < 2; ++zz) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = w * 16 + (l >> 2) + 8 * h;
+      const int z = z0 + 2 * wg + zz, y = y0 + (rr >> 3), x = x0 + (rr & 7);
+      if (z >= a.oD || y >= a.oH || x >= a.oW) continue;
+      const int64_t vox = (((int64_t)b * a.oD + z) * a.oH + y) * a.oW + x;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * (l & 3);
+        if (col >= a.co) continue;
+        const bool two = col + 1 < a.co;
+        const float r0 = zz ? acc1[4 * j + 2 * h] : acc0[4 * j + 2 * h];
+        const float r1 =
+            zz ? acc1[4 * j + 2 * h + 1] : acc0[4 * j + 2 * h + 1];
+        const float v0 = activate(r0 + a.bias[col], a.act, a.slope);
+        const float v1 =
+            two ? activate(r1 + a.bias[col + 1], a.act, a.slope) : 0.f;
+        const int64_t off = vox * a.co + col;
+        if (a.out_f32) {
+          float* dst = static_cast<float*>(a.out) + off;
+          if (two && (a.co & 1) == 0) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            dst[0] = v0;
+            if (two) dst[1] = v1;
+          }
+        } else {
+          __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.out) + off;
+          if (two && (a.co & 1) == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(dst) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            dst[0] = __float2bfloat16(v0);
+            if (two) dst[1] = __float2bfloat16(v1);
+          }
+        }
+      }
+    }
+  }
+}
+
+// The stride-2 conv's halo brick (design 3 above, mode 2). An 8 x 8 x 4
+// output tile reads a 17 x 17 x 9 input halo, stored split by parity into
+// 8 class bricks: along each axis, class 0 holds the halo's even indices
+// (input 2 o - 1, the taps 0 and 2; 9 or 5 voxels) and class 1 its odd
+// ones (input 2 o, tap 1; 8 or 4), so tap (kd, kh, kw) of an output plane
+// reads class (kd == 1, kh == 1, kw == 1) shifted by (kd == 2, kh == 2,
+// kw == 2) voxels: a plain descriptor move whose 8-row groups are the
+// class's x-rows. K walks channel chunks of 8 (one 16-byte voxel); each
+// K16 step pairs two taps of one class whose shifts differ on one axis, the
+// descriptor's leading byte offset the distance between them (1 voxel in
+// x, a class row in y, a class plane in z), and the centre tap pairs with
+// zero weights: 14 steps for 27 taps.
+constexpr int S2F_CHUNK = 8;
+constexpr int S2F_VOX =
+    (2 * BRICK_X + 1) * (2 * BRICK_Y + 1) * (2 * BRICK_Z + 1);  // 2601
+constexpr int S2F_STEPS = 14;
+
+// extent of parity class p along an axis of n outputs: n + 1 (p 0), n
+__device__ __forceinline__ int s2f_ext(int n, int p) { return n + 1 - p; }
+
+// the first halo voxel of class cls (bits pz py px); classes lie in order
+__device__ __forceinline__ int s2f_base(int cls) {
+  int base = 0;
+  for (int c = 0; c < cls; ++c) {
+    base += s2f_ext(BRICK_Z, c >> 2) * s2f_ext(BRICK_Y, (c >> 1) & 1) *
+            s2f_ext(BRICK_X, c & 1);
+  }
+  return base;
+}
+
+// the halo voxel that output plane zl, row 0, column 0 reads through tap
+__device__ __forceinline__ int s2f_tap_voxel(int tap, int zl) {
+  const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
+  const int py = kh == 1, px = kw == 1;
+  const int ey = s2f_ext(BRICK_Y, py), ex = s2f_ext(BRICK_X, px);
+  return s2f_base((kd == 1) * 4 + py * 2 + px) +
+         ((zl + (kd == 2)) * ey + (kh == 2)) * ex + (kw == 2);
+}
+
+// K16 step s: its first tap, its second (-1: zero weights) and the halo
+// voxels from the first to the second
+__device__ __forceinline__ void s2f_step(int s, int& ta, int& tb,
+                                         int& lead) {
+  if (s < 9) {  // (kd, kh, 0) and (kd, kh, 2): one voxel along x
+    ta = 3 * s;
+    tb = ta + 2;
+    lead = 1;
+  } else if (s < 12) {  // (kd, 0, 1) and (kd, 2, 1): a row of 8
+    ta = 9 * (s - 9) + 1;
+    tb = ta + 6;
+    lead = s2f_ext(BRICK_X, 1);
+  } else if (s == 12) {  // (0, 1, 1) and (2, 1, 1): a plane of 8 x 8
+    ta = 4;
+    tb = 22;
+    lead = s2f_ext(BRICK_X, 1) * s2f_ext(BRICK_Y, 1);
+  } else {  // (1, 1, 1)
+    ta = 13;
+    tb = -1;
+    lead = 0;
+  }
+}
+
+// One block per SM: two chunk buffers (the next chunk's halo and weights
+// load while this chunk's MMAs run) and the halo's source map.
+template <int BN>
+__global__ void __launch_bounds__(NTHREADS, 1)
+conv_down_brick_kernel(const ConvArgs a) {
+  constexpr int NB8 = BN / 8;
+  constexpr int SLOTS = (S2F_VOX + NTHREADS - 1) / NTHREADS;
+  constexpr int STAGE = S2F_VOX * 16 + S2F_STEPS * 16 * BN * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);  // buffer i: halo, then weights
+  // then each halo voxel's input voxel, -1 for a zero, the same for every
+  // chunk; only the thread that loads a voxel reads its entry
+  int* src = reinterpret_cast<int*>(smem + 2 * STAGE);
+  const uint32_t b_lbo = NB8 * 128;
+  const int tid = threadIdx.x;
+  int t = blockIdx.x;
+  const int x0 = (t % a.tiles_x) * BRICK_X;
+  t /= a.tiles_x;
+  const int y0 = (t % a.tiles_y) * BRICK_Y;
+  t /= a.tiles_y;
+  const int z0 = (t % a.tiles_z) * BRICK_Z;
+  const int b = t / a.tiles_z;
+  const int n0 = blockIdx.y * BN;
+  const int ci = a.c1;
+  const int wg = tid >> 7;
+
+  for (int i = 0; i < SLOTS; ++i) {
+    const int e = tid + i * NTHREADS;
+    if (e >= S2F_VOX) continue;
+    int cls = 0, base = 0;
+#pragma unroll
+    for (int c = 1; c < 8; ++c) {
+      if (e >= s2f_base(c)) {
+        cls = c;
+        base = s2f_base(c);
+      }
+    }
+    const int pz = cls >> 2, py = (cls >> 1) & 1, px = cls & 1;
+    const int ex = s2f_ext(BRICK_X, px), ey = s2f_ext(BRICK_Y, py);
+    const int v = e - base;
+    const int ix = 2 * (x0 + v % ex) + px - 1;
+    const int iy = 2 * (y0 + (v / ex) % ey) + py - 1;
+    const int iz = 2 * (z0 + v / (ex * ey)) + pz - 1;
+    const bool in =
+        ix >= 0 && ix < a.W && iy >= 0 && iy < a.H && iz >= 0 && iz < a.D;
+    src[e] = in ? ((b * a.D + iz) * a.H + iy) * a.W + ix : -1;
+  }
+
+  // chunk [c0, c0 + 8) into buffer `buf`: the halo voxels, then the
+  // weights, K row 16 s + 8 half + c the channel c0 + c of step s's first
+  // (half 0) or second tap, N-major core matrices
+  auto load_chunk = [&](int c0, int buf) {
+    const uint32_t sx = s0 + buf * STAGE, sw = sx + S2F_VOX * 16;
+#pragma unroll
+    for (int i = 0; i < SLOTS; ++i) {
+      const int e = tid + i * NTHREADS;
+      if (e >= S2F_VOX) continue;
+      const int vi = src[e];
+      const bool ok = vi >= 0;
+      const __nv_bfloat16* p = a.enc + (int64_t)max(vi, 0) * ci + c0;
+      // read once per block: streamed through L2 only
+      if (a.xvec) {
+        cp_async16_cg(sx + e * 16, ok ? p : a.w, ok);
+      } else {
+        Pack8 v;
+        v.u = make_uint4(0u, 0u, 0u, 0u);
+        if (ok) {
+          const unsigned short* pu = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (c0 + j < ci) v.h[j] = pu[j];
+          }
+        }
+        st_shared16(sx + e * 16, v.u);
+      }
+    }
+    for (int e = tid; e < S2F_STEPS * 16 * NB8; e += NTHREADS) {
+      const int kr = (e & 7) + 8 * ((e >> 3) / NB8);
+      const int ng = (e >> 3) % NB8;
+      int ta, tb, lead;
+      s2f_step(kr >> 4, ta, tb, lead);
+      const int tap = (kr >> 3) & 1 ? tb : ta;
+      const int c = c0 + (kr & 7);
+      const int col = n0 + 8 * ng;
+      const bool ok = tap >= 0 && c < ci && col < a.co;
+      const int64_t off = ok ? ((int64_t)tap * ci + c) * a.co + col : 0;
+      const uint32_t dst = sw + ((kr >> 3) * NB8 + ng) * 128 + (kr & 7) * 16;
+      if (a.wvec) {
+        cp_async16_cg(dst, a.w + off, ok);
+      } else {
+        Pack8 v;
+        v.u = make_uint4(0u, 0u, 0u, 0u);
+        if (ok) {
+          const unsigned short* wu =
+              reinterpret_cast<const unsigned short*>(a.w) + off;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (col + j < a.co) v.h[j] = wu[j];
+          }
+        }
+        st_shared16(dst, v.u);
+      }
+    }
+  };
+
+  load_chunk(0, 0);
+  cp_async_commit();
+  float acc0[BN / 2], acc1[BN / 2];
+  for (int c0 = 0, buf = 0; c0 < a.cp; c0 += S2F_CHUNK, buf ^= 1) {
+    // every warpgroup's MMAs of the last chunk are done: its buffer is free
+    __syncthreads();
+    if (c0 + S2F_CHUNK < a.cp) load_chunk(c0 + S2F_CHUNK, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this chunk's copies have landed
+    fence_proxy_async();
+    __syncthreads();
+
+    // the first chunk's first MMA overwrites the accumulators (scale-d 0)
+    const uint32_t sx = s0 + buf * STAGE, sw = sx + S2F_VOX * 16;
+    fence_regs(acc0);
+    fence_regs(acc1);
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < S2F_STEPS; ++st) {
+      int ta, tb, lead;
+      s2f_step(st, ta, tb, lead);
+      // A K-major: 8-row groups one class x-row apart, K halves `lead`
+      // voxels; B N-major: 8-column groups 128 bytes apart, K groups b_lbo
+      const uint32_t sbo = s2f_ext(BRICK_X, ta % 3 == 1) * 16;
+      const uint64_t db = make_desc(sw + 2 * st * b_lbo, b_lbo, 128);
+      const int acc_on = c0 > 0 || st > 0;
+      Wgmma<BN, 0, 1>::mma(
+          acc0, make_desc(sx + s2f_tap_voxel(ta, 2 * wg) * 16, lead * 16, sbo),
+          db, acc_on);
+      Wgmma<BN, 0, 1>::mma(
+          acc1,
+          make_desc(sx + s2f_tap_voxel(ta, 2 * wg + 1) * 16, lead * 16, sbo),
+          db, acc_on);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc0);
+    fence_regs(acc1);
+  }
+  cp_async_wait<0>();
+  store_down_tile<BN>(a, acc0, acc1, b, z0, y0, x0, n0);
+}
+
 // sums the split-K partials in split order, then bias, activation, store
 __global__ void splitk_reduce_kernel(const float* __restrict__ ws,
                                      const float* __restrict__ bias,
@@ -669,17 +971,26 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
+template <int BN, int STAGES, bool DOWN>
+cudaError_t launch_ring(const ConvArgs& a, int m_tiles, int n_tiles, int gz,
+                        cudaStream_t stream) {
+  const int smem = STAGES * (A_BYTES + BK * BN * 2);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_kernel<BN, STAGES, DOWN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  conv_kernel<BN, STAGES, DOWN><<<dim3(m_tiles, n_tiles, gz), NTHREADS, smem,
+                                  stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <int BN, int STAGES>
 cudaError_t launch(const ConvArgs& a, int m_tiles, int n_tiles, int gz,
                    cudaStream_t stream) {
-  const int smem = STAGES * (A_BYTES + BK * BN * 2);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<BN, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  conv_kernel<BN, STAGES><<<dim3(m_tiles, n_tiles, gz), NTHREADS, smem,
-                            stream>>>(a);
-  return cudaGetLastError();
+  return a.mode == 2
+             ? launch_ring<BN, STAGES, true>(a, m_tiles, n_tiles, gz, stream)
+             : launch_ring<BN, STAGES, false>(a, m_tiles, n_tiles, gz,
+                                              stream);
 }
 
 template <int BN, bool S2, bool CHUNKED>
@@ -698,8 +1009,23 @@ cudaError_t launch_brick_mode(const ConvArgs& a, int m_tiles, int n_tiles,
 }
 
 template <int BN>
+cudaError_t launch_down_brick(const ConvArgs& a, int m_tiles, int n_tiles,
+                              cudaStream_t stream) {
+  const int smem =
+      2 * (S2F_VOX * 16 + S2F_STEPS * 16 * BN * 2) + S2F_VOX * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_down_brick_kernel<BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  conv_down_brick_kernel<BN><<<dim3(m_tiles, n_tiles), NTHREADS, smem,
+                               stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int BN>
 cudaError_t launch_brick(const ConvArgs& a, int m_tiles, int n_tiles,
                          cudaStream_t stream) {
+  if (a.mode == 2) return launch_down_brick<BN>(a, m_tiles, n_tiles, stream);
   // one chunk (the narrow convs, the stride-2 gradient) or several
   if (a.mode == 1) {
     return launch_brick_mode<BN, true, false>(a, m_tiles, n_tiles, stream);
@@ -717,7 +1043,8 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // mode 0: a stride-1 conv of the (B, D, H, W) grid onto the output grid
 // grown by `grow` on each side; mode 1: the stride-2 conv's input gradient
-// from the (B, D, H, W) gradient grid onto the (oD, oH, oW) input grid
+// from the (B, D, H, W) gradient grid onto the (oD, oH, oW) input grid;
+// mode 2: the stride-2 conv of the (B, D, H, W) grid, zero padding 1
 int conv_launch(const void* enc, const void* small, int f_shift,
                 const void* w, const void* bias, void* out, void* ws,
                 const int* plan, int B, int D, int H, int W, int c1, int c2,
@@ -736,10 +1063,10 @@ int conv_launch(const void* enc, const void* small, int f_shift,
   a.H = H;
   a.W = W;
   a.mode = mode;
-  if (mode == 0) {
-    a.oD = D + 2 * grow;
-    a.oH = H + 2 * grow;
-    a.oW = W + 2 * grow;
+  if (mode == 0 || mode == 2) {
+    a.oD = mode == 2 ? (D - 1) / 2 + 1 : D + 2 * grow;
+    a.oH = mode == 2 ? (H - 1) / 2 + 1 : H + 2 * grow;
+    a.oW = mode == 2 ? (W - 1) / 2 + 1 : W + 2 * grow;
     a.gD = a.oD;
     a.gH = a.oH;
     a.gW = a.oW;
@@ -775,11 +1102,13 @@ int conv_launch(const void* enc, const void* small, int f_shift,
   const int cp16 = ceil_div(c1 + c2, 16) * 16;
   // the plan must cover the grid, N and K exactly as the kernel cuts them
   const int steps_all = ceil_div((mode == 1 ? 8 : 27) * a.cp, BK);
+  const bool bad_chunk =
+      mode == 2 ? a.chunk != S2F_CHUNK
+                : (a.chunk < 16 || a.chunk % 16 != 0 || cp16 % a.chunk != 0 ||
+                   (mode == 1 && a.chunk != cp16));
   const bool bad_brick =
       brick && (a.bx != 3 || a.by != 3 || a.bz != 2 || bb != 0 ||
-                a.splits != 1 || bn > 64 || a.chunk < 16 ||
-                a.chunk % 16 != 0 || cp16 % a.chunk != 0 ||
-                (mode == 1 && a.chunk != cp16));
+                a.splits != 1 || bn > 64 || bad_chunk);
   if (bad_brick ||
       (!brick && (a.bx + a.by + a.bz + bb != 7 || a.splits < 1 ||
                   stages != (bn == 128 ? stages : 4) || stages < 3 ||
@@ -789,7 +1118,8 @@ int conv_launch(const void* enc, const void* small, int f_shift,
       bb < 0 || (a.tiles_x << a.bx) < a.gW || (a.tiles_y << a.by) < a.gH ||
       (a.tiles_z << a.bz) < a.gD || (tiles_b << bb) < B ||
       n_tiles * bn < co ||
-      (mode == 1 && a.splits != 1) || (a.splits > 1 && ws == nullptr)) {
+      (mode == 1 && a.splits != 1) || (a.splits > 1 && ws == nullptr) ||
+      (mode == 2 && (c2 != 0 || reflect))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.reflect = reflect;
@@ -805,7 +1135,7 @@ int conv_launch(const void* enc, const void* small, int f_shift,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (brick) {
-    a.cp = cp16;  // whole K16 steps per tap
+    if (mode != 2) a.cp = cp16;  // whole K16 steps per tap
     switch (bn) {
       case 16: return static_cast<int>(launch_brick<16>(a, m_tiles, n_tiles, s));
       case 32: return static_cast<int>(launch_brick<32>(a, m_tiles, n_tiles, s));
@@ -906,6 +1236,18 @@ __global__ void pad_adjoint_kernel(const float* __restrict__ g,
 }
 
 }  // namespace
+
+// out (B, (D - 1) / 2 + 1, ..., co) = act(conv(x, stride 2, zero padding 1)
+// + bias)
+extern "C" int conv3x3x3_down2_ndhwc(const void* x, const void* w,
+                                     const void* bias, void* out, void* ws,
+                                     const int* plan, int B, int D, int H,
+                                     int W, int ci, int co, int act,
+                                     float slope, int out_f32,
+                                     void* stream) {
+  return conv_launch(x, nullptr, 0, w, bias, out, ws, plan, B, D, H, W, ci,
+                     0, co, 0, act, slope, out_f32, stream, 0, /*mode=*/2);
+}
 
 // dx (B, D, H, W, ci) bf16 of a 3x3x3 "same" conv from dy (B, D, H, W, co)
 // and the flipped, transposed packed weights w_t (27 * co, ci); zero_bias is

@@ -33,13 +33,14 @@
 // pass (the stock kernel's split; di = sum(o * dO) is one f32 reduction
 // outside, as JAX takes it in XLA). Both recompute P from q, k and the lse
 // and never hold an N x N tile outside registers:
-// - dkv: a block owns 64 keys and walks the queries in tiles of 32; it
-//   forms S^T = k q^T rather than S, so P^T and dS^T come out of the
-//   accumulators already in the A-fragment layout that dV += P^T dO and
-//   dK += dS^T q need (no transpose through shared memory for P or dS);
-//   q and dO are staged twice, row-major and transposed. dK and dV stay in
-//   f32 registers (2 x 40 at HDP 80) for the whole walk; query tiles of
-//   32 keep S^T and dP^T at 16 registers each.
+// - dkv, on Hopper's warpgroup MMA (wgmma, `hopper.cuh`): a block of two
+//   warpgroups owns 128 keys, K and V staged once, and walks the queries in
+//   tiles of 64 through a 3-stage cp.async ring of (q, dO, lse, di). S^T =
+//   K q^T and dP^T = V dO^T come from shared memory (m64n64k16); P^T and
+//   dS^T are rounded to bf16 register-A fragments in the accumulators' own
+//   layout; dV += P^T dO and dK += dS^T q read the same q and dO tiles
+//   MN-major (transpose bit), so each operand is staged once and never
+//   transposed. Details at the kernel.
 // - dq: a block owns 64 queries and walks the keys in tiles of 64, as the
 //   forward does, with dO as a second A operand; dQ += dS K reads K
 //   transposed from shared memory. Each block writes only its own rows:
@@ -49,16 +50,19 @@
 // What bounds them on an H100: operations. At B2 H6 N4104 hd66 the
 // forward does 4 B H N^2 hd = 5.3e10 FLOP, dkv 8 B H N^2 hd = 1.07e11 and
 // dq 6 B H N^2 hd = 8.0e10, on a few MB of input: thousands of FLOP per
-// byte. These first versions are simple: tiles are loaded with 4-byte
-// loads and no copy overlaps the MMAs, mma.sync reaches a fraction of the
-// wgmma rate, the hd padding 66 -> 80 spends 21 % more MMA work, and the
-// backward recomputes S in both passes; a TMA ring, wgmma and a
-// warp-specialized producer are later work.
+// byte. dkv therefore runs on wgmma with its copies a ring ahead of the
+// MMAs, and pads the head dim to 16 only in shared memory. The forward and
+// dq stay on mma.sync
+// with 4-byte tile loads that do not overlap the MMAs, the head dim padded
+// to 80 in every product; a ring and wgmma for them, as in dkv, are later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -304,22 +308,62 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // backward: dK and dV (key side), dQ (query side)
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BQB = 32;       // query rows per tile of the key-side pass
-constexpr int TS = BQB + 8;   // row stride of its transposed q and dO tiles
-static_assert(BK == 2 * BQB, "sQ and sdO together stage the block's keys");
 
-// Key side: a block of 4 warps owns 64 keys (16 per warp, K and V kept as
-// mma.sync A fragments in registers) and walks the queries in tiles of 32.
-// Per tile it forms S^T = K q^T, P^T = exp(S^T * scale - lse) and
-// dP^T = V dO^T in accumulator registers whose layout is the A-fragment
-// layout of the next product, so P^T and dS^T = P^T (dP^T - di) go to
-// bf16 registers and dV += P^T dO, dK += dS^T q accumulate in f32
-// registers; q and dO are staged row-major (for S^T and dP^T) and
-// transposed (for the two accumulations). Queries past N read lse = +inf
-// (P = 0) and di = 0, so they add nothing; keys past N are zeros and are
-// not stored.
+// Key side, on Hopper's warpgroup MMA. A block of two warpgroups owns 128
+// keys (64 each); K and V are staged once in shared memory. The block walks
+// the queries in tiles of 64 through a DKV_STAGES-deep cp.async ring of
+// (q, dO, lse, di), loading DKV_STAGES - 1 tiles ahead of the MMAs. Per
+// tile and warpgroup:
+//   S^T = K q^T and dP^T = V dO^T   wgmma m64n64k16, A = K or V and B = the
+//                                   q or dO tile (K-major), over HDP / 16
+//                                   head-dim steps;
+//   P^T = exp2(S^T scale log2 e - lse log2 e), dS^T = P^T (dP^T - di) on
+//                                   the accumulators, rounded to bf16
+//                                   register-A fragments;
+//   dV += P^T dO and dK += dS^T q   register-A wgmma m64nHDPk16 over the
+//                                   64 queries, B = the same q and dO tiles
+//                                   read MN-major (transpose bit); at hd 66
+//                                   the m64n72 that skips the padding ran
+//                                   no faster on the card than m64n80.
+// Every tile lies in shared memory as no-swizzle core matrices (8 rows x 8
+// head dims, 128 bytes), head-dim group major, so one copy serves both
+// reads: K-major, core matrices adjacent along N (rows) are 128 bytes apart
+// and along K (head dims) rows / 8 x 128; MN-major the other way round.
+// A (B, H, N, hd) row of 66 bf16 is only 4-byte aligned, so the tiles come
+// in by 4-byte cp.async, one warp filling one core matrix per instruction;
+// head dims past hd and rows past N are zero-filled by the copy. A query
+// past N is a zero row of q and dO (its lse and di read 0): its P^T is
+// finite and its dS^T 0, so it adds nothing; a key past N is a zero row
+// whose dK and dV are not stored. dK and dV stay in f32 registers for the
+// whole walk; dK is scaled once at the end, and each block writes only its
+// own key rows (deterministic, no atomics).
+constexpr int DKV_KEYS = 128;  // keys per block: 64 per warpgroup
+constexpr int DKV_Q = 64;      // queries per ring tile
+constexpr int DKV_STAGES = 3;
+constexpr int DKV_THREADS = 256;
+
+// rows [r0, r0 + R) of one (N, hd) head into the core-matrix tile at `dst`
+// (core (row group i, head-dim group j) at (j * R / 8 + i) * 128), by the
+// block's 8 warps; zeros past N and past hd
+template <int R, int HDP>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const __nv_bfloat16* src, int r0,
+                                          int N, int hd) {
+  constexpr int RG = R / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = lane >> 2, col_in = 2 * (lane & 3);
+#pragma unroll 2
+  for (int c = warp; c < RG * (HDP / 8); c += DKV_THREADS / 32) {
+    const int j = c / RG, i = c - j * RG;
+    const int row = r0 + 8 * i + r, col = 8 * j + col_in;
+    const bool ok = row < N && col < hd;
+    hopper::cp_async4(dst + c * 128 + lane * 4,
+                      ok ? src + (int64_t)row * hd + col : src, ok);
+  }
+}
+
 template <int HDP>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(DKV_THREADS, 1)
 flash_attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
                                const __nv_bfloat16* __restrict__ v,
@@ -329,131 +373,141 @@ flash_attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                                float* __restrict__ dk,
                                float* __restrict__ dv, int N, int hd,
                                float scale, float scale_log2) {
-  constexpr int QS = HDP + 8;
-  constexpr int KSTEPS = HDP / 16;
-  constexpr int DTILES = HDP / 8;
-  constexpr int NTILES = BQB / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  // sQ and sdO are contiguous: together they first stage the 64 keys
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);  // BQB x QS
-  __nv_bfloat16* sdO = sQ + BQB * QS;                          // BQB x QS
-  __nv_bfloat16* sQt = sdO + BQB * QS;                         // HDP x TS
-  __nv_bfloat16* sdOt = sQt + HDP * TS;                        // HDP x TS
-  float* sL = reinterpret_cast<float*>(sdOt + HDP * TS);       // BQB
-  float* sD = sL + BQB;                                        // BQB
+  using namespace hopper;
+  constexpr int KV_BYTES = DKV_KEYS * HDP * 2;
+  constexpr int T_BYTES = DKV_Q * HDP * 2;  // one q or dO tile
+  constexpr int STAGE = 2 * T_BYTES + 2 * DKV_Q * 4;
+  constexpr int KG = DKV_KEYS / 8 * 128;  // K / V: next head-dim group
+  constexpr int QG = DKV_Q / 8 * 128;     // q / dO: next head-dim group
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);
+  const uint32_t sK = s0, sV = s0 + KV_BYTES, sR = s0 + 2 * KV_BYTES;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int c = lane & 3;
+  const int lane = tid & 31, w = (tid >> 5) & 3, wg = tid >> 7;
   const int64_t head = (int64_t)blockIdx.y * N * hd;
   const int64_t hrow = (int64_t)blockIdx.y * N;
-  const int k0 = blockIdx.x * BK;
-  const int r0 = warp * 16;
+  const int k0 = blockIdx.x * DKV_KEYS;
+  const int ntiles = (N + DKV_Q - 1) / DKV_Q;
 
-  zero_pad<BK, QS, false, HDP>(sQ, hd);  // sQ and sdO
-  zero_pad<BQB, TS, true, HDP>(sQt, hd);
-  zero_pad<BQB, TS, true, HDP>(sdOt, hd);
-
-  uint32_t ka[KSTEPS][4], va[KSTEPS][4];
-  load_tile<BK, QS, false>(sQ, k + head, k0, N, hd);
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    ka[kk][0] = ld32(sQ + (r0 + g) * QS + kk * 16 + 2 * c);
-    ka[kk][1] = ld32(sQ + (r0 + g + 8) * QS + kk * 16 + 2 * c);
-    ka[kk][2] = ld32(sQ + (r0 + g) * QS + kk * 16 + 8 + 2 * c);
-    ka[kk][3] = ld32(sQ + (r0 + g + 8) * QS + kk * 16 + 8 + 2 * c);
-  }
-  __syncthreads();
-  load_tile<BK, QS, false>(sQ, v + head, k0, N, hd);
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    va[kk][0] = ld32(sQ + (r0 + g) * QS + kk * 16 + 2 * c);
-    va[kk][1] = ld32(sQ + (r0 + g + 8) * QS + kk * 16 + 2 * c);
-    va[kk][2] = ld32(sQ + (r0 + g) * QS + kk * 16 + 8 + 2 * c);
-    va[kk][3] = ld32(sQ + (r0 + g + 8) * QS + kk * 16 + 8 + 2 * c);
-  }
-
-  float dka[DTILES][4], dva[DTILES][4];
-#pragma unroll
-  for (int dn = 0; dn < DTILES; ++dn) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dka[dn][i] = dva[dn][i] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < N; q0 += BQB) {
-    __syncthreads();  // the previous tile (or the K and V staging) is read
-    load_tile<BQB, QS, false>(sQ, q + head, q0, N, hd);
-    load_tile<BQB, QS, false>(sdO, dout + head, q0, N, hd);
-    load_tile<BQB, TS, true>(sQt, q + head, q0, N, hd);
-    load_tile<BQB, TS, true>(sdOt, dout + head, q0, N, hd);
-    if (tid < BQB) {
-      const bool valid = q0 + tid < N;
-      sL[tid] = valid ? lse[hrow + q0 + tid] * LOG2E : INFINITY;
-      sD[tid] = valid ? di[hrow + q0 + tid] : 0.f;
+  auto load_tile = [&](int t, int slot) {
+    const uint32_t st = sR + slot * STAGE;
+    const int q0 = t * DKV_Q;
+    load_rows<DKV_Q, HDP>(st, q + head, q0, N, hd);
+    load_rows<DKV_Q, HDP>(st + T_BYTES, dout + head, q0, N, hd);
+    if (tid < 2 * DKV_Q) {
+      const float* src = (tid < DKV_Q ? lse : di) + hrow;
+      const bool ok = q0 + (tid & (DKV_Q - 1)) < N;
+      cp_async4(st + 2 * T_BYTES + tid * 4,
+                ok ? src + q0 + (tid & (DKV_Q - 1)) : src, ok);
     }
+  };
+  // K and V join the first ring group
+  load_rows<DKV_KEYS, HDP>(sK, k + head, k0, N, hd);
+  load_rows<DKV_KEYS, HDP>(sV, v + head, k0, N, hd);
+#pragma unroll
+  for (int s = 0; s < DKV_STAGES - 1; ++s) {
+    if (s < ntiles) load_tile(s, s);
+    cp_async_commit();
+  }
+
+  // accumulators: each is first written by an MMA (scale-d 0), so no other
+  // instruction defines it and the MMAs stay asynchronous
+  float st[32], dpt[32], dka[HDP / 2], dva[HDP / 2];
+  uint32_t pa[4][4], dsa[4][4];
+  const uint32_t kA = sK + wg * 8 * 128, vA = sV + wg * 8 * 128;
+  const int cq = 2 * (lane & 3);  // this lane's query columns 8 j + cq (+1)
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<DKV_STAGES - 2>();
+    fence_proxy_async();
     __syncthreads();
+    // the slot loaded now was last read by tile t - 1's MMAs, which both
+    // warpgroups waited for before the barrier
+    const int nxt = t + DKV_STAGES - 1;
+    if (nxt < ntiles) load_tile(nxt, nxt % DKV_STAGES);
+    cp_async_commit();
+    const uint32_t sq = sR + (t % DKV_STAGES) * STAGE, sdo = sq + T_BYTES;
+    const float* sl =
+        reinterpret_cast<const float*>(smem + (sq - s0) + 2 * T_BYTES);
+    const float* sd = sl + DKV_Q;
 
-    float st[NTILES][4], dpt[NTILES][4];
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NTILES; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const __nv_bfloat16* qr = sQ + (j * 8 + g) * QS + kk * 16 + 2 * c;
-        mma16816(st[j], ka[kk], ld32(qr), ld32(qr + 8));
-        const __nv_bfloat16* dr = sdO + (j * 8 + g) * QS + kk * 16 + 2 * c;
-        mma16816(dpt[j], va[kk], ld32(dr), ld32(dr + 8));
-      }
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      const uint64_t bq = make_desc(sq + 2 * kk * QG, QG, 128);
+      const uint64_t bdo = make_desc(sdo + 2 * kk * QG, QG, 128);
+      Wgmma<64, 0, 0>::mma(st, make_desc(kA + 2 * kk * KG, KG, 128), bq,
+                           kk > 0);
+      Wgmma<64, 0, 0>::mma(dpt, make_desc(vA + 2 * kk * KG, KG, 128), bdo,
+                           kk > 0);
     }
-    // P^T and dS^T in the A-fragment layout (rows: keys; k: queries)
-    uint32_t pa[BQB / 16][4], dsa[BQB / 16][4];
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T and dS^T as A fragments (rows: keys; K: queries): columns 8 j
+    // of the accumulators are K 0-7 (j even) or 8-15 (j odd) of step j / 2
 #pragma unroll
-    for (int j = 0; j < NTILES; ++j) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = j * 8 + 2 * c + (i & 1);
-        p[i] = exp2f(st[j][i] * scale_log2 - sL[col]);
-        ds[i] = p[i] * (dpt[j][i] - sD[col]);
-      }
-      pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-      dsa[j / 2][(j % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(sl + 8 * j + cq);
+      const float2 d = *reinterpret_cast<const float2*>(sd + 8 * j + cq);
+      const float l0 = l.x * LOG2E, l1 = l.y * LOG2E;
+      const float p0 = exp2f(st[4 * j] * scale_log2 - l0);
+      const float p1 = exp2f(st[4 * j + 1] * scale_log2 - l1);
+      const float p2 = exp2f(st[4 * j + 2] * scale_log2 - l0);
+      const float p3 = exp2f(st[4 * j + 3] * scale_log2 - l1);
+      pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(p0, p1);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      dsa[j / 2][(j % 2) * 2 + 0] =
+          pack_bf16(p0 * (dpt[4 * j] - d.x), p1 * (dpt[4 * j + 1] - d.y));
+      dsa[j / 2][(j % 2) * 2 + 1] =
+          pack_bf16(p2 * (dpt[4 * j + 2] - d.x), p3 * (dpt[4 * j + 3] - d.y));
     }
+
+    fence_regs(dka);
+    fence_regs(dva);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BQB / 16; ++kk) {
+    for (int kq = 0; kq < DKV_Q / 16; ++kq) {
+      // B MN-major: K (queries) groups 128 bytes apart, N (head dims) QG
+      const int on = t > 0 || kq > 0;
+      WgmmaRS<HDP, 1>::mma(dva, pa[kq], make_desc(sdo + 2 * kq * 128, 128, QG),
+                          on);
+      WgmmaRS<HDP, 1>::mma(dka, dsa[kq], make_desc(sq + 2 * kq * 128, 128, QG),
+                          on);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dka);
+    fence_regs(dva);
 #pragma unroll
-      for (int dn = 0; dn < DTILES; ++dn) {
-        const __nv_bfloat16* dr = sdOt + (dn * 8 + g) * TS + kk * 16 + 2 * c;
-        mma16816(dva[dn], pa[kk], ld32(dr), ld32(dr + 8));
-        const __nv_bfloat16* qr = sQt + (dn * 8 + g) * TS + kk * 16 + 2 * c;
-        mma16816(dka[dn], dsa[kk], ld32(qr), ld32(qr + 8));
-      }
+    for (int kq = 0; kq < DKV_Q / 16; ++kq) {
+      fence_regs(pa[kq]);
+      fence_regs(dsa[kq]);
     }
   }
+  cp_async_wait<0>();
 
-  const int row0 = k0 + r0 + g, row1 = row0 + 8;
+  // rows 16 w + lane / 4 (+ 8) of the warpgroup's 64 keys, head dims
+  // 8 j + cq (+ 1); hd is even, so a pair is either stored or past hd
+  const int row0 = k0 + 64 * wg + 16 * w + (lane >> 2);
 #pragma unroll
-  for (int dn = 0; dn < DTILES; ++dn) {
+  for (int j = 0; j < HDP / 8; ++j) {
+    const int col = 8 * j + cq;
+    if (col >= hd) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int col = dn * 8 + 2 * c + h;
-      if (col < hd) {
-        if (row0 < N) {
-          dk[head + (int64_t)row0 * hd + col] = dka[dn][h] * scale;
-          dv[head + (int64_t)row0 * hd + col] = dva[dn][h];
-        }
-        if (row1 < N) {
-          dk[head + (int64_t)row1 * hd + col] = dka[dn][2 + h] * scale;
-          dv[head + (int64_t)row1 * hd + col] = dva[dn][2 + h];
-        }
-      }
+      const int row = row0 + 8 * h;
+      if (row >= N) continue;
+      const int64_t off = head + (int64_t)row * hd + col;
+      *reinterpret_cast<float2*>(dk + off) = make_float2(
+          dka[4 * j + 2 * h] * scale, dka[4 * j + 2 * h + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off) =
+          make_float2(dva[4 * j + 2 * h], dva[4 * j + 2 * h + 1]);
     }
   }
 }
@@ -597,13 +651,14 @@ struct BwdArgs {
 
 template <int HDP>
 cudaError_t launch_bwd_dkv(const BwdArgs& a, cudaStream_t st) {
-  const int smem = (2 * BQB * (HDP + 8) + 2 * HDP * TS) * 2 + 2 * BQB * 4;
+  const int smem = 2 * DKV_KEYS * HDP * 2 +
+                   DKV_STAGES * (2 * DKV_Q * HDP * 2 + 2 * DKV_Q * 4);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_bwd_dkv_kernel<HDP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.N + BK - 1) / BK, a.BH);
-  flash_attention_bwd_dkv_kernel<HDP><<<grid, NTHREADS, smem, st>>>(
+  dim3 grid((a.N + DKV_KEYS - 1) / DKV_KEYS, a.BH);
+  flash_attention_bwd_dkv_kernel<HDP><<<grid, DKV_THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
@@ -632,14 +687,22 @@ cudaError_t launch_bwd_dq(const BwdArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// the head-dim instantiations of the backward: hd up to 80
-template <bool DKV>
-cudaError_t dispatch_bwd(const BwdArgs& a, cudaStream_t st) {
-  if (a.hd <= 16) return DKV ? launch_bwd_dkv<16>(a, st) : launch_bwd_dq<16>(a, st);
-  if (a.hd <= 32) return DKV ? launch_bwd_dkv<32>(a, st) : launch_bwd_dq<32>(a, st);
-  if (a.hd <= 48) return DKV ? launch_bwd_dkv<48>(a, st) : launch_bwd_dq<48>(a, st);
-  if (a.hd <= 64) return DKV ? launch_bwd_dkv<64>(a, st) : launch_bwd_dq<64>(a, st);
-  return DKV ? launch_bwd_dkv<80>(a, st) : launch_bwd_dq<80>(a, st);
+// the head-dim instantiations of the backward: hd up to 80, padded to 16
+// (HDP)
+cudaError_t dispatch_dkv(const BwdArgs& a, cudaStream_t st) {
+  if (a.hd <= 16) return launch_bwd_dkv<16>(a, st);
+  if (a.hd <= 32) return launch_bwd_dkv<32>(a, st);
+  if (a.hd <= 48) return launch_bwd_dkv<48>(a, st);
+  if (a.hd <= 64) return launch_bwd_dkv<64>(a, st);
+  return launch_bwd_dkv<80>(a, st);
+}
+
+cudaError_t dispatch_dq(const BwdArgs& a, cudaStream_t st) {
+  if (a.hd <= 16) return launch_bwd_dq<16>(a, st);
+  if (a.hd <= 32) return launch_bwd_dq<32>(a, st);
+  if (a.hd <= 48) return launch_bwd_dq<48>(a, st);
+  if (a.hd <= 64) return launch_bwd_dq<64>(a, st);
+  return launch_bwd_dq<80>(a, st);
 }
 
 bool bad_bwd_shape(int BH, int N, int hd) {
@@ -689,7 +752,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   }
   BwdArgs a{q, k, v, dout, lse, di, nullptr, dk, dv, BH, N, hd, scale};
   return static_cast<int>(
-      dispatch_bwd<true>(a, static_cast<cudaStream_t>(stream)));
+      dispatch_dkv(a, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
@@ -701,6 +764,5 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BwdArgs a{q, k, v, dout, lse, di, dq, nullptr, nullptr, BH, N, hd, scale};
-  return static_cast<int>(
-      dispatch_bwd<false>(a, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dispatch_dq(a, static_cast<cudaStream_t>(stream)));
 }

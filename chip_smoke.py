@@ -157,15 +157,22 @@ def ptxas_report(text: str) -> list[str]:
 
     def short(mangled):
         # the length-prefixed name that ends in "kernel", then its
-        # template arguments
+        # template arguments. A length may follow other digits or letters
+        # of an anonymous namespace's hash ("...14c11conv_kernel"), so
+        # every suffix of every digit run is tried and the shortest name
+        # that fits is taken.
+        found = []
         for m in re.finditer(r"\d+", mangled):
-            name = mangled[m.end():m.end() + int(m.group())]
-            if re.fullmatch(r"[A-Za-z_]\w*kernel", name):
-                rest = mangled[m.end() + len(name):]
-                t = re.match(r"I((?:L[ib]\d+E)+)E", rest)
-                args = re.findall(r"L[ib](\d+)E", t.group(1)) if t else []
-                return name + (f"<{', '.join(args)}>" if args else "")
-        return mangled
+            for k in range(len(m.group())):
+                name = mangled[m.end():m.end() + int(m.group()[k:])]
+                if re.fullmatch(r"[A-Za-z_]\w*kernel", name):
+                    found.append((len(name), m.end()))
+        if not found:
+            return mangled
+        n, at = min(found)
+        t = re.match(r"I((?:L[ib]\d+E)+)E", mangled[at + n:])
+        args = re.findall(r"L[ib](\d+)E", t.group(1)) if t else []
+        return mangled[at:at + n] + (f"<{', '.join(args)}>" if args else "")
 
     remarks, rows, errors, name, props = {}, [], [], None, ""
     for line in text.splitlines():
@@ -517,9 +524,10 @@ def check_norm_apply(kn, norms, torch, dev, gen, B, S, C, tiles, act,
     )
 
 
-def check_conv_down(kd, torch, F, dev, gen, B, S, ci, co):
+def check_conv_down(kc, kd, torch, F, dev, gen, B, S, ci, co):
     """conv_down2_ndhwc: (B, S^3, ci) -> (B, (S/2)^3, co), zero padding 1,
-    f32 store (an instance norm follows every tokenizer conv)."""
+    f32 store (an instance norm follows every tokenizer conv), with the
+    launch plan `conv_plan(..., mode=MODE_S2)` picks."""
     x = torch.randn((B, S, S, S, ci), generator=gen, device=dev).to(
         torch.bfloat16)
     w = (torch.randn((27 * ci, co), generator=gen, device=dev)
@@ -543,12 +551,70 @@ def check_conv_down(kd, torch, F, dev, gen, B, S, ci, co):
     nbytes = (B * S ** 3 * ci * 2 + 27 * ci * co * 2 + co * 4
               + B * s ** 3 * co * 4)
     b_ms, b_by = bound(flops, nbytes)
+    plan = kc.conv_plan(B, (s, s, s), ci, co, mode=kc.MODE_S2)
+    ring = (down2_brick_vs_ring(kc, kd, torch, x, w, b, kw, ref)
+            if plan.brick else None)
     return dict(
         shape=f"B{B} {S}^3x{ci} -> {s}^3x{co} f32-out", max_abs_err=err,
         rel_err=rel, tol=tol_conv_f32(27 * ci),
         ok=rel < tol_conv_f32(27 * ci), ms=ms,
         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        plan=conv_plan_desc(plan, kc.MODE_S2), brick_vs_ring=ring,
     )
+
+
+def down2_brick_vs_ring(kc, kd, torch, x, w, b, kw, ref) -> dict:
+    """V2 where `conv_plan` picks the parity-split brick, against the
+    gather ring it picks once the brick is ruled out (`brick_chunk` made to
+    return 0 for those calls): four rounds of ring, brick, brick, ring in
+    one process, each a CUDA-event mean, the spread of each plan's rounds,
+    and the ring's error against the plain version."""
+    brick_chunk = kc.brick_chunk
+
+    def ring():
+        kc.brick_chunk = lambda *a, **k: 0
+        try:
+            return kd.conv_down2_ndhwc(x, w, b, **kw)
+        finally:
+            kc.brick_chunk = brick_chunk
+
+    def brick():
+        return kd.conv_down2_ndhwc(x, w, b, **kw)
+
+    got = ring()
+    torch.cuda.synchronize()
+    ring_err, _ = rel_err(got, ref)
+    times = {"ring": [], "brick": []}
+    for _ in range(4):
+        for name, fn in (("ring", ring), ("brick", brick), ("brick", brick),
+                         ("ring", ring)):
+            times[name].append(cuda_ms(fn))
+    mean = {k: sum(v) / len(v) for k, v in times.items()}
+    spread = {k: max(v) - min(v) for k, v in times.items()}
+    log(f"[kernel] conv_down2_ndhwc {tuple(x.shape)} -> Co {w.shape[1]} "
+        f"brick vs ring (rounds ring, brick, brick, ring): brick "
+        f"{times['brick']} ms, ring {times['ring']} ms; means "
+        f"{mean['brick']:.4f} / {mean['ring']:.4f} ms (brick / ring "
+        f"{mean['brick'] / mean['ring']:.4f}), spreads "
+        f"{spread['brick']:.4f} / {spread['ring']:.4f} ms; ring max_abs_err "
+        f"{ring_err:.3e}; {nvidia_smi()}")
+    return dict(brick_ms=times["brick"], ring_ms=times["ring"],
+                ring_max_abs_err=ring_err)
+
+
+def check_conv_down_determinism(kd, torch, dev, gen):
+    """Two launches of V2 at its split-K stage (B2 32^3 x 384 -> 16^3 x
+    256, f32 out): the largest difference between them."""
+    ci, co = 3 * 128, 256
+    x = torch.randn((2, 32, 32, 32, ci), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = (torch.randn((27 * ci, co), generator=gen, device=dev)
+         * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+    b = torch.randn((co,), generator=gen, device=dev) * 0.1
+    first = kd.conv_down2_ndhwc(x, w, b, out_dtype=torch.float32)
+    second = kd.conv_down2_ndhwc(x, w, b, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    return (first - second).abs().max().item()
 
 
 def sdpa_backend(torch, q, k, v, scale) -> str:
@@ -667,7 +733,8 @@ def sdpa_backward_ms(torch, F, q, k, v, do, scale):
 def check_attention_bwd(ka, torch, F, dev, gen, B, H, N, hd):
     """flash_attention_bwd_dkv and flash_attention_bwd_dq at (B, H, N, hd)
     bf16 from the kernel forward's lse, against their plain versions on the
-    same inputs; library: SDPA's whole backward."""
+    same inputs, dkv also against its own second launch (bit-equal);
+    library: SDPA's whole backward, beside the sum of the two kernels."""
     q, k, v, do = (torch.randn((B, H, N, hd), generator=gen, device=dev).to(
         torch.bfloat16) for _ in range(4))
     scale = hd ** -0.5
@@ -692,16 +759,25 @@ def check_attention_bwd(ka, torch, F, dev, gen, B, H, N, hd):
         errs = [rel_err(a, r) for a, r in zip(got, ref)]
         err = max(e[0] for e in errs)
         rel = max(e[1] for e in errs)
-        del got, ref
+        again = fn(*args)
+        again = again if isinstance(again, tuple) else (again,)
+        repeats = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        del got, ref, again
         ms = cuda_ms(lambda: fn(*args))
         plain_ms = cuda_ms(lambda: plain(*args), max_reps=20)
         b_ms, b_by = bound(flops, in_bytes + outs * 4.0 * B * H * N * hd)
         rows[name] = dict(
             shape=f"B{B} H{H} N{N} hd{hd}", max_abs_err=err, rel_err=rel,
-            tol=TOL_CONV_BF16, ok=rel < TOL_CONV_BF16, ms=ms,
+            tol=TOL_CONV_BF16, ok=rel < TOL_CONV_BF16 and repeats, ms=ms,
             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-            bound_by=b_by, sdpa_backend=backend,
+            bound_by=b_by, sdpa_backend=backend, repeats=repeats,
         )
+    pair = rows["flash_attention_bwd_dkv"]["ms"] + rows[
+        "flash_attention_bwd_dq"]["ms"]
+    log(f"[kernel] attention backward B{B} H{H} N{N} hd{hd}: dkv + dq "
+        f"{pair:.4f} ms, SDPA's whole backward {lib_ms:.4f} ms "
+        f"({pair / lib_ms:.2f}x); dkv two launches bit-equal: "
+        f"{rows['flash_attention_bwd_dkv']['repeats']}")
     return rows
 
 
@@ -851,21 +927,29 @@ def conv_backward_library(torch, F, x, dy, w, pad, mask, stride2=False):
         list(mask))
 
 
-def conv_plan_desc(plan, stride2_dgrad=False) -> str:
+def conv_plan_desc(plan, mode=0) -> str:
     """A conv launch plan of `kernels/conv.py` as the [kernel] lines print
     it: the M tile, the N tile, the split of K, the grid (the stride-2
     input gradient's gather grid runs its 8 parity classes on z) and the
-    dynamic shared memory a block takes (as `csrc/conv3d.cu` sizes it)."""
-    if plan.brick:
+    dynamic shared memory a block takes (as `csrc/conv3d.cu` sizes it).
+    `mode` as `conv_plan`'s: 0 stride 1, 1 the stride-2 input gradient, 2
+    the stride-2 conv."""
+    if plan.brick and mode == 2:
+        tile = (f"parity-split halo brick 8x8x4 (17x17x9 halo), K chunk "
+                f"{plan.chunk}, 27 taps in 14 K16 steps")
+        grid = (plan.m_tiles, plan.n_tiles)
+        halo = 17 * 17 * 9
+        smem = 2 * (halo * 16 + 14 * 16 * plan.bn * 2) + halo * 4
+    elif plan.brick:
         tile = f"halo brick 8x8x4, K chunk {plan.chunk}"
         grid = (plan.m_tiles, plan.n_tiles)
-        halo = 9 * 9 * 5 if stride2_dgrad else 10 * 10 * 6
+        halo = 9 * 9 * 5 if mode == 1 else 10 * 10 * 6
         smem = halo * plan.chunk * 2 + 27 * plan.chunk * plan.bn * 2
     else:
         tile = (f"tile {1 << plan.bx}x{1 << plan.by}x{1 << plan.bz}"
                 f"x{1 << plan.bb}b, ring {plan.stages}")
         grid = (plan.m_tiles, plan.n_tiles,
-                8 if stride2_dgrad else plan.splits)
+                8 if mode == 1 else plan.splits)
         smem = plan.stages * (128 * 64 * 2 + 64 * plan.bn * 2)
     blocks = 1
     for g in grid:
@@ -932,8 +1016,8 @@ def check_conv_backward(kt, torch, F, dev, gen, B, S, ci, co, which,
         in_bytes = work * co * 2 + 27 * ci * co * 2
         grid = ((g, g, g) if stride2 or pad != "reflect"
                 else (S + 2, S + 2, S + 2))
-        plan = conv_plan_desc(kt.conv_plan(B, grid, co, ci,
-                                           stride2_dgrad=stride2), stride2)
+        mode = kt.MODE_S2_DGRAD if stride2 else 0
+        plan = conv_plan_desc(kt.conv_plan(B, grid, co, ci, mode=mode), mode)
     got = fn()
     ref = plain()
     torch.cuda.synchronize()
@@ -1205,7 +1289,7 @@ def main(argv) -> int:
     for B, S, ci, co in [(2, 128, 3 * 32, 64), (2, 64, 3 * 64, 128),
                          (2, 32, 3 * 128, 256)]:
         checks["conv_down2_ndhwc"].append(
-            check_conv_down(kd, torch, F, dev, gen, B, S, ci, co))
+            check_conv_down(kc, kd, torch, F, dev, gen, B, S, ci, co))
     for B, H, N, hd in [(2, 6, 4104, 66), (1, 6, 4104, 66)]:
         checks["flash_attention"].append(
             check_attention(ka, torch, F, dev, gen, B, H, N, hd))
@@ -1295,6 +1379,14 @@ def main(argv) -> int:
         f"{report['determinism']['max_abs_diff']}")
     if report["determinism"]["max_abs_diff"] != 0.0:
         failed.append("conv3x3x3_ndhwc determinism")
+    # and V2 at its split-K stage
+    report["determinism_down2"] = check_conv_down_determinism(kd, torch, dev,
+                                                              gen)
+    splits = kc.conv_plan(2, (16, 16, 16), 384, 256, mode=kc.MODE_S2).splits
+    log(f"[determinism] conv_down2_ndhwc B2 32^3x384 -> 16^3x256 f32-out, "
+        f"split {splits}: two launches max|diff| {report['determinism_down2']}")
+    if report["determinism_down2"] != 0.0:
+        failed.append("conv_down2_ndhwc determinism")
     if failed:
         raise RuntimeError(f"kernel disagrees with its plain version: {failed}")
     torch.cuda.empty_cache()
@@ -1513,7 +1605,7 @@ def main(argv) -> int:
         "conv3x3x3_cat_ndhwc": csrc + "conv3d.cu",
         "upsample2x_trilinear_ndhwc": csrc + "upsample.cu",
         "norm_apply_ndhwc": csrc + "norm_apply.cu",
-        "conv_down2_ndhwc": csrc + "conv_down.cu",
+        "conv_down2_ndhwc": csrc + "conv3d.cu",
         "flash_attention": csrc + "flash_attention.cu",
         "depth_to_space8_ndhwc": csrc + "depth_to_space8.cu",
         "conv3x3x3_wgrad_ndhwc": csrc + "conv3d_wgrad.cu",

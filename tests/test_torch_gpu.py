@@ -203,6 +203,50 @@ def test_conv_down_kernel_matches_plain(cuda, B, shape, ci, co):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,shape,ci,co,kind", [
+    (2, (128, 128, 128), 3 * 32, 64, "brick"),  # the tokenizer's stages on
+    (2, (64, 64, 64), 3 * 64, 128, "ring"),     # the three-term split
+    (2, (32, 32, 32), 3 * 128, 256, "split"),
+    (1, (15, 16, 17), 12, 20, "ring"),   # odd extents; Ci % 16, Co % 8 != 0
+    (2, (63, 64, 65), 12, 20, "brick"),  # the same on the parity-split brick
+])
+def test_conv_down_plans_match_plain(cuda, B, shape, ci, co, kind):
+    """V2 on each plan `conv_plan(..., mode=MODE_S2)` picks (the
+    parity-split halo brick, the gather ring, split K) against its plain
+    version: f32 out within k 2^-24 of max |ref| for a k-product reduction
+    (at least 1e-4), bf16 out within 1e-2; where K is split, two launches
+    give the same bits."""
+    from anatomix_tpu_torch.kernels.conv import MODE_S2, conv_plan
+    from anatomix_tpu_torch.kernels.conv_train import s2_grid
+
+    plan = conv_plan(B, s2_grid(shape), ci, co, mode=MODE_S2)
+    assert kind == ("brick" if plan.brick else
+                    "split" if plan.splits > 1 else "ring")
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((B,) + shape + (ci,), generator=g,
+                    device=cuda).bfloat16()
+    w = (torch.randn((27 * ci, co), generator=g, device=cuda)
+         * (2.0 / (27 * ci)) ** 0.5).bfloat16()
+    b = torch.randn((co,), generator=g, device=cuda) * 0.1
+    n = conv_down2_ndhwc.launches
+    for out_dtype, act, tol in (
+            (torch.float32, "none", max(1e-4, 27 * ci * 2.0 ** -24)),
+            (torch.bfloat16, "lrelu", 1e-2)):
+        kw = dict(act=act, slope=0.01, out_dtype=out_dtype)
+        got = conv_down2_ndhwc(x, w, b, **kw)
+        again = conv_down2_ndhwc(x, w, b, **kw)
+        ref = conv_down2_ndhwc_plain(x, w, b, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (B, *s2_grid(shape), co)
+        assert got.dtype == out_dtype
+        assert _maxrel(got.float().cpu(), ref.float().cpu()) < tol
+        if plan.splits > 1:
+            assert torch.equal(got, again)
+        del got, again, ref
+    assert conv_down2_ndhwc.launches == n + 4
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,H,N,hd", [
     (1, 6, 4104, 66),   # the ViT's window at B=1: a ragged key tail
     (2, 2, 129, 66),    # one key past a tile
@@ -492,7 +536,7 @@ def test_flash_attention_backward_kernels_match_plain(cuda, B, H, N, hd):
     """The forward's log-sum-exp, dkv and dq against their plain versions
     on the same bf16 inputs, within the bf16-operand bound 1e-2 (max |err|
     / max |ref|); the forward's output is unchanged by asking for the
-    lse."""
+    lse; a second dkv launch gives the same bits."""
     from anatomix_tpu_torch.kernels import attention as ka
 
     g = torch.Generator(device=cuda).manual_seed(8)
@@ -513,6 +557,8 @@ def test_flash_attention_backward_kernels_match_plain(cuda, B, H, N, hd):
     torch.cuda.synchronize()
     assert (ka.flash_attention_bwd_dkv.launches,
             ka.flash_attention_bwd_dq.launches) == (n[0] + 1, n[1] + 1)
+    dk2, dv2 = ka.flash_attention_bwd_dkv(q, k, v, lse, do, di, scale)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     rk, rv = ka.flash_attention_bwd_dkv_plain(q, k, v, lse, do, di, scale)
     rq = ka.flash_attention_bwd_dq_plain(q, k, v, lse, do, di, scale)
     for got, ref in ((dq, rq), (dk, rk), (dv, rv)):

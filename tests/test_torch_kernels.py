@@ -192,7 +192,7 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
         x, w, b, act="relu", pad_type="zeros", out_dtype=torch.float32))
     assert conv3x3x3_ndhwc.launches == before
     assert build.SOURCES == ("conv3d", "blend_scatter", "norm_apply",
-                             "upsample", "conv_down", "flash_attention",
+                             "upsample", "flash_attention",
                              "depth_to_space8", "conv3d_wgrad", "reshuffle")
     # the ViT's kernels take their plain versions on the CPU too
     from anatomix_tpu_torch.kernels.attention import flash_attention
