@@ -8,9 +8,9 @@ TPU flash kernel); `flash_attention_bwd_dkv` and `flash_attention_bwd_dq`
 replace the two kernels of its custom VJP (`jax/experimental/pallas/ops/
 tpu/flash_attention.py` _flash_attention_bwd_dkv, _flash_attention_bwd_dq),
 all three in `csrc/flash_attention.cu`, whose header says what bounds them
-on the card and what their design does about it (dkv on Hopper's warpgroup
-MMA, q and dO staged once and read both K-major and MN-major; the forward
-and dq on mma.sync). The JAX layout stays at
+on the card and what their design does about it (all three on Hopper's
+warpgroup MMA, each operand tile staged once through a cp.async ring and
+read both K-major and MN-major). The JAX layout stays at
 the public functions: q, k, v and dO are `(B, H, N, hd)` bf16, the output
 `(B, H, N, hd)` bf16, the log-sum-exp `lse` and `di = sum(o * dO, -1)`
 `(B, H, N)` f32, the gradients `(B, H, N, hd)` f32. Any N is taken (the

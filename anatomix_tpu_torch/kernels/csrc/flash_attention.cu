@@ -15,47 +15,52 @@
 // and the head dim is zero-filled to HDP (a multiple of 16: 80 for hd 66)
 // in shared memory only, so device memory holds exactly (B, H, N, hd).
 //
-// Forward, FlashAttention-2 style: a block of 4 warps owns 64 query
-// rows (16 per warp, kept as mma.sync A fragments in registers) and walks
-// the keys in tiles of 64. Per tile, S = q k^T comes from
-// mma.sync.m16n8k16 bf16 with f32 accumulation; the online softmax (running
-// row max and row sum, f32, exp2 with the scale folded into log2 e) runs on
-// the accumulator registers, whose layout is the A-fragment layout of the
-// next product, so P is rounded to bf16 in registers and P v accumulates
-// into f32 registers rescaled by the change of the row max. Nothing of size
-// N x N leaves registers. Keys past N get -inf before the max; query rows
-// past N are computed on zeros and not stored. K is staged row-major and V
-// transposed in shared memory (row strides padded by 8 elements, so the
-// fragment loads are free of bank conflicts). Given a pointer, it also
-// writes each row's log-sum-exp (f32), which the backward reads.
+// All three run on Hopper's warpgroup MMA (wgmma, `hopper.cuh`) and never
+// hold an N x N tile outside registers. A block walks one side of the
+// attention matrix in tiles through a cp.async ring that runs ahead of the
+// MMAs, and owns the other side's rows for the whole walk:
+// - forward: a block of FWD_WG warpgroups owns 64 queries each (q staged
+//   once) and walks the keys in tiles of 64, K and V through a 4-stage
+//   ring. S = q K^T is SS m64n64k16 (both K-major); the online softmax
+//   (running row max and sum, f32, exp2 with the scale folded into log2 e)
+//   runs on the accumulators, whose layout is the register-A layout of the
+//   next product, so P is rounded to bf16 in registers; P V is register-A
+//   m64nHDPk16 on the same V tile read MN-major (transpose bit). Given a
+//   pointer it also writes each row's natural log-sum-exp (f32), which the
+//   backward reads.
+// - dkv: a block of two warpgroups owns 128 keys (K and V staged once) and
+//   walks the queries in tiles of 64, q and dO through the ring; S^T and
+//   dP^T on SS, P^T and dS^T as register-A fragments, dV += P^T dO and dK +=
+//   dS^T q reading the same q and dO tiles MN-major.
+// - dq: the forward's walk, with dO staged beside q: S = q K^T and dP = dO
+//   V^T on SS (K and V K-major), dS = P (dP - di) rounded to bf16
+//   register-A fragments, dQ += dS K on the same K tile read MN-major.
+// So every operand tile is staged once and never transposed by a copy.
+// di = sum(o * dO) is one f32 reduction outside, as JAX takes it in XLA;
+// P and dS are rounded to bf16 for the products. Each block writes only its
+// own rows: no atomics, the same bits on every launch, as the TPU kernels
+// give.
 //
-// Backward, FlashAttention-2's split into a key-side and a query-side
-// pass (the stock kernel's split; di = sum(o * dO) is one f32 reduction
-// outside, as JAX takes it in XLA). Both recompute P from q, k and the lse
-// and never hold an N x N tile outside registers:
-// - dkv, on Hopper's warpgroup MMA (wgmma, `hopper.cuh`): a block of two
-//   warpgroups owns 128 keys, K and V staged once, and walks the queries in
-//   tiles of 64 through a 3-stage cp.async ring of (q, dO, lse, di). S^T =
-//   K q^T and dP^T = V dO^T come from shared memory (m64n64k16); P^T and
-//   dS^T are rounded to bf16 register-A fragments in the accumulators' own
-//   layout; dV += P^T dO and dK += dS^T q read the same q and dO tiles
-//   MN-major (transpose bit), so each operand is staged once and never
-//   transposed. Details at the kernel.
-// - dq: a block owns 64 queries and walks the keys in tiles of 64, as the
-//   forward does, with dO as a second A operand; dQ += dS K reads K
-//   transposed from shared memory. Each block writes only its own rows:
-//   no atomics, so dQ is deterministic, as is the TPU kernel's.
-// P and dS are rounded to bf16 for the products, as the forward rounds P.
+// Every tile lies in shared memory as no-swizzle core matrices (8 rows x 8
+// head dims, 128 bytes), head-dim group major: core (row group i, head-dim
+// group j) of an R-row tile at (j R / 8 + i) x 128. Read K-major, core
+// matrices adjacent along the rows are 128 bytes apart and along the head
+// dims R / 8 x 128; read MN-major the other way round. A (B, H, N, hd) row
+// of 66 bf16 is 132 bytes, only 4-byte aligned, so the tiles come in by
+// 4-byte cp.async, one warp filling one core matrix per instruction; head
+// dims past hd and rows past N are zero-filled by the copy.
 //
-// What bounds them on an H100: operations. At B2 H6 N4104 hd66 the
-// forward does 4 B H N^2 hd = 5.3e10 FLOP, dkv 8 B H N^2 hd = 1.07e11 and
-// dq 6 B H N^2 hd = 8.0e10, on a few MB of input: thousands of FLOP per
-// byte. dkv therefore runs on wgmma with its copies a ring ahead of the
-// MMAs, and pads the head dim to 16 only in shared memory. The forward and
-// dq stay on mma.sync
-// with 4-byte tile loads that do not overlap the MMAs, the head dim padded
-// to 80 in every product; a ring and wgmma for them, as in dkv, are later
-// work.
+// What bounds them on an H100: the staging of the walked side, then the
+// MMAs. At B2 H6 N4104 hd66 the forward does 4 B H N^2 hd = 5.3e10 FLOP,
+// dkv 8 B H N^2 hd = 1.07e11 and dq 6 B H N^2 hd = 8.0e10 (0.05-0.11 ms at
+// the bf16 peak), on a few MB of input; but each block stages the whole of
+// the walked side of its head from L2, N / rows-per-block times per head
+// (at 192 queries a block ~290 MB a launch for the forward and dq). Hence
+// the rows per block are as many as registers allow (the forward at hd <=
+// 80 and dq: three warpgroups, 192 rows; the forward at hd 128: two), the
+// copies run a ring ahead of the MMAs, and within a warpgroup the next
+// tile's S (and dP) MMAs are issued before this tile's P V (dS K) so the
+// softmax of one tile overlaps the tensor cores' work on the other.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,248 +71,313 @@
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 64;  // keys per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int VS = BK + 8;  // row stride of the transposed V tile
-
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int KT = 64;    // keys per ring tile (forward, dq)
+constexpr int RING = 4;   // ring stages (forward, dq): tile t + 1 is read
+                          // while t + 2 and t + 3 are in flight
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [r0, r0 + ROWS) of one (N, hd) head into `dst`: row-major with row
-// stride STRIDE (transpose = false), or transposed, dst[col * STRIDE + row];
-// rows past N are zeros. hd is even: one 4-byte load per column pair. The
-// head-dim padding [hd, HDP) is never written (zero_pad fills it once).
-template <int ROWS, int STRIDE, bool TRANSPOSE>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+// rows [r0, r0 + R) of one (N, hd) head into the core-matrix tile at `dst`
+// (core (row group i, head-dim group j) at (j * R / 8 + i) * 128), by the
+// block's NT / 32 warps, each filling one core matrix per 4-byte cp.async
+// (lane l: row l / 4 of the core, head dims 2 (l % 4) and + 1); zeros past
+// N and past hd
+template <int R, int HDP, int NT>
+__device__ __forceinline__ void load_rows(uint32_t dst,
                                           const __nv_bfloat16* src, int r0,
                                           int N, int hd) {
-  const int hp = hd >> 1;
-  const unsigned short* src_u = reinterpret_cast<const unsigned short*>(src);
-  unsigned short* dst_u = reinterpret_cast<unsigned short*>(dst);
-  for (int e = threadIdx.x; e < ROWS * hp; e += NTHREADS) {
-    const int row = e / hp;
-    const int col = 2 * (e - row * hp);
-    uint32_t val = 0u;
-    if (r0 + row < N) {
-      val = *reinterpret_cast<const uint32_t*>(
-          src_u + (int64_t)(r0 + row) * hd + col);
-    }
-    if (TRANSPOSE) {
-      dst_u[col * STRIDE + row] = static_cast<unsigned short>(val & 0xffffu);
-      dst_u[(col + 1) * STRIDE + row] = static_cast<unsigned short>(val >> 16);
-    } else {
-      *reinterpret_cast<uint32_t*>(dst_u + row * STRIDE + col) = val;
-    }
+  constexpr int RG = R / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = lane >> 2, col_in = 2 * (lane & 3);
+#pragma unroll 2
+  for (int c = warp; c < RG * (HDP / 8); c += NT / 32) {
+    const int j = c / RG, i = c - j * RG;
+    const int row = r0 + 8 * i + r, col = 8 * j + col_in;
+    const bool ok = row < N && col < hd;
+    hopper::cp_async4(dst + c * 128 + lane * 4,
+                      ok ? src + (int64_t)row * hd + col : src, ok);
   }
 }
 
-// zero the head-dim padding [hd, HDP) of a tile of ROWS rows: columns of a
-// row-major tile (TRANSPOSE = false) or rows of a transposed one
-template <int ROWS, int STRIDE, bool TRANSPOSE, int HDP>
-__device__ __forceinline__ void zero_pad(__nv_bfloat16* dst, int hd) {
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const int pad = HDP - hd;
-  for (int e = threadIdx.x; e < ROWS * pad; e += NTHREADS) {
-    if (TRANSPOSE) {
-      dst[(hd + e / ROWS) * STRIDE + e % ROWS] = zero;
-    } else {
-      dst[(e / pad) * STRIDE + hd + e % pad] = zero;
-    }
+// the accumulator of an m64n64 product (thread: rows r, r + 8 of its warp's
+// 16, columns 8 j + 2 (lane % 4) (+ 1)) as register-A fragments of the next
+// product, whose K is those 64 columns: K step kk takes column blocks 2 kk
+// (K 0-7) and 2 kk + 1 (K 8-15)
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&s)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a[j / 2][(j % 2) * 2 + 0] = pack_bf16(s[4 * j], s[4 * j + 1]);
+    a[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
   }
 }
 
-template <int HDP>
-__global__ void __launch_bounds__(NTHREADS)
+__device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hopper::fence_regs(a[kk]);
+}
+
+// sum (or max) of a row over the four lanes of a quad that hold it
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// Forward. A block of NWG warpgroups owns 64 NWG queries; q joins the first
+// ring group. Per key tile t and warpgroup (rows 64 wg ..):
+//   S = q K_t^T        SS m64n64k16 over HDP / 16 head-dim steps;
+//   online softmax     s <- s scale log2 e (keys past N: -inf), m_t = max(
+//                      m_{t-1}, row max), alpha_t = exp2(m_{t-1} - m_t),
+//                      s <- exp2(s - m_t), l = l alpha_t + row sum;
+//   O_t = P_t V_t      register-A m64nHDPk16 on the V tile read MN-major,
+//                      into a fresh accumulator (scale-d 0 on the first
+//                      step), folded in plain registers: O = O alpha_t +
+//                      O_t.
+// The fold keeps every definition of an MMA accumulator an MMA's, so ptxas
+// keeps the wgmmas asynchronous (a rescale of a live accumulator serializes
+// them, C7515). Order within an iteration: S of tile t + 1 and O_t are
+// issued back to back; the softmax of tile t + 1 runs once its S is in
+// (wgmma_wait<1>) while O_t is still on the tensor cores; P_{t+1} is packed
+// after O_t retires (its fragments are O_t's A operand).
+template <int HDP, int NWG>
+__global__ void __launch_bounds__(NWG * 128, 1)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        __nv_bfloat16* __restrict__ out,
                        float* __restrict__ lse, int N, int hd,
                        float scale_log2) {
-  constexpr int QS = HDP + 8;  // row stride of the q and k tiles
-  constexpr int KSTEPS = HDP / 16;
-  constexpr int DTILES = HDP / 8;
-  constexpr int NTILES = BK / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);  // BQ x QS
-  __nv_bfloat16* sK = sQ + BQ * QS;                            // BK x QS
-  __nv_bfloat16* sVt = sK + BK * QS;                           // HDP x VS
+  using namespace hopper;
+  constexpr int NT = NWG * 128;
+  constexpr int BQ = NWG * 64;
+  constexpr int QG = BQ / 8 * 128;  // q: next head-dim group
+  constexpr int KG = KT / 8 * 128;  // K, V tile: next head-dim group
+  constexpr int T_BYTES = KT * HDP * 2;
+  constexpr int STAGE = 2 * T_BYTES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sQ = smem_u32(smem), sR = sQ + BQ * HDP * 2;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int c = lane & 3;   // thread in group
+  const int lane = tid & 31, w = (tid >> 5) & 3, wg = tid >> 7;
   const int64_t head = (int64_t)blockIdx.y * N * hd;
   const int q0 = blockIdx.x * BQ;
+  const int ntiles = (N + KT - 1) / KT;
 
-  // the head-dim padding, once; the tile loads never write it
-  zero_pad<BQ, QS, false, HDP>(sQ, hd);
-  zero_pad<BK, QS, false, HDP>(sK, hd);
-  zero_pad<BK, VS, true, HDP>(sVt, hd);
-  load_tile<BQ, QS, false>(sQ, q + head, q0, N, hd);
-  __syncthreads();
-
-  const int r0 = warp * 16;
-  uint32_t qa[KSTEPS][4];
+  auto load_kv = [&](int t) {
+    const uint32_t st = sR + (t % RING) * STAGE;
+    load_rows<KT, HDP, NT>(st, k + head, t * KT, N, hd);
+    load_rows<KT, HDP, NT>(st + T_BYTES, v + head, t * KT, N, hd);
+  };
+  load_rows<BQ, HDP, NT>(sQ, q + head, q0, N, hd);
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    qa[kk][0] = ld32(sQ + (r0 + g) * QS + kk * 16 + 2 * c);
-    qa[kk][1] = ld32(sQ + (r0 + g + 8) * QS + kk * 16 + 2 * c);
-    qa[kk][2] = ld32(sQ + (r0 + g) * QS + kk * 16 + 8 + 2 * c);
-    qa[kk][3] = ld32(sQ + (r0 + g + 8) * QS + kk * 16 + 8 + 2 * c);
+  for (int s = 0; s < RING - 1; ++s) {
+    if (s < ntiles) load_kv(s);
+    cp_async_commit();
   }
 
-  float o[DTILES][4];
+  // S and O_t are declared where an MMA first writes them (scale-d 0), so
+  // no other instruction defines an accumulator and the MMAs stay
+  // asynchronous; O is only ever plain registers
+  float o[HDP / 2];
+  uint32_t pa[4][4];
 #pragma unroll
-  for (int dn = 0; dn < DTILES; ++dn) {
-    o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-  }
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows g, g + 8
-  float l0 = 0.f, l1 = 0.f;              // this thread's part of the sums
+  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+  const uint32_t qA = sQ + wg * 8 * 128;
+  const int cq = 2 * (lane & 3);  // this lane's key columns 8 j + cq (+ 1)
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows r, r + 8
+  float l0 = 0.f, l1 = 0.f;              // this lane's part of their sums
+  float al0 = 0.f, al1 = 0.f;            // alpha of the tile to fold next
 
-  for (int k0 = 0; k0 < N; k0 += BK) {
-    __syncthreads();  // the previous tile's fragments are read
-    load_tile<BK, QS, false>(sK, k + head, k0, N, hd);
-    load_tile<BK, VS, true>(sVt, v + head, k0, N, hd);
-    __syncthreads();
-
-    float s[NTILES][4];
+  auto issue_s = [&](float (&s)[32], int t) {
+    const uint32_t sk = sR + (t % RING) * STAGE;
 #pragma unroll
-    for (int j = 0; j < NTILES; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const __nv_bfloat16* kr = sK + (j * 8 + g) * QS + kk * 16 + 2 * c;
-        mma16816(s[j], qa[kk], ld32(kr), ld32(kr + 8));
-      }
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      Wgmma<64, 0, 0>::mma(s, make_desc(qA + 2 * kk * QG, QG, 128),
+                           make_desc(sk + 2 * kk * KG, KG, 128), kk > 0);
     }
+    wgmma_commit();
+  };
+  auto softmax = [&](float (&s)[32], int t) {
+    const int key0 = t * KT + cq;
+    const bool ragged = t * KT + KT > N;
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < NTILES; ++j) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const bool valid = k0 + j * 8 + 2 * c + h < N;
-        s[j][h] = valid ? s[j][h] * scale_log2 : -INFINITY;
-        s[j][2 + h] = valid ? s[j][2 + h] * scale_log2 : -INFINITY;
-        mx0 = fmaxf(mx0, s[j][h]);
-        mx1 = fmaxf(mx1, s[j][2 + h]);
+        const bool dead = ragged && key0 + 8 * j + h >= N;
+        s[4 * j + h] = dead ? -INFINITY : s[4 * j + h] * scale_log2;
+        s[4 * j + 2 + h] = dead ? -INFINITY : s[4 * j + 2 + h] * scale_log2;
+        mx0 = fmaxf(mx0, s[4 * j + h]);
+        mx1 = fmaxf(mx1, s[4 * j + 2 + h]);
       }
     }
-    // the four threads of a group hold one row between them
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // every tile starts below N, so each row has a finite max here
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    // every tile starts below N, so each row's max is finite
+    const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+    al0 = exp2f(m0 - mn0);
+    al1 = exp2f(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
-    l0 *= al0;
-    l1 *= al1;
+    float r0 = 0.f, r1 = 0.f;
 #pragma unroll
-    for (int dn = 0; dn < DTILES; ++dn) {
-      o[dn][0] *= al0;
-      o[dn][1] *= al0;
-      o[dn][2] *= al1;
-      o[dn][3] *= al1;
-    }
-    // P in the A-fragment layout: key columns 16 kk + {2c, 2c+1} from
-    // tile 2 kk, 16 kk + 8 + {2c, 2c+1} from tile 2 kk + 1
-    uint32_t pa[BK / 16][4];
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int j = 0; j < NTILES; ++j) {
-      const float p00 = exp2f(s[j][0] - mn0), p01 = exp2f(s[j][1] - mn0);
-      const float p10 = exp2f(s[j][2] - mn1), p11 = exp2f(s[j][3] - mn1);
-      l0 += p00 + p01;
-      l1 += p10 + p11;
-      pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(p00, p01);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p10, p11);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int dn = 0; dn < DTILES; ++dn) {
-        const __nv_bfloat16* vr = sVt + (dn * 8 + g) * VS + kk * 16 + 2 * c;
-        mma16816(o[dn], pa[kk], ld32(vr), ld32(vr + 8));
+      for (int h = 0; h < 2; ++h) {
+        s[4 * j + h] = exp2f(s[4 * j + h] - mn0);
+        s[4 * j + 2 + h] = exp2f(s[4 * j + 2 + h] - mn1);
+        r0 += s[4 * j + h];
+        r1 += s[4 * j + 2 + h];
       }
     }
+    l0 = l0 * al0 + r0;
+    l1 = l1 * al1 + r1;
+  };
+
+  // tile 0's logits and P
+  cp_async_wait<RING - 2>();
+  fence_proxy_async();
+  __syncthreads();
+  {
+    float s[32];
+    fence_regs(s);
+    wgmma_fence();
+    issue_s(s, 0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax(s, 0);
+    pack_a(pa, s);
+    fence_a(pa);
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  auto issue_pv = [&](float (&ot)[HDP / 2], int t) {
+    const uint32_t sv = sR + (t % RING) * STAGE + T_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      // B MN-major: K (keys) groups 128 bytes apart, N (head dims) KG
+      WgmmaRS<HDP, 1>::mma(ot, pa[kk], make_desc(sv + 2 * kk * 128, 128, KG),
+                           kk > 0);
+    }
+    wgmma_commit();
+  };
+  auto fold = [&](const float (&ot)[HDP / 2], float a0, float a1) {
+#pragma unroll
+    for (int j = 0; j < HDP / 8; ++j) {
+      o[4 * j] = o[4 * j] * a0 + ot[4 * j];
+      o[4 * j + 1] = o[4 * j + 1] * a0 + ot[4 * j + 1];
+      o[4 * j + 2] = o[4 * j + 2] * a1 + ot[4 * j + 2];
+      o[4 * j + 3] = o[4 * j + 3] * a1 + ot[4 * j + 3];
+    }
+  };
+
+  // every tile but the last: the loop body has no branch around an MMA or
+  // a wait, so ptxas can see that wgmma_wait<1> retires S's group and
+  // lets the softmax read it while O_t runs
+  for (int t = 0; t + 1 < ntiles; ++t) {
+    // tile t + 1 has landed; the slot loaded now held tile t - 1, whose
+    // MMAs every warpgroup retired before the barrier
+    cp_async_wait<RING - 3>();
+    fence_proxy_async();
+    __syncthreads();
+    if (t + RING - 1 < ntiles) load_kv(t + RING - 1);
+    cp_async_commit();
+
+    float s[32], ot[HDP / 2];
+    fence_regs(s);
+    fence_regs(ot);
+    wgmma_fence();
+    issue_s(s, t + 1);
+    issue_pv(ot, t);
+    const float a0 = al0, a1 = al1;
+    wgmma_wait<1>();
+    fence_regs(s);
+    softmax(s, t + 1);
+    wgmma_wait<0>();
+    fence_regs(ot);
+    fence_a(pa);
+    fold(ot, a0, a1);
+    pack_a(pa, s);
+    fence_a(pa);
+  }
+  {
+    // the last tile (landed and behind a barrier: the prologue's for one
+    // tile, else the last iteration's)
+    float ot[HDP / 2];
+    fence_regs(ot);
+    wgmma_fence();
+    issue_pv(ot, ntiles - 1);
+    wgmma_wait<0>();
+    fence_regs(ot);
+    fold(ot, al0, al1);
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int row0 = q0 + r0 + g, row1 = row0 + 8;
-  if (lse != nullptr && c == 0) {
+  const int row0 = q0 + 64 * wg + 16 * w + (lane >> 2), row1 = row0 + 8;
+  if (lse != nullptr && (lane & 3) == 0) {
     // natural log-sum-exp of the scaled logits: m and l are in base 2
     const float ln2 = 0.6931471805599453f;
     if (row0 < N) lse[(int64_t)blockIdx.y * N + row0] = (m0 + log2f(l0)) * ln2;
     if (row1 < N) lse[(int64_t)blockIdx.y * N + row1] = (m1 + log2f(l1)) * ln2;
   }
+  // head dims 8 j + cq (+ 1); hd is even, so a pair is stored whole or not
 #pragma unroll
-  for (int dn = 0; dn < DTILES; ++dn) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = dn * 8 + 2 * c + h;
-      if (col < hd) {
-        if (row0 < N) {
-          out[head + (int64_t)row0 * hd + col] =
-              __float2bfloat16(o[dn][h] * inv0);
-        }
-        if (row1 < N) {
-          out[head + (int64_t)row1 * hd + col] =
-              __float2bfloat16(o[dn][2 + h] * inv1);
-        }
-      }
+  for (int j = 0; j < HDP / 8; ++j) {
+    const int col = 8 * j + cq;
+    if (col >= hd) continue;
+    if (row0 < N) {
+      *reinterpret_cast<__nv_bfloat162*>(out + head + (int64_t)row0 * hd +
+                                         col) =
+          __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    }
+    if (row1 < N) {
+      *reinterpret_cast<__nv_bfloat162*>(out + head + (int64_t)row1 * hd +
+                                         col) =
+          __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
     }
   }
+}
+
+// warpgroups of a forward block: three (192 queries) up to hd 80, two at
+// hd 128, where O and its tile take 128 registers a thread
+template <int HDP>
+constexpr int fwd_wg() {
+  return HDP <= 80 ? 3 : 2;
 }
 
 template <int HDP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int BH, int N, int hd, float scale,
                    cudaStream_t st) {
-  const int smem = (BQ * (HDP + 8) + BK * (HDP + 8) + HDP * VS) * 2;
+  constexpr int NWG = fwd_wg<HDP>();
+  constexpr int BQ = NWG * 64;
+  const int smem = BQ * HDP * 2 + RING * 2 * KT * HDP * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<HDP>,
+      flash_attention_kernel<HDP, NWG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + BQ - 1) / BQ, BH);
-  flash_attention_kernel<HDP><<<grid, NTHREADS, smem, st>>>(
+  flash_attention_kernel<HDP, NWG><<<grid, NWG * 128, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), N, hd,
-      scale * 1.4426950408889634f);
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
 
 // ---------------------------------------------------------------------------
 // backward: dK and dV (key side), dQ (query side)
-
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Key side, on Hopper's warpgroup MMA. A block of two warpgroups owns 128
 // keys (64 each); K and V are staged once in shared memory. The block walks
@@ -325,42 +395,16 @@ constexpr float LOG2E = 1.4426950408889634f;
 //                                   read MN-major (transpose bit); at hd 66
 //                                   the m64n72 that skips the padding ran
 //                                   no faster on the card than m64n80.
-// Every tile lies in shared memory as no-swizzle core matrices (8 rows x 8
-// head dims, 128 bytes), head-dim group major, so one copy serves both
-// reads: K-major, core matrices adjacent along N (rows) are 128 bytes apart
-// and along K (head dims) rows / 8 x 128; MN-major the other way round.
-// A (B, H, N, hd) row of 66 bf16 is only 4-byte aligned, so the tiles come
-// in by 4-byte cp.async, one warp filling one core matrix per instruction;
-// head dims past hd and rows past N are zero-filled by the copy. A query
-// past N is a zero row of q and dO (its lse and di read 0): its P^T is
-// finite and its dS^T 0, so it adds nothing; a key past N is a zero row
-// whose dK and dV are not stored. dK and dV stay in f32 registers for the
-// whole walk; dK is scaled once at the end, and each block writes only its
-// own key rows (deterministic, no atomics).
+// Every tile is staged once as core matrices (file header) and read both
+// K-major and MN-major. A query past N is a zero row of q and dO (its lse
+// and di read 0): its P^T is finite and its dS^T 0, so it adds nothing; a
+// key past N is a zero row whose dK and dV are not stored. dK and dV stay
+// in f32 registers for the whole walk; dK is scaled once at the end, and
+// each block writes only its own key rows (deterministic, no atomics).
 constexpr int DKV_KEYS = 128;  // keys per block: 64 per warpgroup
 constexpr int DKV_Q = 64;      // queries per ring tile
 constexpr int DKV_STAGES = 3;
 constexpr int DKV_THREADS = 256;
-
-// rows [r0, r0 + R) of one (N, hd) head into the core-matrix tile at `dst`
-// (core (row group i, head-dim group j) at (j * R / 8 + i) * 128), by the
-// block's 8 warps; zeros past N and past hd
-template <int R, int HDP>
-__device__ __forceinline__ void load_rows(uint32_t dst,
-                                          const __nv_bfloat16* src, int r0,
-                                          int N, int hd) {
-  constexpr int RG = R / 8;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = lane >> 2, col_in = 2 * (lane & 3);
-#pragma unroll 2
-  for (int c = warp; c < RG * (HDP / 8); c += DKV_THREADS / 32) {
-    const int j = c / RG, i = c - j * RG;
-    const int row = r0 + 8 * i + r, col = 8 * j + col_in;
-    const bool ok = row < N && col < hd;
-    hopper::cp_async4(dst + c * 128 + lane * 4,
-                      ok ? src + (int64_t)row * hd + col : src, ok);
-  }
-}
 
 template <int HDP>
 __global__ void __launch_bounds__(DKV_THREADS, 1)
@@ -393,8 +437,8 @@ flash_attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   auto load_tile = [&](int t, int slot) {
     const uint32_t st = sR + slot * STAGE;
     const int q0 = t * DKV_Q;
-    load_rows<DKV_Q, HDP>(st, q + head, q0, N, hd);
-    load_rows<DKV_Q, HDP>(st + T_BYTES, dout + head, q0, N, hd);
+    load_rows<DKV_Q, HDP, DKV_THREADS>(st, q + head, q0, N, hd);
+    load_rows<DKV_Q, HDP, DKV_THREADS>(st + T_BYTES, dout + head, q0, N, hd);
     if (tid < 2 * DKV_Q) {
       const float* src = (tid < DKV_Q ? lse : di) + hrow;
       const bool ok = q0 + (tid & (DKV_Q - 1)) < N;
@@ -403,8 +447,8 @@ flash_attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
   // K and V join the first ring group
-  load_rows<DKV_KEYS, HDP>(sK, k + head, k0, N, hd);
-  load_rows<DKV_KEYS, HDP>(sV, v + head, k0, N, hd);
+  load_rows<DKV_KEYS, HDP, DKV_THREADS>(sK, k + head, k0, N, hd);
+  load_rows<DKV_KEYS, HDP, DKV_THREADS>(sV, v + head, k0, N, hd);
 #pragma unroll
   for (int s = 0; s < DKV_STAGES - 1; ++s) {
     if (s < ntiles) load_tile(s, s);
@@ -512,15 +556,22 @@ flash_attention_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// Query side: a block of 4 warps owns 64 queries (q and dO as A fragments
-// in registers, lse and di of the thread's two rows in registers) and walks
-// the keys in tiles of 64: S = q K^T and dP = dO V^T in accumulator
-// registers, P = exp(S * scale - lse) with keys past N set to 0,
-// dS = P (dP - di) to bf16 A fragments, dQ += dS K in f32 registers. K is
-// staged row-major (for S) and transposed (for dQ), V row-major. Each
-// block writes its own rows of dQ: no atomics, deterministic.
-template <int HDP>
-__global__ void __launch_bounds__(NTHREADS)
+// Query side: the forward's walk. A block of NWG warpgroups owns 64 NWG
+// queries (q and dO staged once, in the first ring group; lse and di of the
+// thread's two rows in registers) and walks the keys in tiles of 64, K and V
+// through the ring. Per tile t and warpgroup:
+//   S = q K_t^T, dP = dO V_t^T   SS m64n64k16, K and V read K-major;
+//   P = exp2(S scale log2 e - lse log2 e) (keys past N: 0), dS = P (dP -
+//                                di), rounded to bf16 register-A fragments;
+//   dQ += dS K_t                 register-A m64nHDPk16 on the same K tile
+//                                read MN-major.
+// dQ is an MMA accumulator for the whole walk (scale-d 0 on the first step)
+// and is scaled once at the end, as dkv does with dK. As in the forward,
+// the next tile's S and dP are issued before this tile's dS K, and its dS
+// is computed while dS K runs. A query past N is a zero row of q and dO
+// with lse +inf: its P is 0; it is not stored.
+template <int HDP, int NWG>
+__global__ void __launch_bounds__(NWG * 128, 1)
 flash_attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
@@ -529,115 +580,156 @@ flash_attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                               const float* __restrict__ di,
                               float* __restrict__ dq, int N, int hd,
                               float scale, float scale_log2) {
-  constexpr int QS = HDP + 8;
-  constexpr int KSTEPS = HDP / 16;
-  constexpr int DTILES = HDP / 8;
-  constexpr int NTILES = BK / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);  // BQ x QS
-  __nv_bfloat16* sK = sQ + BQ * QS;                            // BK x QS
-  __nv_bfloat16* sV = sK + BK * QS;                            // BK x QS
-  __nv_bfloat16* sKt = sV + BK * QS;                           // HDP x VS
+  using namespace hopper;
+  constexpr int NT = NWG * 128;
+  constexpr int BQ = NWG * 64;
+  constexpr int QG = BQ / 8 * 128;  // q, dO: next head-dim group
+  constexpr int KG = KT / 8 * 128;  // K, V tile: next head-dim group
+  constexpr int Q_BYTES = BQ * HDP * 2;
+  constexpr int T_BYTES = KT * HDP * 2;
+  constexpr int STAGE = 2 * T_BYTES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sQ = smem_u32(smem), sDO = sQ + Q_BYTES;
+  const uint32_t sR = sQ + 2 * Q_BYTES;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int c = lane & 3;
+  const int lane = tid & 31, w = (tid >> 5) & 3, wg = tid >> 7;
   const int64_t head = (int64_t)blockIdx.y * N * hd;
   const int64_t hrow = (int64_t)blockIdx.y * N;
   const int q0 = blockIdx.x * BQ;
-  const int r0 = warp * 16;
+  const int ntiles = (N + KT - 1) / KT;
 
-  zero_pad<BQ, QS, false, HDP>(sQ, hd);
-  zero_pad<BK, QS, false, HDP>(sK, hd);
-  zero_pad<BK, QS, false, HDP>(sV, hd);
-  zero_pad<BK, VS, true, HDP>(sKt, hd);
+  auto load_kv = [&](int t) {
+    const uint32_t st = sR + (t % RING) * STAGE;
+    load_rows<KT, HDP, NT>(st, k + head, t * KT, N, hd);
+    load_rows<KT, HDP, NT>(st + T_BYTES, v + head, t * KT, N, hd);
+  };
+  load_rows<BQ, HDP, NT>(sQ, q + head, q0, N, hd);
+  load_rows<BQ, HDP, NT>(sDO, dout + head, q0, N, hd);
+#pragma unroll
+  for (int s = 0; s < RING - 1; ++s) {
+    if (s < ntiles) load_kv(s);
+    cp_async_commit();
+  }
 
-  uint32_t qa[KSTEPS][4], doa[KSTEPS][4];
-  load_tile<BQ, QS, false>(sQ, q + head, q0, N, hd);
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    qa[kk][0] = ld32(sQ + (r0 + g) * QS + kk * 16 + 2 * c);
-    qa[kk][1] = ld32(sQ + (r0 + g + 8) * QS + kk * 16 + 2 * c);
-    qa[kk][2] = ld32(sQ + (r0 + g) * QS + kk * 16 + 8 + 2 * c);
-    qa[kk][3] = ld32(sQ + (r0 + g + 8) * QS + kk * 16 + 8 + 2 * c);
-  }
-  __syncthreads();
-  load_tile<BQ, QS, false>(sQ, dout + head, q0, N, hd);
-  __syncthreads();
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    doa[kk][0] = ld32(sQ + (r0 + g) * QS + kk * 16 + 2 * c);
-    doa[kk][1] = ld32(sQ + (r0 + g + 8) * QS + kk * 16 + 2 * c);
-    doa[kk][2] = ld32(sQ + (r0 + g) * QS + kk * 16 + 8 + 2 * c);
-    doa[kk][3] = ld32(sQ + (r0 + g + 8) * QS + kk * 16 + 8 + 2 * c);
-  }
-  const int row0 = q0 + r0 + g, row1 = row0 + 8;
+  const int row0 = q0 + 64 * wg + 16 * w + (lane >> 2), row1 = row0 + 8;
   // rows past N: lse +inf gives P = 0
   const float l0 = row0 < N ? lse[hrow + row0] * LOG2E : INFINITY;
   const float l1 = row1 < N ? lse[hrow + row1] * LOG2E : INFINITY;
   const float d0 = row0 < N ? di[hrow + row0] : 0.f;
   const float d1 = row1 < N ? di[hrow + row1] : 0.f;
 
-  float dqa[DTILES][4];
+  // accumulators: each is first written by an MMA (scale-d 0), so no other
+  // instruction defines it and the MMAs stay asynchronous; S and dP are
+  // declared afresh for each tile
+  float dqa[HDP / 2];
+  uint32_t dsa[4][4];
+  const uint32_t qA = sQ + wg * 8 * 128, doA = sDO + wg * 8 * 128;
+  const int cq = 2 * (lane & 3);  // this lane's key columns 8 j + cq (+ 1)
+
+  auto issue_sdp = [&](float (&s)[32], float (&dp)[32], int t) {
+    const uint32_t sk = sR + (t % RING) * STAGE, sv = sk + T_BYTES;
 #pragma unroll
-  for (int dn = 0; dn < DTILES; ++dn) {
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      Wgmma<64, 0, 0>::mma(s, make_desc(qA + 2 * kk * QG, QG, 128),
+                           make_desc(sk + 2 * kk * KG, KG, 128), kk > 0);
+      Wgmma<64, 0, 0>::mma(dp, make_desc(doA + 2 * kk * QG, QG, 128),
+                           make_desc(sv + 2 * kk * KG, KG, 128), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // s <- dS = P (dP - di) in f32, P 0 for keys past N
+  auto dscores = [&](float (&s)[32], const float (&dp)[32], int t) {
+    const int key0 = t * KT + cq;
+    const bool ragged = t * KT + KT > N;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dqa[dn][i] = 0.f;
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const bool dead = ragged && key0 + 8 * j + h >= N;
+        const float p0 = dead ? 0.f : exp2f(s[4 * j + h] * scale_log2 - l0);
+        const float p1 =
+            dead ? 0.f : exp2f(s[4 * j + 2 + h] * scale_log2 - l1);
+        s[4 * j + h] = p0 * (dp[4 * j + h] - d0);
+        s[4 * j + 2 + h] = p1 * (dp[4 * j + 2 + h] - d1);
+      }
+    }
+  };
+
+  // tile 0's dS
+  cp_async_wait<RING - 2>();
+  fence_proxy_async();
+  __syncthreads();
+  {
+    float s[32], dp[32];
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    issue_sdp(s, dp, 0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    dscores(s, dp, 0);
+    pack_a(dsa, s);
+    fence_a(dsa);
   }
 
-  for (int k0 = 0; k0 < N; k0 += BK) {
-    __syncthreads();  // the previous tile's fragments are read
-    load_tile<BK, QS, false>(sK, k + head, k0, N, hd);
-    load_tile<BK, QS, false>(sV, v + head, k0, N, hd);
-    load_tile<BK, VS, true>(sKt, k + head, k0, N, hd);
+  auto issue_dq = [&](int t) {
+    const uint32_t sk = sR + (t % RING) * STAGE;
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      // B MN-major: K (keys) groups 128 bytes apart, N (head dims) KG
+      WgmmaRS<HDP, 1>::mma(dqa, dsa[kk], make_desc(sk + 2 * kk * 128, 128, KG),
+                           t > 0 || kk > 0);
+    }
+    wgmma_commit();
+  };
+
+  // every tile but the last, with no branch around an MMA or a wait (see
+  // the forward)
+  for (int t = 0; t + 1 < ntiles; ++t) {
+    // tile t + 1 has landed; the slot loaded now held tile t - 1
+    cp_async_wait<RING - 3>();
+    fence_proxy_async();
     __syncthreads();
+    if (t + RING - 1 < ntiles) load_kv(t + RING - 1);
+    cp_async_commit();
 
-    uint32_t dsa[BK / 16][4];
-#pragma unroll
-    for (int j = 0; j < NTILES; ++j) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        const __nv_bfloat16* kr = sK + (j * 8 + g) * QS + kk * 16 + 2 * c;
-        mma16816(s, qa[kk], ld32(kr), ld32(kr + 8));
-        const __nv_bfloat16* vr = sV + (j * 8 + g) * QS + kk * 16 + 2 * c;
-        mma16816(dp, doa[kk], ld32(vr), ld32(vr + 8));
-      }
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool valid = k0 + j * 8 + 2 * c + (i & 1) < N;
-        const float p =
-            valid ? exp2f(s[i] * scale_log2 - (i < 2 ? l0 : l1)) : 0.f;
-        ds[i] = p * (dp[i] - (i < 2 ? d0 : d1));
-      }
-      dsa[j / 2][(j % 2) * 2 + 0] = pack_bf16(ds[0], ds[1]);
-      dsa[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int dn = 0; dn < DTILES; ++dn) {
-        const __nv_bfloat16* kr = sKt + (dn * 8 + g) * VS + kk * 16 + 2 * c;
-        mma16816(dqa[dn], dsa[kk], ld32(kr), ld32(kr + 8));
-      }
-    }
+    float s[32], dp[32];
+    fence_regs(s);
+    fence_regs(dp);
+    fence_regs(dqa);
+    wgmma_fence();
+    issue_sdp(s, dp, t + 1);
+    issue_dq(t);
+    wgmma_wait<1>();
+    fence_regs(s);
+    fence_regs(dp);
+    dscores(s, dp, t + 1);
+    wgmma_wait<0>();
+    fence_regs(dqa);
+    fence_a(dsa);
+    pack_a(dsa, s);
+    fence_a(dsa);
   }
+  fence_regs(dqa);
+  wgmma_fence();
+  issue_dq(ntiles - 1);
+  wgmma_wait<0>();
+  fence_regs(dqa);
 
+  // head dims 8 j + cq (+ 1); hd is even, so a pair is stored whole or not
 #pragma unroll
-  for (int dn = 0; dn < DTILES; ++dn) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = dn * 8 + 2 * c + h;
-      if (col < hd) {
-        if (row0 < N) dq[head + (int64_t)row0 * hd + col] = dqa[dn][h] * scale;
-        if (row1 < N) {
-          dq[head + (int64_t)row1 * hd + col] = dqa[dn][2 + h] * scale;
-        }
-      }
+  for (int j = 0; j < HDP / 8; ++j) {
+    const int col = 8 * j + cq;
+    if (col >= hd) continue;
+    if (row0 < N) {
+      *reinterpret_cast<float2*>(dq + head + (int64_t)row0 * hd + col) =
+          make_float2(dqa[4 * j] * scale, dqa[4 * j + 1] * scale);
+    }
+    if (row1 < N) {
+      *reinterpret_cast<float2*>(dq + head + (int64_t)row1 * hd + col) =
+          make_float2(dqa[4 * j + 2] * scale, dqa[4 * j + 3] * scale);
     }
   }
 }
@@ -669,15 +761,19 @@ cudaError_t launch_bwd_dkv(const BwdArgs& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// dq's warpgroups a block: three (192 queries)
+constexpr int DQ_WG = 3;
+
 template <int HDP>
 cudaError_t launch_bwd_dq(const BwdArgs& a, cudaStream_t st) {
-  const int smem = (BQ * (HDP + 8) + 2 * BK * (HDP + 8) + HDP * VS) * 2;
+  constexpr int BQ = DQ_WG * 64;
+  const int smem = 2 * BQ * HDP * 2 + RING * 2 * KT * HDP * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_bwd_dq_kernel<HDP>,
+      flash_attention_bwd_dq_kernel<HDP, DQ_WG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.N + BQ - 1) / BQ, a.BH);
-  flash_attention_bwd_dq_kernel<HDP><<<grid, NTHREADS, smem, st>>>(
+  flash_attention_bwd_dq_kernel<HDP, DQ_WG><<<grid, DQ_WG * 128, smem, st>>>(
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),

@@ -11,7 +11,8 @@ Phases, each printed on its own lines; any failure exits non-zero:
      every CUDA kernel from `anatomix_tpu_torch/kernels/csrc/` with nvcc;
   2. each kernel against its plain PyTorch version (f32, TF32 off) on the
      same bf16 inputs, at the shapes the 6M UNet, the 94M dev UNet and the
-     26M ViT paths give it, with times;
+     26M ViT paths give it, with times; the attention forward and dq also
+     at ragged N around their tiles, each against its second launch;
   3. `full`: the 6M `anatomix` UNet at full width with seeded weights on a
      256^3 volume through `make_feature_extractor(strategy="full")`, held
      against the port's plain f32 path on the card;
@@ -631,14 +632,17 @@ def sdpa_backend(torch, q, k, v, scale) -> str:
 
 
 def check_attention(ka, torch, F, dev, gen, B, H, N, hd):
-    """flash_attention at (B, H, N, hd) bf16, scale 1/sqrt(hd)."""
+    """flash_attention at (B, H, N, hd) bf16, scale 1/sqrt(hd), and its
+    second launch (bit-equal)."""
     q, k, v = (torch.randn((B, H, N, hd), generator=gen, device=dev).to(
         torch.bfloat16) for _ in range(3))
     scale = hd ** -0.5
     got = ka.flash_attention(q, k, v, scale)
     ref = ka.flash_attention_plain(q, k, v, scale)
+    repeats = bool(torch.equal(got, ka.flash_attention(q, k, v, scale)))
     torch.cuda.synchronize()
     err, rel = rel_err(got, ref)
+    del got, ref
     ms = cuda_ms(lambda: ka.flash_attention(q, k, v, scale))
     plain_ms = cuda_ms(lambda: ka.flash_attention_plain(q, k, v, scale))
     # yardstick: torch's fused attention on the same bf16 tensors
@@ -650,10 +654,45 @@ def check_attention(ka, torch, F, dev, gen, B, H, N, hd):
     b_ms, b_by = bound(flops, 4.0 * 2 * B * H * N * hd)
     return dict(
         shape=f"B{B} H{H} N{N} hd{hd}", max_abs_err=err, rel_err=rel,
-        tol=TOL_CONV_BF16, ok=rel < TOL_CONV_BF16, ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-        sdpa_backend=backend,
+        tol=TOL_CONV_BF16, ok=rel < TOL_CONV_BF16 and repeats, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        sdpa_backend=backend, repeats=repeats,
     )
+
+
+def check_attention_ragged(ka, torch, dev, gen) -> list[str]:
+    """The forward and dq at ragged N around their tiles (64 keys, 192
+    queries a block; 128 at hd 128) against their plain versions within
+    1e-2 (max|err| / max|ref|), and each against its own second launch
+    (bit-equal); the failures. dq at N 1 is zero but for the rounding of
+    dO v^T - di (one key), so it is held to the forward's N only."""
+    failed = []
+    for N in (1, 127, 129, 191, 193):
+        for hd in (16, 66, 80, 128):
+            q, k, v, do = (torch.randn((1, 2, N, hd), generator=gen,
+                                       device=dev).to(torch.bfloat16)
+                           for _ in range(4))
+            scale = hd ** -0.5
+            o, lse = ka.flash_attention(q, k, v, scale, return_lse=True)
+            same = bool(torch.equal(o, ka.flash_attention(q, k, v, scale)))
+            rel = rel_err(o, ka.flash_attention_plain(q, k, v, scale))[1]
+            line = f"fwd rel {rel:.3e} bit-equal {same}"
+            ok = same and rel < TOL_CONV_BF16
+            if hd <= 80 and N > 1:
+                di = ka.attention_di(o, do)
+                args = (q, k, v, lse, do, di, scale)
+                dq = ka.flash_attention_bwd_dq(*args)
+                dq_same = bool(torch.equal(dq, ka.flash_attention_bwd_dq(
+                    *args)))
+                dq_rel = rel_err(dq, ka.flash_attention_bwd_dq_plain(
+                    *args))[1]
+                line += f"; dq rel {dq_rel:.3e} bit-equal {dq_same}"
+                ok = ok and dq_same and dq_rel < TOL_CONV_BF16
+            torch.cuda.synchronize()
+            log(f"[kernel] attention ragged B1 H2 N{N} hd{hd}: {line}")
+            if not ok:
+                failed.append(f"attention ragged N{N} hd{hd}")
+    return failed
 
 
 def check_attention_lse(ka, torch, dev, gen, B, H, N, hd):
@@ -776,8 +815,9 @@ def check_attention_bwd(ka, torch, F, dev, gen, B, H, N, hd):
         "flash_attention_bwd_dq"]["ms"]
     log(f"[kernel] attention backward B{B} H{H} N{N} hd{hd}: dkv + dq "
         f"{pair:.4f} ms, SDPA's whole backward {lib_ms:.4f} ms "
-        f"({pair / lib_ms:.2f}x); dkv two launches bit-equal: "
-        f"{rows['flash_attention_bwd_dkv']['repeats']}")
+        f"({pair / lib_ms:.2f}x); two launches bit-equal: dkv "
+        f"{rows['flash_attention_bwd_dkv']['repeats']}, dq "
+        f"{rows['flash_attention_bwd_dq']['repeats']}")
     return rows
 
 
@@ -1371,6 +1411,7 @@ def main(argv) -> int:
             if not row["ok"]:
                 failed.append(f"{name} {row['shape']}")
     report["checks"] = checks
+    failed += check_attention_ragged(ka, torch, dev, gen)
     # the forward conv stays the same bits from run to run (split K sums
     # its partials in a fixed order): two launches of the dev bottleneck
     report["determinism"] = check_determinism(kc, torch, dev, gen)
