@@ -7,9 +7,12 @@ differentiable conv of the pretraining step.
 _wgrad_halo, _wgrad) with the kernel of `csrc/conv3d_wgrad.cu`;
 `conv3x3x3_dgrad_ndhwc` replaces T-x (`anatomix_tpu/ops/pallas/
 conv_block.py` conv_block_sparse_dx, with the pad adjoint its caller takes
-in `conv_block_train.py`) with the transposed conv and pad-adjoint kernels
-of `csrc/conv3d.cu`. The sources' headers say what bounds each on the card
-and what its design does about it. With `stride=2` both run the stride-2
+in `conv_block_train.py`) with the transposed conv of `csrc/conv3d.cu`;
+under reflect padding its store is split (`reflect_dgrad_store`: every
+voxel off the shell straight into dx, the shell's sources into a scratch)
+and the shell pass `reflect_shell_ndhwc` sums the rest. The sources'
+headers say what bounds each on the card and what its design does about
+it. With `stride=2` both run the stride-2
 pad-1 conv's gradients (the ViT tokenizer's down convs) from its output
 gradient on its own grid, with no zeros inserted; their plain versions,
 `conv3x3x3_wgrad_s2_ndhwc_plain` and `conv3x3x3_dgrad_s2_ndhwc_plain`,
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -68,6 +72,8 @@ _SIGNATURES = {
     "conv3x3x3_dgrad_ndhwc": ("conv3d", [_P] * 7 + [_I] * 7 + [_P]),
     # dy, w_t, zero_bias, dx, plan; B, d, h, w, D, H, W, co, ci; stream
     "conv3x3x3_dgrad_s2_ndhwc": ("conv3d", [_P] * 5 + [_I] * 9 + [_P]),
+    # g_ext, dx; B, D, H, W, C; stream
+    "reflect_shell_ndhwc": ("conv3d", [_P] * 2 + [_I] * 5 + [_P]),
 }
 _fns: dict = {}
 
@@ -91,10 +97,17 @@ def _pad_mode(pad_type: str) -> str:
 
 def flip_transpose_packed(w_packed: torch.Tensor, ci: int) -> torch.Tensor:
     """Packed (27 * Ci, Co) weights of a conv -> the packed (27 * Co, Ci)
-    weights of its transposed conv (taps reversed, I and O swapped)."""
+    weights of its transposed conv (taps reversed, I and O swapped), in one
+    gather."""
     co = w_packed.shape[1]
-    w = w_packed.reshape(3, 3, 3, ci, co).flip((0, 1, 2)).transpose(3, 4)
-    return w.reshape(27 * co, ci).contiguous()
+    w = w_packed.reshape(27, ci, co).transpose(1, 2)
+    return torch.index_select(w, 0, _reversed_taps(w_packed.device)).reshape(
+        27 * co, ci)
+
+
+@functools.lru_cache(maxsize=None)
+def _reversed_taps(device) -> torch.Tensor:
+    return torch.arange(26, -1, -1, device=device)
 
 
 def transpose_packed(w_packed: torch.Tensor, ci: int) -> torch.Tensor:
@@ -262,6 +275,132 @@ def _reflect_pad_adjoint(g: torch.Tensor) -> torch.Tensor:
     return g
 
 
+# The reflect adjoint as the kernels split it. Along an axis of extent S,
+# dx[i] = g[i + 1] (+ g[0] if i == 1) (+ g[S + 1] if i == S - 2): only dx
+# voxels with some axis index in {1, S - 2} (the shell) sum more than one
+# extended-grid voxel, and those sources (some axis coordinate in {0, 2,
+# S - 1, S + 1}: the shell sources) reach no other dx voxel. The split store
+# writes every other extended voxel e straight into dx[e - 1] and the shell
+# sources into the scratch g_ext; the shell pass sums each shell voxel's
+# sources in `_reflect_pad_adjoint`'s order, so the route gives its bits.
+
+def reflect_sources(i: int, n: int) -> list[int]:
+    """The extended-grid indices whose gradient lands on index i of an
+    n-extent reflect-padded axis, in the order `_reflect_pad_adjoint` adds
+    them (`csrc/conv3d.cu` reflect_sources): i + 1, then 0 if i == 1, then
+    n + 1 if i == n - 2."""
+    return [i + 1] + [0] * (i == 1) + [n + 1] * (i == n - 2)
+
+
+def _axis_shell(n: int) -> tuple[list[int], list[int]]:
+    """The shell indices {1, n - 2} of an axis, sorted, and the others."""
+    shell = sorted({1, n - 2})
+    return shell, [i for i in range(n) if i not in shell]
+
+
+@functools.lru_cache(maxsize=64)
+def reflect_shell_voxels(D: int, H: int, W: int) -> torch.Tensor:
+    """(N, 3) long: the (z, y, x) of every dx voxel with some axis index in
+    {1, n - 2}, in the shell kernel's item order: the (z, y) rows that lie
+    in the shell whole (z in the z shell, then y in the y shell), x
+    fastest, then the x shell's voxels of the other rows."""
+    (zs, zo), (ys, yo), (xs, _) = _axis_shell(D), _axis_shell(H), \
+        _axis_shell(W)
+    rows = [(z, y) for z in zs for y in range(H)]
+    rows += [(z, y) for z in zo for y in ys]
+    vox = [(z, y, x) for z, y in rows for x in range(W)]
+    vox += [(z, y, x) for z in zo for y in yo for x in xs]
+    return torch.tensor(vox, dtype=torch.long).reshape(-1, 3)
+
+
+def shell_source_mask(D: int, H: int, W: int, device=None) -> torch.Tensor:
+    """(D+2, H+2, W+2) bool: the extended-grid voxels with some axis
+    coordinate in {0, 2, S - 1, S + 1}, the shell's sources."""
+    def axis(n):
+        m = torch.zeros(n + 2, dtype=torch.bool, device=device)
+        m[[0, 2, n - 1, n + 1]] = True
+        return m
+    mz, my, mx = axis(D), axis(H), axis(W)
+    return mz[:, None, None] | my[None, :, None] | mx[None, None, :]
+
+
+def reflect_split_store_plain(g: torch.Tensor):
+    """The split store of the extended-grid result `g` (B, S+2, ..., C):
+    (dx, g_ext) f32, dx (B, D, H, W, C) holding g[e] at e - 1 for every
+    extended voxel e that is no shell source, g_ext holding g at the shell
+    sources. What the kernel does not write is NaN here, so a read of it
+    shows."""
+    B, D2, H2, W2, C = g.shape
+    src = shell_source_mask(D2 - 2, H2 - 2, W2 - 2, g.device)[..., None]
+    nan = torch.tensor(float("nan"), device=g.device)
+    g = g.float()
+    g_ext = torch.where(src, g, nan)
+    dx = torch.where(src[1:-1, 1:-1, 1:-1], nan, g[:, 1:-1, 1:-1, 1:-1])
+    return dx, g_ext
+
+
+def _shell_sources(idx: torch.Tensor, n: int):
+    """Per voxel index on an n-extent axis, its 3 source slots as
+    `csrc/conv3d.cu` reflect_sources fills them, and which are in use."""
+    s = torch.stack([idx + 1, torch.where(idx == 1, 0, n + 1),
+                     torch.full_like(idx, n + 1)], dim=1)
+    count = 1 + (idx == 1).long() + (idx == n - 2).long()
+    return s, torch.arange(3, device=idx.device) < count[:, None]
+
+
+def reflect_shell_plain(g_ext: torch.Tensor, dx: torch.Tensor
+                        ) -> torch.Tensor:
+    """The shell pass on (B, D+2, H+2, W+2, C) `g_ext`: every dx (B, D, H,
+    W, C) voxel with some axis index in {1, n - 2} becomes the f32 sum of
+    its sources (z innermost, then y, then x, as `_reflect_pad_adjoint`
+    adds them), in dx's dtype; in place, no other voxel written. Reads
+    g_ext at the shell sources only."""
+    B, D, H, W, C = dx.shape
+    v = reflect_shell_voxels(D, H, W).to(g_ext.device)
+    (sz, vz), (sy, vy), (sx, vx) = (
+        _shell_sources(v[:, a], n) for a, n in enumerate((D, H, W)))
+    g = g_ext.float()
+    acc = None
+    for k in range(3):
+        ay = None
+        for j in range(3):
+            az = None
+            for i in range(3):
+                t = g[:, sz[:, i], sy[:, j], sx[:, k]]
+                az = t if az is None else torch.where(vz[:, i, None],
+                                                      az + t, az)
+            ay = az if ay is None else torch.where(vy[:, j, None], ay + az,
+                                                   ay)
+        acc = ay if acc is None else torch.where(vx[:, k, None], acc + ay,
+                                                 acc)
+    dx[:, v[:, 0], v[:, 1], v[:, 2]] = acc.to(dx.dtype)
+    return dx
+
+
+def reflect_pad_adjoint_split(g: torch.Tensor) -> torch.Tensor:
+    """`_reflect_pad_adjoint` as the kernels run it: the split store, then
+    the shell pass (f32, the same bits)."""
+    dx, g_ext = reflect_split_store_plain(g)
+    return reflect_shell_plain(g_ext, dx)
+
+
+def _transposed_conv_ext(dy, w_packed):
+    """The transposed conv of dy (B, D, H, W, Co) with packed weights
+    (27 * Ci, Co) over the (S+2)^3 grid of the padded input (dy zero
+    outside the volume), f32."""
+    B, D, H, W, co = dy.shape
+    ci = w_packed.shape[0] // 27
+    w = w_packed.float().reshape(27, ci, co)
+    dyp = F.pad(dy.float(), (0, 0, 2, 2, 2, 2, 2, 2))
+    g = None
+    for t in range(27):
+        kd, kh, kw = t // 9, (t // 3) % 3, t % 3
+        sl = dyp[:, 2 - kd:4 - kd + D, 2 - kh:4 - kh + H, 2 - kw:4 - kw + W]
+        term = sl @ w[t].t()
+        g = term if g is None else g + term
+    return g
+
+
 def conv3x3x3_dgrad_ndhwc_plain(dy, w_packed, *, pad_type="reflect",
                                 out_dtype=None, stride=1, spatial=None):
     """dx (B, D, H, W, Ci) of the conv: the transposed conv over the (S+2)^3
@@ -274,16 +413,8 @@ def conv3x3x3_dgrad_ndhwc_plain(dy, w_packed, *, pad_type="reflect",
         return conv3x3x3_dgrad_s2_ndhwc_plain(dy, w_packed, spatial,
                                               out_dtype=out_dtype)
     _pad_mode(pad_type)
-    B, D, H, W, co = dy.shape
-    ci = w_packed.shape[0] // 27
-    w = w_packed.float().reshape(27, ci, co)
-    dyp = F.pad(dy.float(), (0, 0, 2, 2, 2, 2, 2, 2))
-    g = None
-    for t in range(27):
-        kd, kh, kw = t // 9, (t // 3) % 3, t % 3
-        sl = dyp[:, 2 - kd:4 - kd + D, 2 - kh:4 - kh + H, 2 - kw:4 - kw + W]
-        term = sl @ w[t].t()
-        g = term if g is None else g + term
+    D, H, W = dy.shape[1:4]
+    g = _transposed_conv_ext(dy, w_packed)
     if pad_type == "reflect":
         dx = _reflect_pad_adjoint(g)
     else:
@@ -363,17 +494,8 @@ def conv3x3x3_dgrad_ndhwc(
     if dy.device.type == "cpu":
         return conv3x3x3_dgrad_ndhwc_plain(dy, w_packed, pad_type=pad_type,
                                            stride=stride, spatial=spatial)
-    _check_bf16_cuda(dy, "dy")
+    ci = _check_dgrad_operands(dy, w_packed)
     B, d, h, w, co = dy.shape
-    if (w_packed.dim() != 2 or w_packed.shape[0] % 27
-            or w_packed.shape[1] != co or w_packed.dtype != torch.bfloat16
-            or w_packed.device != dy.device):
-        raise ValueError(f"packed weights must be bf16 (27*Ci, {co}) on "
-                         f"{dy.device}; got {tuple(w_packed.shape)} "
-                         f"{w_packed.dtype}")
-    ci = w_packed.shape[0] // 27
-    zero_bias = torch.zeros((ci,), dtype=torch.float32, device=dy.device)
-    stream = torch.cuda.current_stream(dy.device).cuda_stream
     if stride == 2:
         _check_s2_pad(pad_type)
         if spatial is None or s2_grid(spatial) != (d, h, w):
@@ -385,38 +507,122 @@ def conv3x3x3_dgrad_ndhwc(
         plan = conv_plan(B, (d, h, w), co, ci, mode=MODE_S2_DGRAD)
         rc = _fn("conv3x3x3_dgrad_s2_ndhwc")(
             dy.data_ptr(), transpose_packed(w_packed, ci).data_ptr(),
-            zero_bias.data_ptr(), dx.data_ptr(), plan.as_c(), B, d, h, w,
-            D, H, W, co, ci, stream,
+            _zero_bias(ci, dy.device).data_ptr(), dx.data_ptr(),
+            plan.as_c(), B, d, h, w, D, H, W, co, ci,
+            torch.cuda.current_stream(dy.device).cuda_stream,
         )
         build.check(rc, "conv3x3x3_dgrad_s2_ndhwc")
         conv3x3x3_dgrad_ndhwc.launches += 1
         return dx
     if stride != 1:
         raise ValueError(f"stride must be 1 or 2, got {stride}")
-    D, H, W = d, h, w
-    _check_extents((D, H, W), pad_type)
-    w_t = flip_transpose_packed(w_packed, ci)
+    _check_extents((d, h, w), pad_type)
+    if pad_type == "reflect":
+        dx, g_ext = _reflect_store(dy, w_packed, ci)
+        return _shell_launch(g_ext, dx)
+    return _dgrad_launch(dy, w_packed, ci, None)
+
+
+conv3x3x3_dgrad_ndhwc.launches = 0
+
+
+def _check_dgrad_operands(dy, w_packed) -> int:
+    """Ci of the packed weights, after checking dy and them for the card."""
+    _check_bf16_cuda(dy, "dy")
+    co = dy.shape[4]
+    if (w_packed.dim() != 2 or w_packed.shape[0] % 27
+            or w_packed.shape[1] != co or w_packed.dtype != torch.bfloat16
+            or w_packed.device != dy.device):
+        raise ValueError(f"packed weights must be bf16 (27*Ci, {co}) on "
+                         f"{dy.device}; got {tuple(w_packed.shape)} "
+                         f"{w_packed.dtype}")
+    return w_packed.shape[0] // 27
+
+
+@functools.lru_cache(maxsize=None)
+def _zero_bias(ci, device):
+    """The transposed convs' bias: (ci,) f32 zeros, read only."""
+    return torch.zeros((ci,), dtype=torch.float32, device=device)
+
+
+def _dgrad_launch(dy, w_packed, ci, g_ext):
+    """The stride-1 transposed conv into a new bf16 dx: over the volume
+    (zeros), or with `g_ext` over the grid grown by 1 in the split store
+    (reflect)."""
+    B, D, H, W, co = dy.shape
     dx = torch.empty((B, D, H, W, ci), dtype=torch.bfloat16, device=dy.device)
-    reflect = pad_type == "reflect"
-    g_ext = (torch.empty((B, D + 2, H + 2, W + 2, ci), dtype=torch.float32,
-                         device=dy.device) if reflect else None)
-    # the transposed conv runs over the grid grown by 1 (reflect) or the
-    # volume (zeros)
+    reflect = g_ext is not None
     grid = (D + 2, H + 2, W + 2) if reflect else (D, H, W)
     plan = conv_plan(B, grid, co, ci)
     ws = workspace(plan, B * grid[0] * grid[1] * grid[2], ci, dy.device)
     rc = _fn("conv3x3x3_dgrad_ndhwc")(
-        dy.data_ptr(), w_t.data_ptr(), zero_bias.data_ptr(),
+        dy.data_ptr(), flip_transpose_packed(w_packed, ci).data_ptr(),
+        _zero_bias(ci, dy.device).data_ptr(),
         g_ext.data_ptr() if reflect else None, dx.data_ptr(),
         ws.data_ptr() if ws is not None else None, plan.as_c(), B, D, H, W,
-        co, ci, int(reflect), stream,
+        co, ci, int(reflect), torch.cuda.current_stream(dy.device).cuda_stream,
     )
     build.check(rc, "conv3x3x3_dgrad_ndhwc")
     conv3x3x3_dgrad_ndhwc.launches += 1
     return dx
 
 
-conv3x3x3_dgrad_ndhwc.launches = 0
+def reflect_dgrad_store(dy: torch.Tensor, w_packed: torch.Tensor):
+    """The first launch of the reflect-padded conv's input gradient: the
+    transposed conv over the (S+2)^3 grid grown by 1, with the split store.
+    Returns (dx, g_ext): dx (B, D, H, W, Ci) bf16 written at every voxel
+    off the shell, g_ext (B, D+2, H+2, W+2, Ci) f32 at the shell's sources
+    only; `reflect_shell_ndhwc(g_ext, dx)` completes dx. Counted in
+    `conv3x3x3_dgrad_ndhwc.launches`. On the CPU: the plain transposed conv
+    and `reflect_split_store_plain` (NaN where the kernel writes nothing)."""
+    if dy.device.type == "cpu":
+        dx, g_ext = reflect_split_store_plain(
+            _transposed_conv_ext(dy, w_packed))
+        return dx.to(dy.dtype), g_ext
+    ci = _check_dgrad_operands(dy, w_packed)
+    _check_extents(dy.shape[1:4], "reflect")
+    return _reflect_store(dy, w_packed, ci)
+
+
+def _reflect_store(dy, w_packed, ci):
+    B, D, H, W, _ = dy.shape
+    g_ext = torch.empty((B, D + 2, H + 2, W + 2, ci), dtype=torch.float32,
+                        device=dy.device)
+    return _dgrad_launch(dy, w_packed, ci, g_ext), g_ext
+
+
+def reflect_shell_ndhwc(g_ext: torch.Tensor, dx: torch.Tensor
+                        ) -> torch.Tensor:
+    """The reflect input gradient's shell pass, in place: every voxel of dx
+    (B, D, H, W, C) bf16 with some axis index in {1, n - 2} becomes the f32
+    sum of its sources in g_ext (B, D+2, H+2, W+2, C) f32
+    (`reflect_shell_plain`), rounded once; no other voxel is written.
+    Returns dx."""
+    if g_ext.device.type == "cpu":
+        return reflect_shell_plain(g_ext, dx)
+    _check_bf16_cuda(dx, "dx")
+    B, D, H, W, C = dx.shape
+    if (g_ext.device != dx.device or g_ext.dtype != torch.float32
+            or not g_ext.is_contiguous()
+            or g_ext.shape != (B, D + 2, H + 2, W + 2, C)):
+        want = (B, D + 2, H + 2, W + 2, C)
+        raise ValueError(f"g_ext must be a contiguous f32 {want} tensor on "
+                         f"{dx.device}, got {tuple(g_ext.shape)} "
+                         f"{g_ext.dtype}")
+    _check_extents((D, H, W), "reflect")
+    return _shell_launch(g_ext, dx)
+
+
+reflect_shell_ndhwc.launches = 0
+
+
+def _shell_launch(g_ext, dx):
+    rc = _fn("reflect_shell_ndhwc")(
+        g_ext.data_ptr(), dx.data_ptr(), *dx.shape,
+        torch.cuda.current_stream(dx.device).cuda_stream)
+    build.check(rc, "reflect_shell_ndhwc")
+    reflect_shell_ndhwc.launches += 1
+    return dx
 
 
 # -----------------------------------------------------------------------------

@@ -17,7 +17,8 @@
 //       not materialized)
 //   T-x anatomix_tpu/ops/pallas/conv_block.py  conv_block_sparse_dx
 //       (dx of K1 on the (d+2)^3 extended grid with the gradient's zero
-//       halo built in the kernel, then the caller's pad adjoint)
+//       halo built in the kernel, then the caller's pad adjoint: here the
+//       split store and the shell pass, below)
 //   V2  anatomix_tpu/ops/pallas/conv_down.py   conv_down2_block
 //       (the ViT tokenizer's stride-2 convs, zero padding 1; the TPU kernel
 //       reads the space-to-depth block tensor, whose block grid is the
@@ -99,10 +100,31 @@
 // kernel run as the transposed conv: flipped, transposed weights (packed by
 // the caller, 27 * Co x Ci), zero padding, over the output grid grown by 1
 // on each side (origin -1), so it reads the unpadded dy and treats the halo
-// of 2 as zeros by index. For reflect padding the (S+2)^3 f32 result g is
-// then folded by `pad_adjoint_kernel`: dx[i] = g[i+1] (+ g[0] if i == 1)
-// (+ g[S+1] if i == S-2) on each axis, the exact adjoint of torch's reflect
-// pad. For zero padding only the interior is computed, straight into dx.
+// of 2 as zeros by index. For zero padding only the interior is computed,
+// straight into dx. For reflect padding the (S+2)^3 f32 result g has to be
+// folded, dx[i] = g[i+1] (+ g[0] if i == 1) (+ g[S+1] if i == S-2) on each
+// axis, the exact adjoint of torch's reflect pad (replaces the XLA VJP of
+// the pad that the JAX package's caller takes, conv_block_train.py:678).
+// What bounds the fold is bytes: stored whole in f32 and read back whole,
+// g is 4.2x the bf16 dx at 128^3 x 16 (281 MB at B2), though only the shell
+// (dx voxels with some axis index in {1, S-2}, 4.6 % of them at 128^3) sums
+// more than one g voxel. So the store is split (FOLD, a template flag of
+// the brick, ring and split-K reduce epilogues; `out_voxel`): an extended
+// voxel with no axis coordinate in {0, 2, S-1, S+1} feeds exactly one dx
+// voxel, and only that one, so the epilogue rounds it straight into
+// dx[e - 1] in bf16 (the same one rounding of the same f32 value as a
+// full-grid fold); only the shell's sources (9 % of g at 128^3) go to the
+// f32 scratch g_ext. The scratch keeps g's full (S+2)^3 extent, written
+// sparsely: the caching allocator hands it out without a copy, the
+// epilogues and the shell pass index it as they index g, and a compact
+// face buffer would save only address space. Then `reflect_shell_kernel`
+// visits the shell alone: 32-bit items over (voxel, 8 channels) and the
+// batch on the grid's y, two 16-byte f32 loads per source (each shell
+// source is read by exactly one thread), the 2-8 sources summed in the
+// plain adjoint's order (z innermost, then y, then x), one 16-byte bf16
+// store, no atomics: every dx voxel is written once, by one kernel, the
+// same bits every run. Widths that are not a multiple of 8 take one
+// channel a thread.
 //
 // The input gradient of the stride-2 pad-1 conv
 // (`conv3x3x3_dgrad_s2_ndhwc`) reads dy on its own grid: per axis
@@ -149,6 +171,8 @@ struct ConvArgs {
   const __nv_bfloat16* w;      // (taps * (c1 + c2), co), row tap * Ci + c
   const float* bias;           // (co)
   void* out;                   // (B, oD, oH, oW, co) bf16 or f32
+  __nv_bfloat16* dx;           // the reflect dgrad's split store (FOLD):
+                               // (B, D, H, W, co), or null
   float* ws;                   // (splits, B * oD * oH * oW, co) or null
   int B, D, H, W;              // the gathered grid
   int oD, oH, oW, org;         // the output grid; mode 0 reads o + org
@@ -186,6 +210,60 @@ union Pack8 {  // eight bf16 values as raw 16-bit patterns
   uint4 u;
   unsigned short h[8];
 };
+
+// (v0, v1) into columns col, col + 1 (v1 only if `two`) at element `off` of
+// an output of co columns, f32 or bf16
+__device__ __forceinline__ void store_pair(void* out, int out_f32, int co,
+                                           int64_t off, float v0, float v1,
+                                           bool two) {
+  if (out_f32) {
+    float* dst = static_cast<float*>(out) + off;
+    if (two && (co & 1) == 0) {
+      *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+    } else {
+      dst[0] = v0;
+      if (two) dst[1] = v1;
+    }
+  } else {
+    __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + off;
+    if (two && (co & 1) == 0) {
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+    } else {
+      dst[0] = __float2bfloat16(v0);
+      if (two) dst[1] = __float2bfloat16(v1);
+    }
+  }
+}
+
+// whether coordinate e of an extended-grid axis of n = S + 2 is a shell
+// source: one that the reflect adjoint adds onto a dx index in {1, S - 2}
+// (e - 1 there, or the mirrored halo face 0 or S + 1)
+__device__ __forceinline__ bool shell_coord(int e, int n) {
+  return e == 0 || e == 2 || e == n - 3 || e == n - 1;
+}
+
+// where output voxel (b, z, y, x) is stored: element vox * co of `out`, as
+// the launch says; or, in the reflect dgrad's split store (FOLD), when no
+// axis coordinate of the extended-grid voxel is a shell source, straight
+// into dx[z - 1, y - 1, x - 1] in bf16, the only dx voxel it reaches
+struct Dst {
+  void* p;
+  int64_t vox;
+  int f32;
+};
+
+template <bool FOLD>
+__device__ __forceinline__ Dst out_voxel(const ConvArgs& a, int b, int z,
+                                         int y, int x) {
+  Dst d{a.out, (((int64_t)b * a.oD + z) * a.oH + y) * a.oW + x, a.out_f32};
+  if (FOLD && !(shell_coord(z, a.oD) || shell_coord(y, a.oH) ||
+                shell_coord(x, a.oW))) {
+    d.p = a.dx;
+    d.f32 = 0;
+    d.vox = (((int64_t)b * a.D + z - 1) * a.H + y - 1) * a.W + x - 1;
+  }
+  return d;
+}
 
 struct Voxel {
   int b, z, y, x;
@@ -323,8 +401,9 @@ __device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
                : "memory");
 }
 
-// STAGES: the ring's depth; loads run STAGES - 2 steps ahead; DOWN: mode 2
-template <int BN, int STAGES, bool DOWN>
+// STAGES: the ring's depth; loads run STAGES - 2 steps ahead; DOWN: mode 2;
+// FOLD: the reflect dgrad's split store (`out_voxel`)
+template <int BN, int STAGES, bool DOWN, bool FOLD>
 __global__ void __launch_bounds__(NTHREADS) conv_kernel(const ConvArgs a) {
   constexpr int NB8 = BN / 8;
   constexpr int STAGE = A_BYTES + BK * BN * 2;
@@ -467,6 +546,7 @@ __global__ void __launch_bounds__(NTHREADS) conv_kernel(const ConvArgs a) {
     if (!o.valid) continue;
     const int64_t vox =
         (((int64_t)o.b * a.oD + o.z) * a.oH + o.y) * a.oW + o.x;
+    const Dst d = out_voxel<FOLD>(a, o.b, o.z, o.y, o.x);
 #pragma unroll
     for (int j = 0; j < NB8; ++j) {
       const int col = n0 + 8 * j + 2 * (l & 3);
@@ -482,33 +562,59 @@ __global__ void __launch_bounds__(NTHREADS) conv_kernel(const ConvArgs a) {
       const float u0 = activate(v0 + a.bias[col], a.act, a.slope);
       const float u1 =
           two ? activate(v1 + a.bias[col + 1], a.act, a.slope) : 0.f;
-      const int64_t off = vox * a.co + col;
-      if (a.out_f32) {
-        float* dst = static_cast<float*>(a.out) + off;
-        if (two && (a.co & 1) == 0) {
-          *reinterpret_cast<float2*>(dst) = make_float2(u0, u1);
-        } else {
-          dst[0] = u0;
-          if (two) dst[1] = u1;
-        }
-      } else {
-        __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.out) + off;
-        if (two && (a.co & 1) == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(dst) =
-              __floats2bfloat162_rn(u0, u1);
-        } else {
-          dst[0] = __float2bfloat16(u0);
-          if (two) dst[1] = __float2bfloat16(u1);
-        }
+      store_pair(d.p, d.f32, a.co, d.vox * a.co + col, u0, u1, two);
+    }
+  }
+}
+
+// the halo bricks' epilogue: planes 2 wg and 2 wg + 1 of the 8 x 8 x 4
+// output tile at (z0, y0, x0) of batch item b, rows 16 w + l / 4 (+ 8) =
+// (y, x) of a plane, columns 8 j + 2 (l % 4) (+ 1) from n0: bias,
+// activation, store (`out_voxel`); S2 (mode 1) writes voxel 2 o + p of
+// parity class cls
+template <int BN, bool S2, bool FOLD>
+__device__ __forceinline__ void store_tile(const ConvArgs& a,
+                                           const float (&acc0)[BN / 2],
+                                           const float (&acc1)[BN / 2],
+                                           int b, int z0, int y0, int x0,
+                                           int n0, int cls) {
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, w = (tid >> 5) & 3, l = tid & 31;
+#pragma unroll
+  for (int zz = 0; zz < 2; ++zz) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = w * 16 + (l >> 2) + 8 * h;
+      int z = z0 + 2 * wg + zz, y = y0 + (rr >> 3), x = x0 + (rr & 7);
+      if (S2) {
+        z = 2 * z + (cls >> 2);
+        y = 2 * y + ((cls >> 1) & 1);
+        x = 2 * x + (cls & 1);
+      }
+      if (z >= a.oD || y >= a.oH || x >= a.oW) continue;
+      const Dst d = out_voxel<FOLD>(a, b, z, y, x);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * (l & 3);
+        if (col >= a.co) continue;
+        const bool two = col + 1 < a.co;
+        const float r0 = zz ? acc1[4 * j + 2 * h] : acc0[4 * j + 2 * h];
+        const float r1 =
+            zz ? acc1[4 * j + 2 * h + 1] : acc0[4 * j + 2 * h + 1];
+        const float v0 = activate(r0 + a.bias[col], a.act, a.slope);
+        const float v1 =
+            two ? activate(r1 + a.bias[col + 1], a.act, a.slope) : 0.f;
+        store_pair(d.p, d.f32, a.co, d.vox * a.co + col, v0, v1, two);
       }
     }
   }
 }
 
 // The halo brick (design 1 above); mode 1 (S2) is the stride-2 input
-// gradient. Registers are capped so that as many blocks as the shared
-// memory admits fit on an SM: 4 at N 16, 3 at 32, 2 at 64.
-template <int BN, bool S2, bool CHUNKED>
+// gradient; FOLD the reflect dgrad's split store. Registers are capped so
+// that as many blocks as the shared memory admits fit on an SM: 4 at N 16,
+// 3 at 32, 2 at 64.
+template <int BN, bool S2, bool CHUNKED, bool FOLD>
 __global__ void __launch_bounds__(NTHREADS, BN == 16 ? 4 : BN == 32 ? 3 : 2)
 conv_brick_kernel(const ConvArgs a) {
   constexpr int NB8 = BN / 8;
@@ -532,7 +638,6 @@ conv_brick_kernel(const ConvArgs a) {
   const int n0 = blockIdx.y * BN;
   const int ci = a.c1 + a.c2;
   const int wg = tid >> 7;
-  const int w = (tid >> 5) & 3, l = tid & 31;
   const uint32_t b_lbo = NB8 * 128;
   float acc0[BN / 2], acc1[BN / 2];
 
@@ -632,113 +737,15 @@ conv_brick_kernel(const ConvArgs a) {
       wgmma_wait<0>();
       fence_regs(acc0);
       fence_regs(acc1);
-      if (!last) continue;
-
-      // epilogue: plane 2 wg + zz, rows 16 w + l / 4 (+ 8) = (y, x) of the
-      // plane, columns 8 j + 2 (l % 4) (+ 1); mode 1 writes voxel 2 o + p
-#pragma unroll
-      for (int zz = 0; zz < 2; ++zz) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int rr = w * 16 + (l >> 2) + 8 * h;
-          int z = z0 + 2 * wg + zz, y = y0 + (rr >> 3), x = x0 + (rr & 7);
-          if (S2) {
-            z = 2 * z + (cls >> 2);
-            y = 2 * y + ((cls >> 1) & 1);
-            x = 2 * x + (cls & 1);
-          }
-          if (z >= a.oD || y >= a.oH || x >= a.oW) continue;
-          const int64_t vox =
-              (((int64_t)b * a.oD + z) * a.oH + y) * a.oW + x;
-#pragma unroll
-          for (int j = 0; j < NB8; ++j) {
-            const int col = n0 + 8 * j + 2 * (l & 3);
-            if (col >= a.co) continue;
-            const bool two = col + 1 < a.co;
-            const float r0 = zz ? acc1[4 * j + 2 * h] : acc0[4 * j + 2 * h];
-            const float r1 =
-                zz ? acc1[4 * j + 2 * h + 1] : acc0[4 * j + 2 * h + 1];
-            const float v0 = activate(r0 + a.bias[col], a.act, a.slope);
-            const float v1 =
-                two ? activate(r1 + a.bias[col + 1], a.act, a.slope) : 0.f;
-            const int64_t off = vox * a.co + col;
-            if (a.out_f32) {
-              float* dst = static_cast<float*>(a.out) + off;
-              if (two && (a.co & 1) == 0) {
-                *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-              } else {
-                dst[0] = v0;
-                if (two) dst[1] = v1;
-              }
-            } else {
-              __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.out) + off;
-              if (two && (a.co & 1) == 0) {
-                *reinterpret_cast<__nv_bfloat162*>(dst) =
-                    __floats2bfloat162_rn(v0, v1);
-              } else {
-                dst[0] = __float2bfloat16(v0);
-                if (two) dst[1] = __float2bfloat16(v1);
-              }
-            }
-          }
-        }
-      }
+      if (!last || FOLD) continue;
+      store_tile<BN, S2, false>(a, acc0, acc1, b, z0, y0, x0, n0, cls);
     }
   }
-}
-
-// the stride-2 brick's epilogue: planes 2 wg and 2 wg + 1 of the 8 x 8 x 4
-// output tile at (z0, y0, x0), rows 16 w + l / 4 (+ 8) = (y, x) of a
-// plane, columns 8 j + 2 (l % 4) (+ 1) from n0: bias, activation, bf16 or
-// f32 store
-template <int BN>
-__device__ __forceinline__ void store_down_tile(const ConvArgs& a,
-                                                const float (&acc0)[BN / 2],
-                                                const float (&acc1)[BN / 2],
-                                                int b, int z0, int y0, int x0,
-                                                int n0) {
-  const int tid = threadIdx.x;
-  const int wg = tid >> 7, w = (tid >> 5) & 3, l = tid & 31;
-#pragma unroll
-  for (int zz = 0; zz < 2; ++zz) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int rr = w * 16 + (l >> 2) + 8 * h;
-      const int z = z0 + 2 * wg + zz, y = y0 + (rr >> 3), x = x0 + (rr & 7);
-      if (z >= a.oD || y >= a.oH || x >= a.oW) continue;
-      const int64_t vox = (((int64_t)b * a.oD + z) * a.oH + y) * a.oW + x;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = n0 + 8 * j + 2 * (l & 3);
-        if (col >= a.co) continue;
-        const bool two = col + 1 < a.co;
-        const float r0 = zz ? acc1[4 * j + 2 * h] : acc0[4 * j + 2 * h];
-        const float r1 =
-            zz ? acc1[4 * j + 2 * h + 1] : acc0[4 * j + 2 * h + 1];
-        const float v0 = activate(r0 + a.bias[col], a.act, a.slope);
-        const float v1 =
-            two ? activate(r1 + a.bias[col + 1], a.act, a.slope) : 0.f;
-        const int64_t off = vox * a.co + col;
-        if (a.out_f32) {
-          float* dst = static_cast<float*>(a.out) + off;
-          if (two && (a.co & 1) == 0) {
-            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-          } else {
-            dst[0] = v0;
-            if (two) dst[1] = v1;
-          }
-        } else {
-          __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(a.out) + off;
-          if (two && (a.co & 1) == 0) {
-            *reinterpret_cast<__nv_bfloat162*>(dst) =
-                __floats2bfloat162_rn(v0, v1);
-          } else {
-            dst[0] = __float2bfloat16(v0);
-            if (two) dst[1] = __float2bfloat16(v1);
-          }
-        }
-      }
-    }
+  // the split store's epilogue runs after the chunk loop, so that nothing
+  // it computes is held across the MMAs, where the bricks sit at their
+  // register caps
+  if constexpr (FOLD) {
+    store_tile<BN, false, true>(a, acc0, acc1, b, z0, y0, x0, n0, 0);
   }
 }
 
@@ -949,62 +956,70 @@ conv_down_brick_kernel(const ConvArgs a) {
     fence_regs(acc1);
   }
   cp_async_wait<0>();
-  store_down_tile<BN>(a, acc0, acc1, b, z0, y0, x0, n0);
+  store_tile<BN, false, false>(a, acc0, acc1, b, z0, y0, x0, n0, 0);
 }
 
 // sums the split-K partials in split order, then bias, activation, store
-__global__ void splitk_reduce_kernel(const float* __restrict__ ws,
-                                     const float* __restrict__ bias,
-                                     void* out, int64_t n, int co,
-                                     int splits, int act, float slope,
-                                     int out_f32) {
+// (FOLD: the reflect dgrad's split store, `out_voxel`; n < 2^31 there, so
+// the voxel is decoded in 32 bits)
+template <bool FOLD>
+__global__ void splitk_reduce_kernel(const ConvArgs a, int64_t n) {
   for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < n;
        e += (int64_t)gridDim.x * blockDim.x) {
     float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += ws[k * n + e];
-    const float v = activate(s + bias[e % co], act, slope);
-    if (out_f32) {
-      static_cast<float*>(out)[e] = v;
+    for (int k = 0; k < a.splits; ++k) s += a.ws[k * n + e];
+    if (FOLD) {
+      const int vox = (int)e / a.co, c = (int)e - vox * a.co;
+      const int x = vox % a.oW, zy = vox / a.oW;
+      const int y = zy % a.oH, bz = zy / a.oH;
+      const Dst d = out_voxel<true>(a, bz / a.oD, bz % a.oD, y, x);
+      store_pair(d.p, d.f32, a.co, d.vox * a.co + c,
+                 activate(s + a.bias[c], a.act, a.slope), 0.f, false);
     } else {
-      static_cast<__nv_bfloat16*>(out)[e] = __float2bfloat16(v);
+      store_pair(a.out, a.out_f32, a.co, e,
+                 activate(s + a.bias[e % a.co], a.act, a.slope), 0.f, false);
     }
   }
 }
 
-template <int BN, int STAGES, bool DOWN>
+template <int BN, int STAGES, bool DOWN, bool FOLD>
 cudaError_t launch_ring(const ConvArgs& a, int m_tiles, int n_tiles, int gz,
                         cudaStream_t stream) {
   const int smem = STAGES * (A_BYTES + BK * BN * 2);
   cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<BN, STAGES, DOWN>,
+      conv_kernel<BN, STAGES, DOWN, FOLD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  conv_kernel<BN, STAGES, DOWN><<<dim3(m_tiles, n_tiles, gz), NTHREADS, smem,
-                                  stream>>>(a);
+  conv_kernel<BN, STAGES, DOWN, FOLD><<<dim3(m_tiles, n_tiles, gz), NTHREADS,
+                                        smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int BN, int STAGES>
 cudaError_t launch(const ConvArgs& a, int m_tiles, int n_tiles, int gz,
                    cudaStream_t stream) {
-  return a.mode == 2
-             ? launch_ring<BN, STAGES, true>(a, m_tiles, n_tiles, gz, stream)
-             : launch_ring<BN, STAGES, false>(a, m_tiles, n_tiles, gz,
-                                              stream);
+  if (a.mode == 2) {
+    return launch_ring<BN, STAGES, true, false>(a, m_tiles, n_tiles, gz,
+                                                stream);
+  }
+  return a.dx ? launch_ring<BN, STAGES, false, true>(a, m_tiles, n_tiles, gz,
+                                                     stream)
+              : launch_ring<BN, STAGES, false, false>(a, m_tiles, n_tiles,
+                                                      gz, stream);
 }
 
-template <int BN, bool S2, bool CHUNKED>
+template <int BN, bool S2, bool CHUNKED, bool FOLD>
 cudaError_t launch_brick_mode(const ConvArgs& a, int m_tiles, int n_tiles,
                               cudaStream_t stream) {
   const int halo =
       S2 ? (BRICK_X + 1) * (BRICK_Y + 1) * (BRICK_Z + 1) : HALO_VOX;
   const int smem = halo * a.chunk * 2 + 27 * a.chunk * BN * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_brick_kernel<BN, S2, CHUNKED>,
+      conv_brick_kernel<BN, S2, CHUNKED, FOLD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  conv_brick_kernel<BN, S2, CHUNKED><<<dim3(m_tiles, n_tiles), NTHREADS,
-                                       smem, stream>>>(a);
+  conv_brick_kernel<BN, S2, CHUNKED, FOLD><<<dim3(m_tiles, n_tiles),
+                                             NTHREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1028,11 +1043,20 @@ cudaError_t launch_brick(const ConvArgs& a, int m_tiles, int n_tiles,
   if (a.mode == 2) return launch_down_brick<BN>(a, m_tiles, n_tiles, stream);
   // one chunk (the narrow convs, the stride-2 gradient) or several
   if (a.mode == 1) {
-    return launch_brick_mode<BN, true, false>(a, m_tiles, n_tiles, stream);
+    return launch_brick_mode<BN, true, false, false>(a, m_tiles, n_tiles,
+                                                     stream);
   }
-  return a.chunk == a.cp
-             ? launch_brick_mode<BN, false, false>(a, m_tiles, n_tiles, stream)
-             : launch_brick_mode<BN, false, true>(a, m_tiles, n_tiles, stream);
+  const bool one = a.chunk == a.cp;
+  if (a.dx) {
+    return one ? launch_brick_mode<BN, false, false, true>(a, m_tiles,
+                                                           n_tiles, stream)
+               : launch_brick_mode<BN, false, true, true>(a, m_tiles,
+                                                          n_tiles, stream);
+  }
+  return one ? launch_brick_mode<BN, false, false, false>(a, m_tiles, n_tiles,
+                                                          stream)
+             : launch_brick_mode<BN, false, true, false>(a, m_tiles, n_tiles,
+                                                         stream);
 }
 
 bool aligned16(const void* p) {
@@ -1044,19 +1068,23 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // mode 0: a stride-1 conv of the (B, D, H, W) grid onto the output grid
 // grown by `grow` on each side; mode 1: the stride-2 conv's input gradient
 // from the (B, D, H, W) gradient grid onto the (oD, oH, oW) input grid;
-// mode 2: the stride-2 conv of the (B, D, H, W) grid, zero padding 1
+// mode 2: the stride-2 conv of the (B, D, H, W) grid, zero padding 1.
+// fold_dx: the reflect dgrad's split store (mode 0, grow 1, f32 `out`
+// g_ext, no bias or activation), the shell sources into `out`, the rest
+// straight into fold_dx
 int conv_launch(const void* enc, const void* small, int f_shift,
                 const void* w, const void* bias, void* out, void* ws,
                 const int* plan, int B, int D, int H, int W, int c1, int c2,
                 int co, int reflect, int act, float slope, int out_f32,
                 void* stream, int grow = 0, int mode = 0, int oD = 0,
-                int oH = 0, int oW = 0) {
+                int oH = 0, int oW = 0, void* fold_dx = nullptr) {
   ConvArgs a;
   a.enc = static_cast<const __nv_bfloat16*>(enc);
   a.small = static_cast<const __nv_bfloat16*>(small);
   a.w = static_cast<const __nv_bfloat16*>(w);
   a.bias = static_cast<const float*>(bias);
   a.out = out;
+  a.dx = static_cast<__nv_bfloat16*>(fold_dx);
   a.ws = static_cast<float*>(ws);
   a.B = B;
   a.D = D;
@@ -1119,7 +1147,10 @@ int conv_launch(const void* enc, const void* small, int f_shift,
       (a.tiles_z << a.bz) < a.gD || (tiles_b << bb) < B ||
       n_tiles * bn < co ||
       (mode == 1 && a.splits != 1) || (a.splits > 1 && ws == nullptr) ||
-      (mode == 2 && (c2 != 0 || reflect))) {
+      (mode == 2 && (c2 != 0 || reflect)) ||
+      (fold_dx && (mode != 0 || grow != 1 || !out_f32 || act != 0 ||
+                   (a.splits > 1 &&
+                    (int64_t)B * a.oD * a.oH * a.oW * co >= INT32_MAX)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.reflect = reflect;
@@ -1157,8 +1188,11 @@ int conv_launch(const void* enc, const void* small, int f_shift,
   const int64_t n = (int64_t)B * a.oD * a.oH * a.oW * co;
   int64_t blocks = (n + 255) / 256;
   if (blocks > 132 * 16) blocks = 132 * 16;
-  splitk_reduce_kernel<<<(unsigned)blocks, 256, 0, s>>>(
-      a.ws, a.bias, out, n, co, a.splits, act, slope, out_f32);
+  if (a.dx) {
+    splitk_reduce_kernel<true><<<(unsigned)blocks, 256, 0, s>>>(a, n);
+  } else {
+    splitk_reduce_kernel<false><<<(unsigned)blocks, 256, 0, s>>>(a, n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1197,41 +1231,135 @@ extern "C" int conv3x3x3_ndhwc(const void* x, const void* w, const void* bias,
 namespace {
 
 // the extended-grid indices whose gradient lands on voxel i of an n-extent
-// axis under reflect padding: the interior i + 1, and the halo face that
-// mirrors onto i (-1 -> 1, n -> n - 2)
-__device__ __forceinline__ int reflect_sources(int i, int n, int* s) {
-  int k = 0;
-  s[k++] = i + 1;
-  if (i == 1) s[k++] = 0;
-  if (i == n - 2) s[k++] = n + 1;
+// axis under reflect padding, in the order the plain adjoint adds them: the
+// interior i + 1, then the halo face that mirrors onto i (-1 -> 1, n -> n - 2)
+__device__ __forceinline__ int reflect_sources(int i, int n, int (&s)[3]) {
+  s[0] = i + 1;
+  s[1] = i == 1 ? 0 : n + 1;
+  s[2] = n + 1;
+  return 1 + (i == 1) + (i == n - 2);
+}
+
+// the shell indices {1, n - 2} of an axis of extent n >= 2, sorted, and
+// their count (1 where they coincide, n = 3)
+struct AxisShell {
+  int lo, hi, n;
+};
+
+__device__ __forceinline__ AxisShell axis_shell(int n) {
+  AxisShell s;
+  s.lo = min(1, n - 2);
+  s.hi = max(1, n - 2);
+  s.n = s.lo == s.hi ? 1 : 2;
+  return s;
+}
+
+// the k-th index of the axis outside its shell
+__device__ __forceinline__ int off_shell(int k, const AxisShell& s) {
+  if (k >= s.lo) ++k;
+  if (s.n == 2 && k >= s.hi) ++k;
   return k;
 }
 
-__global__ void pad_adjoint_kernel(const float* __restrict__ g,
-                                   __nv_bfloat16* __restrict__ dx, int64_t n,
-                                   int D, int H, int W, int C) {
-  for (int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; e < n;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    const int c = e % C;
-    int64_t t = e / C;
-    const int x = t % W;
-    t /= W;
-    const int y = t % H;
-    t /= H;
-    const int z = t % D;
-    const int64_t b = t / D;
-    int sz[3], sy[3], sx[3];
-    const int nz = reflect_sources(z, D, sz);
-    const int ny = reflect_sources(y, H, sy);
-    const int nx = reflect_sources(x, W, sx);
-    float acc = 0.f;
-    for (int i = 0; i < nz; ++i) {
-      for (int j = 0; j < ny; ++j) {
-        const int64_t row = ((b * (D + 2) + sz[i]) * (H + 2) + sy[j]) * (W + 2);
-        for (int k = 0; k < nx; ++k) acc += g[(row + sx[k]) * C + c];
-      }
+// The reflect dgrad's shell pass (design above). Thread `item` of batch
+// item blockIdx.y owns V channels [c, c + V) of one shell voxel. The
+// shell's voxels in order: the (z, y) rows that lie in it whole (z in the
+// z shell: sz.n * H rows; else y in the y shell: (D - sz.n) * sy.n rows),
+// x fastest; then the x shell's voxels of the other rows. Each sums its
+// 1-3 sources per axis from g_ext in the plain adjoint's order (z
+// innermost, then y, then x), so the f32 sum is the plain version's bits,
+// and rounds once to bf16.
+template <int V>
+__global__ void __launch_bounds__(256)
+reflect_shell_kernel(const float* __restrict__ g,
+                     __nv_bfloat16* __restrict__ dx, int D, int H, int W,
+                     int C, int items) {
+  const int item = blockIdx.x * blockDim.x + threadIdx.x;
+  if (item >= items) return;
+  const int b = blockIdx.y;
+  const int groups = C / V;
+  const int v = item / groups;
+  const int c = (item - v * groups) * V;
+  const AxisShell sz = axis_shell(D), sy = axis_shell(H), sx = axis_shell(W);
+  const int rows = sz.n * H + (D - sz.n) * sy.n;
+  int z, y, x;
+  if (v < rows * W) {
+    const int r = v / W;
+    x = v - r * W;
+    if (r < sz.n * H) {
+      const int k = r / H;
+      y = r - k * H;
+      z = k ? sz.hi : sz.lo;
+    } else {
+      const int r2 = r - sz.n * H;
+      const int k = r2 / sy.n;
+      y = (r2 - k * sy.n) ? sy.hi : sy.lo;
+      z = off_shell(k, sz);
     }
-    dx[e] = __float2bfloat16(acc);
+  } else {
+    const int p = v - rows * W;
+    const int t = p / sx.n;
+    x = (p - t * sx.n) ? sx.hi : sx.lo;
+    const int ty = t / (H - sy.n);
+    y = off_shell(t - ty * (H - sy.n), sy);
+    z = off_shell(ty, sz);
+  }
+  int ez[3], ey[3], ex[3];
+  const int nz = reflect_sources(z, D, ez);
+  const int ny = reflect_sources(y, H, ey);
+  const int nx = reflect_sources(x, W, ex);
+  float acc[V];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (k >= nx) break;
+    float ay[V];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j >= ny) break;
+      float az[V];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        if (i >= nz) break;
+        const float* src =
+            g + ((((int64_t)b * (D + 2) + ez[i]) * (H + 2) + ey[j]) *
+                     (W + 2) + ex[k]) * C + c;
+        float t[V];
+        if constexpr (V == 8) {
+          const float4 lo = __ldg(reinterpret_cast<const float4*>(src));
+          const float4 hi = __ldg(reinterpret_cast<const float4*>(src) + 1);
+          t[0] = lo.x;
+          t[1] = lo.y;
+          t[2] = lo.z;
+          t[3] = lo.w;
+          t[4] = hi.x;
+          t[5] = hi.y;
+          t[6] = hi.z;
+          t[7] = hi.w;
+        } else {
+          t[0] = __ldg(src);
+        }
+#pragma unroll
+        for (int q = 0; q < V; ++q) az[q] = i ? az[q] + t[q] : t[q];
+      }
+#pragma unroll
+      for (int q = 0; q < V; ++q) ay[q] = j ? ay[q] + az[q] : az[q];
+    }
+#pragma unroll
+    for (int q = 0; q < V; ++q) acc[q] = k ? acc[q] + ay[q] : ay[q];
+  }
+  __nv_bfloat16* dst = dx + ((((int64_t)b * D + z) * H + y) * W + x) * C + c;
+  if constexpr (V == 8) {
+    union {
+      uint4 u;
+      __nv_bfloat162 h[4];
+    } pack;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      pack.h[q] = __floats2bfloat162_rn(acc[2 * q], acc[2 * q + 1]);
+    }
+    *reinterpret_cast<uint4*>(dst) = pack.u;
+  } else {
+    dst[0] = __float2bfloat16(acc[0]);
   }
 }
 
@@ -1251,7 +1379,9 @@ extern "C" int conv3x3x3_down2_ndhwc(const void* x, const void* w,
 
 // dx (B, D, H, W, ci) bf16 of a 3x3x3 "same" conv from dy (B, D, H, W, co)
 // and the flipped, transposed packed weights w_t (27 * co, ci); zero_bias is
-// (ci,) f32 zeros. reflect: g_ext (B, D+2, H+2, W+2, ci) f32 is scratch.
+// (ci,) f32 zeros. reflect: the split store, g_ext (B, D+2, H+2, W+2, ci)
+// f32 scratch, written at the shell sources only; dx is whole only after
+// the shell pass (`reflect_shell_ndhwc`) on the same stream.
 extern "C" int conv3x3x3_dgrad_ndhwc(const void* dy, const void* w_t,
                                      const void* zero_bias, void* g_ext,
                                      void* dx, void* ws, const int* plan,
@@ -1261,17 +1391,37 @@ extern "C" int conv3x3x3_dgrad_ndhwc(const void* dy, const void* w_t,
     return conv_launch(dy, nullptr, 0, w_t, zero_bias, dx, ws, plan, B, D, H,
                        W, co, 0, ci, 0, 0, 0.f, 0, stream);
   }
-  int rc = conv_launch(dy, nullptr, 0, w_t, zero_bias, g_ext, ws, plan, B, D,
-                       H, W, co, 0, ci, 0, 0, 0.f, 1, stream, /*grow=*/1);
-  if (rc != 0) return rc;
-  const int64_t n = (int64_t)B * D * H * W * ci;
-  const int threads = 256;
-  int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > (int64_t(1) << 20)) blocks = int64_t(1) << 20;
-  pad_adjoint_kernel<<<(unsigned)blocks, threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g_ext), static_cast<__nv_bfloat16*>(dx), n,
-      D, H, W, ci);
+  return conv_launch(dy, nullptr, 0, w_t, zero_bias, g_ext, ws, plan, B, D, H,
+                     W, co, 0, ci, 0, 0, 0.f, 1, stream, /*grow=*/1,
+                     /*mode=*/0, 0, 0, 0, dx);
+}
+
+// the reflect dgrad's shell pass: each dx (B, D, H, W, C) bf16 voxel with
+// some axis index in {1, n - 2} becomes the f32 sum of its sources in g_ext
+// (B, D+2, H+2, W+2, C), rounded once; no other voxel is written
+extern "C" int reflect_shell_ndhwc(const void* g_ext, void* dx, int B, int D,
+                                   int H, int W, int C, void* stream) {
+  if (B < 1 || B > 65535 || D < 2 || H < 2 || W < 2 || C < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec = C % 8 == 0 && aligned16(g_ext) && aligned16(dx);
+  auto count = [](int n) { return n == 3 ? 1 : 2; };
+  const int nz = count(D), ny = count(H), nx = count(W);
+  const int64_t voxels = ((int64_t)nz * H + (int64_t)(D - nz) * ny) * W +
+                         (int64_t)(D - nz) * (H - ny) * nx;
+  const int64_t items = voxels * (vec ? C / 8 : C);
+  if (items > INT32_MAX - 256) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((unsigned)((items + 255) / 256), (unsigned)B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    reflect_shell_kernel<8><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(g_ext), static_cast<__nv_bfloat16*>(dx), D,
+        H, W, C, (int)items);
+  } else {
+    reflect_shell_kernel<1><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(g_ext), static_cast<__nv_bfloat16*>(dx), D,
+        H, W, C, (int)items);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -47,8 +47,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
      seeded weights on a seeded synthetic batch: five steps through
      `build_all` -> `step`; the first loss held against the plain f32 path
      (`F.conv3d` under autograd), every conv's dW from the kernels against
-     the plain conv backward from the same forward, and the end-to-end dW
-     beside the floor a bf16 rounding of the views sets, on three batches;
+     the plain conv backward from the same forward, every dgrad launch
+     against its plain version (whole, and on the reflect shell alone),
+     and the end-to-end dW beside the floor a bf16 rounding of the views
+     sets, on three batches;
   8. the 26M ViT's pretraining step (`[vit-train-step128]`,
      `PretrainConfig(netG="primus")`: the ViT at full width and depth,
      crop 128^3, the two views as batch 2, its single tap, 512 patches,
@@ -73,7 +75,11 @@ plain path under 3e-2, and under 2.5x the plain path run in bf16 + 1e-3.
 P1 bisection and the 6M and dev forwards on both volumes; `--profile` runs
 phases 1 and 2, then
 profiles the 6M, the dev and the ViT sliding paths on 160^3 and one 6M and
-one ViT pretraining step at 128^3 with torch.profiler.
+one ViT pretraining step at 128^3 with torch.profiler; `--dgrad-split`
+runs phase 1, then times the 6M step's 19 reflect input gradients apart
+into conv, fold and glue, and the step itself in rounds
+(`run_dgrad_split`; it reads only the dgrad wrapper and the step's entry
+points, so a copy of this script also measures an earlier checkout).
 The JSON report and the profiles go to
 `chiprun_out/`.
 """
@@ -1067,7 +1073,7 @@ def check_conv_backward(kt, torch, F, dev, gen, B, S, ci, co, which,
     lib_ms = cuda_ms(conv_backward_library(torch, F, x, dy, w, pad, mask,
                                            stride2))
     b_ms, b_by = bound(2.0 * work * 27 * ci * co, in_bytes + out_bytes)
-    return dict(
+    row = dict(
         shape=f"B{B} {S}^3 {ci}->{co}" + ("" if pad == "reflect" else
                                           " zeros") + (
             " stride-2 (dy on its own grid)" if stride2 else ""),
@@ -1075,6 +1081,208 @@ def check_conv_backward(kt, torch, F, dev, gen, B, S, ci, co, which,
         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
         plan=plan,
     )
+    if which == "dgrad" and pad == "reflect":
+        # the reflect route's two launches apart, the shell's own error and
+        # two launches' bits
+        dx, g_ext = kt.reflect_dgrad_store(dy, w)
+        again = fn()
+        torch.cuda.synchronize()
+        row.update(
+            shell_rel_err=shell_rel_err(torch, got, ref),
+            repeat_max_abs_diff=(got.float() - again.float()).abs().max()
+            .item(),
+            conv_ms=cuda_ms(lambda: kt.reflect_dgrad_store(dy, w)),
+            fold_ms=cuda_ms(lambda: kt.reflect_shell_ndhwc(g_ext, dx)),
+            fold_library_ms=cuda_ms(fold_library(
+                torch, torch.randn_like(g_ext))))
+        row["ok"] = (row["ok"] and row["shell_rel_err"] < tol
+                     and row["repeat_max_abs_diff"] == 0.0)
+    return row
+
+
+def shell_rel_err(torch, got, ref) -> float:
+    """max |got - ref| / max |ref| over the dx voxels with some axis index
+    in {0, 1, S-2, S-1}, where the reflect adjoint's sums and the split
+    store's two destinations meet."""
+    def axis(n):
+        m = torch.zeros(n, dtype=torch.bool, device=got.device)
+        m[[0, 1, n - 2, n - 1]] = True
+        return m
+    D, H, W = got.shape[1:4]
+    m = axis(D)[:, None, None] | axis(H)[None, :, None] | axis(W)[None, None]
+    g, r = got.float()[:, m], ref.float()[:, m]
+    return (g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+
+
+def check_reflect_shell(kt, torch, dev, gen, B, S, C):
+    """The reflect dgrad's shell pass at (B, S^3, C) on f32 g_ext, against
+    its plain version (the same f32 sums in the same order, one rounding:
+    bit for bit) on the same prefilled dx, which it must leave as it is off
+    the shell; one `aten.reflection_pad3d_backward` (the whole fold) beside
+    it. Bound: the shell's sources read once, its voxels written once."""
+    g = torch.randn((B, S + 2, S + 2, S + 2, C), generator=gen, device=dev)
+    dx0 = torch.randn((B, S, S, S, C), generator=gen, device=dev).to(
+        torch.bfloat16)
+    got = kt.reflect_shell_ndhwc(g, dx0.clone())
+    ref = kt.reflect_shell_plain(g, dx0.clone())
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    dx = dx0.clone()
+    n_shell, n_src = reflect_shell_counts(S)
+    b_ms, b_by = bound(0.0, B * (n_src * C * 4 + n_shell * C * 2))
+    return dict(shape=f"B{B} {S}^3x{C} f32 -> bf16 shell pass",
+                max_abs_err=err, rel_err=rel, tol=TOL_EXACT,
+                ok=rel <= TOL_EXACT,
+                ms=cuda_ms(lambda: kt.reflect_shell_ndhwc(g, dx)),
+                plain_ms=cuda_ms(lambda: kt.reflect_shell_plain(g, dx)),
+                library_ms=cuda_ms(fold_library(torch, g)), bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def step_dgrad_shapes(plan, S: int) -> list[tuple[int, int, int]]:
+    """(extent, ci, co) of every conv of the train walk at crop `S` that
+    takes an input gradient: every conv but the entry conv, whose input is
+    the data. The walk halves the extent at each pool and doubles it at
+    each upsample."""
+    shapes, s, first = [], S, True
+    for spec in plan.layers:
+        if spec.kind == "pool":
+            s //= 2
+        elif spec.kind == "upsample":
+            s *= 2
+        elif spec.kind == "conv":
+            if not first:
+                shapes.append((s, spec.in_ch, spec.out_ch))
+            first = False
+    return shapes
+
+
+def reflect_shell_counts(S: int) -> tuple[int, int]:
+    """Per batch item of an S^3 volume: the shell's dx voxels (some axis
+    index in {1, S-2}) and the extended-grid voxels they sum (some axis
+    coordinate in {0, 2, S-1, S+1} of 0..S+1)."""
+    inner = S - len({1, S - 2})
+    ext_inner = S + 2 - len({0, 2, S - 1, S + 1})
+    return S ** 3 - inner ** 3, (S + 2) ** 3 - ext_inner ** 3
+
+
+def fold_library(torch, g):
+    """One PyTorch call computing the reflect pad's adjoint of `g` (B,
+    S+2, S+2, S+2, C) f32: `aten.reflection_pad3d_backward` on its NCDHW
+    view."""
+    B, s2, _, _, C = g.shape
+    s = s2 - 2
+    gc = g.permute(0, 4, 1, 2, 3)
+    inp = torch.empty((B, s, s, s, C), dtype=g.dtype,
+                      device=g.device).permute(0, 4, 1, 2, 3)
+    return lambda: torch.ops.aten.reflection_pad3d_backward(gc, inp, [1] * 6)
+
+
+def device_ms_by_kernel(torch, fn, reps: int = 10) -> dict:
+    """Device ms per call of `fn` by kernel name, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0))
+        if ev.device_type == DeviceType.CUDA and t > 0:
+            out[ev.key] = out.get(ev.key, 0.0) + t / 1e3 / reps
+    return out
+
+
+def run_dgrad_split(torch, kt, dev, B: int = 2, S: int = 128) -> dict:
+    """`--dgrad-split`: each reflect input gradient of the 6M pretraining
+    step at `PretrainConfig()` (the 19 convs of the walk but the entry
+    conv, batch 2 at crop 128), its device time apart into the conv
+    kernels, the reflect fold and the glue (the weights' flip, the zero
+    bias), by kernel name from torch.profiler; the whole call by CUDA
+    events; one `aten.reflection_pad3d_backward` on the same g; and the
+    fold's bound by bytes, both as the full-grid fold (g read whole) and as
+    the shell pass (only the shell's sources read). Then the whole step in
+    rounds (`step_rounds`). Reads only `conv3x3x3_dgrad_ndhwc` and the
+    step's entry points, so it also runs against an earlier checkout (copy
+    this script into its root)."""
+    from anatomix_tpu_torch.models.registry import ANATOMIX_VARIANTS
+    from anatomix_tpu_torch.models.unet import UnetConfig, build_plan
+
+    plan = build_plan(UnetConfig(
+        **ANATOMIX_VARIANTS["anatomix"]["unet_kwargs"]))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows, tot = [], {}
+    for s, ci, co in step_dgrad_shapes(plan, S):
+        dy = torch.randn((B, s, s, s, co), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = (torch.randn((27 * ci, co), generator=gen, device=dev)
+             * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+        fn = lambda: kt.conv3x3x3_dgrad_ndhwc(  # noqa: E731
+            dy, w, pad_type="reflect")
+        by_kernel = device_ms_by_kernel(torch, fn)
+        parts = {"conv": 0.0, "fold": 0.0, "glue": 0.0}
+        for name, ms in by_kernel.items():
+            part = ("fold" if "pad_adjoint" in name or "reflect_shell" in name
+                    else "conv" if "conv" in name or "splitk" in name
+                    else "glue")
+            parts[part] += ms
+        g = torch.randn((B, s + 2, s + 2, s + 2, ci), generator=gen,
+                        device=dev)
+        lib_ms = cuda_ms(fold_library(torch, g))
+        del g
+        n_shell, n_src = reflect_shell_counts(s)
+        row = dict(shape=f"B{B} {s}^3 {ci}->{co}", ms=cuda_ms(fn), **parts,
+                   fold_library_ms=lib_ms,
+                   fold_bound_ms=B * ((s + 2) ** 3 * ci * 4 + s ** 3 * ci * 2)
+                   / PEAK_BYTES * 1e3,
+                   shell_bound_ms=B * (n_src * ci * 4 + n_shell * ci * 2)
+                   / PEAK_BYTES * 1e3,
+                   kernels=by_kernel)
+        rows.append(row)
+        for k in ("ms", "conv", "fold", "glue", "fold_library_ms",
+                  "fold_bound_ms", "shell_bound_ms"):
+            tot[k] = tot.get(k, 0.0) + row[k]
+        log(f"[dgrad-split] {row['shape']}: events {row['ms']:.4f} ms; "
+            f"profiler conv {parts['conv']:.4f} fold {parts['fold']:.4f} "
+            f"glue {parts['glue']:.4f} ms; fold library_ms {lib_ms:.4f}; "
+            f"fold bound_ms {row['fold_bound_ms']:.4f} (full grid), "
+            f"{row['shell_bound_ms']:.4f} (shell) (bytes)")
+    log(f"[dgrad-split] the step's {len(rows)} reflect dgrads: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in tot.items()) + f" ms; {nvidia_smi()}")
+    return dict(rows=rows, total=tot, step=step_rounds(torch, dev))
+
+
+def step_rounds(torch, dev, rounds: int = 4) -> list[float]:
+    """The 6M pretraining step at `PretrainConfig()` on the seeded batch,
+    in rounds of five steps (CUDA events around each): each round's median
+    of steps 2-5, the `[train-step128]` metric."""
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+    from anatomix_tpu_torch.pretraining.train import build_all
+
+    cfg = PretrainConfig()
+    _, _, state, step = build_all(cfg, 1000, device=dev)
+    views, segs = train_batch(torch, dev, cfg.crop_size)
+    medians = []
+    for _ in range(rounds):
+        ms = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = step(state, views, segs,
+                            torch.Generator(device=dev).manual_seed(7))
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        medians.append(statistics.median(ms[1:]))
+    log(f"[dgrad-split] the 6M step, median of steps 2-5 in {rounds} rounds: "
+        f"{medians} ms")
+    return medians
 
 
 # -----------------------------------------------------------------------------
@@ -1227,6 +1435,34 @@ def main(argv) -> int:
     from anatomix_tpu_torch.ops import norms
     from anatomix_tpu_torch.ops import sliding_window as sw
 
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    log(f"[device] {kind} count={torch.cuda.device_count()} "
+        f"torch={torch.__version__} cuda={torch.version.cuda}")
+    log(smi)
+    report = {"device": kind, "nvidia_smi": smi}
+    t_start = time.perf_counter()
+
+    # phase 1: build every kernel library, one nvcc per source in parallel
+    t0 = time.perf_counter()
+    build.build_all()
+    report["build_s"] = time.perf_counter() - t0
+    log(f"[build] {report['build_s']:.1f} s for {list(build.SOURCES)}")
+    for name, text in build.build_logs.items():
+        for line in ptxas_report(text):
+            log(f"[build:{name}] {line}")
+
+    if "--dgrad-split" in argv:
+        report["dgrad_split"] = run_dgrad_split(torch, kt, dev)
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "dgrad_split.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        return 0
+
     wrappers = {
         "conv3x3x3_ndhwc": kc.conv3x3x3_ndhwc,
         "conv3x3x3_upcat_ndhwc": kc.conv3x3x3_upcat_ndhwc,
@@ -1247,26 +1483,8 @@ def main(argv) -> int:
         "depth_to_space_interleave_ndhwc":
             kr8.depth_to_space_interleave_ndhwc,
         "space_to_depth_c1_ndhwc": kr8.space_to_depth_c1_ndhwc,
+        "reflect_shell_ndhwc": kt.reflect_shell_ndhwc,
     }
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi()
-    log(f"[device] {kind} count={torch.cuda.device_count()} "
-        f"torch={torch.__version__} cuda={torch.version.cuda}")
-    log(smi)
-    report = {"device": kind, "nvidia_smi": smi}
-    t_start = time.perf_counter()
-
-    # phase 1: build every kernel library, one nvcc per source in parallel
-    t0 = time.perf_counter()
-    build.build_all()
-    report["build_s"] = time.perf_counter() - t0
-    log(f"[build] {report['build_s']:.1f} s for {list(build.SOURCES)}")
-    for name, text in build.build_logs.items():
-        for line in ptxas_report(text):
-            log(f"[build:{name}] {line}")
 
     # phase 2: kernels vs plain at the main paths' shapes
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1354,6 +1572,11 @@ def main(argv) -> int:
                 continue
             checks[f"conv3x3x3_{which}_ndhwc"].append(check_conv_backward(
                 kt, torch, F, dev, gen, B, S, ci, co, which))
+    # the reflect dgrad's shell pass at the step's 128^3 (ci 16, 48) and
+    # 64^3 (ci 96) shapes
+    for B, S, C in [(2, 128, 16), (2, 128, 48), (2, 64, 96)]:
+        checks["reflect_shell_ndhwc"].append(
+            check_reflect_shell(kt, torch, dev, gen, B, S, C))
     # the ViT step's tokenizer (zero padding): the stem on (hi, lo) (no
     # dx), a residual conv per stage; then the three stride-2 convs'
     # backward in the kernels' stride-2 mode (dy on its own grid)
@@ -1407,7 +1630,13 @@ def main(argv) -> int:
                 f"(tol {row['tol']:g}) ms {row['ms']:.4f} plain_ms "
                 f"{row['plain_ms']:.4f} library_ms {row['library_ms']} "
                 f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})"
-                + (f"; plan: {row['plan']}" if "plan" in row else ""))
+                + (f"; plan: {row['plan']}" if "plan" in row else "")
+                + (f"; reflect split: conv {row['conv_ms']:.4f} + fold "
+                   f"{row['fold_ms']:.4f} ms (fold library_ms "
+                   f"{row['fold_library_ms']:.4f}), shell-only rel "
+                   f"{row['shell_rel_err']:.3e}, two launches max|diff| "
+                   f"{row['repeat_max_abs_diff']}" if "conv_ms" in row
+                   else ""))
             if not row["ok"]:
                 failed.append(f"{name} {row['shape']}")
     report["checks"] = checks
@@ -1637,6 +1866,10 @@ def main(argv) -> int:
             "depth_to_space_interleave"),
         "space_to_depth_c1_ndhwc": "anatomix_tpu/ops/pallas/reshuffle.py:580"
                                    " space_to_depth_c1",
+        "reflect_shell_ndhwc": (
+            "anatomix_tpu/ops/pallas/conv_block.py:691 conv_block_sparse_dx "
+            "(the reflect pad adjoint its caller takes, "
+            "anatomix_tpu/ops/pallas/conv_block_train.py:678-683)"),
     }
     csrc = "anatomix_tpu_torch/kernels/csrc/"
     sources = {
@@ -1658,6 +1891,7 @@ def main(argv) -> int:
         "depth_to_space_fold_ndhwc": csrc + "reshuffle.cu",
         "depth_to_space_interleave_ndhwc": csrc + "reshuffle.cu",
         "space_to_depth_c1_ndhwc": csrc + "reshuffle.cu",
+        "reflect_shell_ndhwc": csrc + "conv3d.cu",
     }
     # the line reports each kernel at its dominant main-path shape: the
     # 16-channel 128^3 conv, the 48->16 decoder conv, the ViT's bf16 stitch
@@ -1667,7 +1901,8 @@ def main(argv) -> int:
     # exit with the demean subtract, the backward of the 16-channel 128^3
     # conv, the first pool's space-to-depth and the last upsample's
     # depth-to-space, the ViT step's attention backward, the ViT window's
-    # fold and interleave exits, the f32 v1 entry
+    # fold and interleave exits, the f32 v1 entry, the reflect shell pass
+    # of the 16-channel 128^3 dgrad
     headline = {"conv3x3x3_ndhwc": 1, "conv3x3x3_upcat_ndhwc": 3,
                 "blend_scatter": 2, "conv3x3x3_cat_ndhwc": 0,
                 "upsample2x_trilinear_ndhwc": 0, "norm_apply_ndhwc": 0,
@@ -1677,7 +1912,7 @@ def main(argv) -> int:
                 "depth_to_space2_ndhwc": 0, "flash_attention_bwd_dkv": 0,
                 "flash_attention_bwd_dq": 0, "depth_to_space_fold_ndhwc": 0,
                 "depth_to_space_interleave_ndhwc": 0,
-                "space_to_depth_c1_ndhwc": 0}
+                "space_to_depth_c1_ndhwc": 0, "reflect_shell_ndhwc": 0}
     kernels = []
     for name, rows in checks.items():
         row = rows[headline[name]]
@@ -1691,6 +1926,11 @@ def main(argv) -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+        if name == "conv3x3x3_dgrad_ndhwc":
+            # reflect padding: the split store, then the shell pass
+            kernels[-1]["shell_pass"] = "reflect_shell_ndhwc"
+            kernels[-1]["reflect_split_ms"] = {
+                "conv": row["conv_ms"], "fold": row["fold_ms"]}
     report["kernels"] = kernels
     report["paths"] = paths
     report["total_s"] = time.perf_counter() - t_start
@@ -2165,13 +2405,17 @@ def profile_train(torch, dev, out_dir, netG="unet"):
     busy_ms = sum(r[0] for r in rows)
     with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
         f.write(events.table(sort_by=attr, row_limit=60))
+    fold = [r for r in rows if "reflect_shell" in r[2]]
+    fold_ms = sum(r[0] for r in fold)
     log(f"[profile] {tag}: wall {wall_ms:.2f} ms, device busy "
-        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %); reflect fold "
+        f"(shell pass) {fold_ms:.3f} ms in {sum(r[1] for r in fold)} "
+        f"launches")
     for ms, count, key in rows[:24]:
         log(f"[profile]   {ms:9.3f} ms  {count:5d}x  {key[:90]}")
     del state
     torch.cuda.empty_cache()
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, fold_ms=fold_ms,
                 top=[dict(ms=r[0], count=r[1], name=r[2]) for r in rows[:30]])
 
 
@@ -2221,12 +2465,14 @@ def train_dw_check(torch, kt, plan, state0, views, segs, sampler, kw):
                          / ref[f"model.{i}.weight"].std())
                 for i in plan.conv_indices}
 
-    launches = {"wgrad": [], "dgrad": []}
+    launches = {"wgrad": [], "dgrad": [], "dgrad_shell": []}
     for which, args, pad, got in records:
         plain_fn = (kt.conv3x3x3_wgrad_ndhwc_plain if which == "wgrad"
                     else kt.conv3x3x3_dgrad_ndhwc_plain)
-        launches[which].append(rel_err(got, plain_fn(*args,
-                                                     pad_type=pad))[1])
+        ref = plain_fn(*args, pad_type=pad)
+        launches[which].append(rel_err(got, ref)[1])
+        if which == "dgrad":
+            launches["dgrad_shell"].append(shell_rel_err(torch, got, ref))
     return dict(
         loss_kernels=float(loss_k), loss_same_forward=float(loss_b),
         loss_plain=float(loss_p), plain_seconds=plain_s,
@@ -2297,9 +2543,11 @@ def run_train(torch, dev, wrappers, paths, kt):
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"train-step128: loss did not fall {losses}")
     # every conv forward and weight gradient, every dx but the entry
-    # conv's; each pool and upsample permutes forward and backward
+    # conv's (each reflect dx a split store and a shell pass); each pool and
+    # upsample permutes forward and backward
     want = {"conv3x3x3_ndhwc": n_conv, "conv3x3x3_wgrad_ndhwc": n_conv,
             "conv3x3x3_dgrad_ndhwc": n_conv - 1,
+            "reflect_shell_ndhwc": n_conv - 1,
             "space_to_depth2_ndhwc": n_resize,
             "depth_to_space2_ndhwc": n_resize}
     if any(c[k] != v for k, v in want.items()):
@@ -2321,7 +2569,9 @@ def run_train(torch, dev, wrappers, paths, kt):
     log(f"[train-step128] this step's {len(errs['wgrad'])} wgrad and "
         f"{len(errs['dgrad'])} dgrad launches vs their plain versions on the "
         f"same tensors: max rel {max(errs['wgrad']):.3e} (tol {TOL_WGRAD}), "
-        f"{max(errs['dgrad']):.3e} (tol {TOL_CONV_BF16})")
+        f"{max(errs['dgrad']):.3e} (tol {TOL_CONV_BF16}); dgrad on the "
+        f"reflect shell alone {max(errs['dgrad_shell']):.3e} (tol "
+        f"{TOL_CONV_BF16})")
     log(f"[train-step128] dW mean|err|/std, the step's backward on the "
         f"kernels vs the plain conv backward from the same forward (tol "
         f"{TOL_TRAIN_DW}): {fmt_dw(main['dw_backward'])}")
@@ -2335,7 +2585,8 @@ def run_train(torch, dev, wrappers, paths, kt):
     if (len(errs["wgrad"]), len(errs["dgrad"])) != (n_conv, n_conv - 1):
         raise RuntimeError(f"train-step128: recorded {errs}")
     if not (max(errs["wgrad"]) < TOL_WGRAD
-            and max(errs["dgrad"]) < TOL_CONV_BF16):
+            and max(errs["dgrad"]) < TOL_CONV_BF16
+            and max(errs["dgrad_shell"]) < TOL_CONV_BF16):
         raise RuntimeError(f"train-step128: kernel errors {errs}")
     if not max(main["dw_backward"].values()) < TOL_TRAIN_DW:
         raise RuntimeError(f"train-step128: backward dW {main['dw_backward']}"
@@ -2563,12 +2814,13 @@ def run_vit_train(torch, dev, wrappers, paths, ka):
     n_conv = 1 + 2 * sum(vcfg.tokenizer_depth_per_level)
     depth = vcfg.eva_depth
     # K1 for the stride-1 convs; T-w for every conv, T-x for every conv but
-    # the stem (its input is the data); V2 for the stride-2 convs; V3, dkv
-    # and dq once per block; V1 once
+    # the stem (its input is the data; zero padding, so no shell pass); V2
+    # for the stride-2 convs; V3, dkv and dq once per block; V1 once
     want = {"conv3x3x3_ndhwc": n_conv,
             "conv3x3x3_wgrad_ndhwc": n_conv + n_stages,
             "conv3x3x3_dgrad_ndhwc": n_conv - 1 + n_stages,
             "conv_down2_ndhwc": n_stages, "flash_attention": depth,
+            "reflect_shell_ndhwc": 0,
             "flash_attention_bwd_dkv": depth, "flash_attention_bwd_dq": depth,
             "depth_to_space8_ndhwc": 1}
     if any(c[k] != v for k, v in want.items()):

@@ -523,16 +523,17 @@ def test_pretrain_step_kernels_match_plain_path(cuda):
         assert float((got - ref).abs().mean() / ref.std()) < 5e-2, i
     ref, _, _, _ = run(plain=True)
     assert abs(float(loss) - float(ref)) < 1e-2 * abs(float(ref))
-    wrappers = (wgrad, dgrad, kr.space_to_depth2_ndhwc,
-                kr.depth_to_space2_ndhwc)
+    wrappers = (wgrad, dgrad, kt.reflect_shell_ndhwc,
+                kr.space_to_depth2_ndhwc, kr.depth_to_space2_ndhwc)
     before = [fn.launches for fn in wrappers]
     state, metrics = step(state, views, segs,
                           torch.Generator(device=cuda).manual_seed(3))
     assert np.isfinite(float(metrics["loss"])) and state.step == 1
-    # each pool and upsample permutes forward and backward
+    # each reflect dx a split store and a shell pass; each pool and upsample
+    # permutes forward and backward
     n_resize = sum(spec.kind in ("pool", "upsample") for spec in plan.layers)
     assert [fn.launches - n for fn, n in zip(wrappers, before)] == [
-        n_conv, n_conv - 1, n_resize, n_resize]
+        n_conv, n_conv - 1, n_conv - 1, n_resize, n_resize]
 
 
 @pytest.mark.gpu
@@ -798,3 +799,113 @@ def test_scatter_kernel_reads_bf16_windows(cuda):
                               minv)
     torch.cuda.synchronize()
     assert _maxrel(got.cpu(), ref.cpu()) < 1e-5
+
+
+def _reflect_shell_mask(shape, edge, device):
+    """(D, H, W) bool: voxels with some axis index in {1, n-2} (`edge`:
+    also {0, n-1})."""
+    def axis(n):
+        m = torch.zeros(n, dtype=torch.bool, device=device)
+        m[[1, n - 2] + ([0, n - 1] if edge else [])] = True
+        return m
+    mz, my, mx = (axis(n) for n in shape)
+    return mz[:, None, None] | my[None, :, None] | mx[None, None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,spatial,co,ci,route", [
+    (1, (2, 7, 9), 8, 16, "brick"),   # extent 2: every voxel in the shell
+    (2, (3, 5, 4), 16, 8, "brick"),   # extent 3: one shell index
+    (1, (10, 3, 17), 16, 48, "brick"),
+    (1, (5, 6, 7), 8, 12, "brick"),   # ci % 8 != 0: the scalar shell pass
+    (2, (30, 30, 30), 64, 16, "chunked brick"),
+    (2, (20, 20, 20), 32, 96, "ring"),
+    (2, (9, 11, 6), 32, 96, "split"),
+    (2, (8, 8, 8), 256, 256, "split"),   # the step's 8^3 256 -> 256
+])
+def test_reflect_dgrad_split_store_and_shell_pass(cuda, B, spatial, co, ci,
+                                                  route):
+    """The reflect dgrad on each store path (halo brick, chunked brick,
+    gather ring, split K) at mixed and odd extents: against its plain
+    version (1e-2), on the voxels with some axis index in {0, 1, S-2, S-1}
+    alone (1e-2 of their max), two launches bit for bit; one split store
+    and one shell pass a call; the split store alone final off the shell,
+    and the shell pass bit for bit its plain version on the same g_ext."""
+    from anatomix_tpu_torch.kernels import conv_train as kt
+    from anatomix_tpu_torch.kernels.conv import conv_plan
+
+    plan = conv_plan(B, tuple(s + 2 for s in spatial), co, ci)
+    assert route == ("split" if plan.splits > 1 else "ring" if not plan.brick
+                     else "chunked brick" if plan.chunk < -(-co // 16) * 16
+                     else "brick")
+    g = torch.Generator(device=cuda).manual_seed(7)
+    dy = torch.randn((B, *spatial, co), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((27 * ci, co), generator=g, device=cuda)
+         * (2.0 / (27 * ci)) ** 0.5).bfloat16()
+    n = (kt.conv3x3x3_dgrad_ndhwc.launches, kt.reflect_shell_ndhwc.launches)
+    dx = kt.conv3x3x3_dgrad_ndhwc(dy, w, pad_type="reflect")
+    again = kt.conv3x3x3_dgrad_ndhwc(dy, w, pad_type="reflect")
+    torch.cuda.synchronize()
+    assert (kt.conv3x3x3_dgrad_ndhwc.launches,
+            kt.reflect_shell_ndhwc.launches) == (n[0] + 2, n[1] + 2)
+    ref = kt.conv3x3x3_dgrad_ndhwc_plain(dy, w, pad_type="reflect")
+    assert dx.dtype == torch.bfloat16 and dx.shape == (B, *spatial, ci)
+    assert _maxrel(dx.float().cpu(), ref.float().cpu()) < 1e-2
+    edge = _reflect_shell_mask(spatial, True, cuda)
+    assert _maxrel(dx.float()[:, edge].cpu(), ref.float()[:, edge].cpu()) \
+        < 1e-2
+    assert torch.equal(dx, again)
+    st, g_ext = kt.reflect_dgrad_store(dy, w)
+    torch.cuda.synchronize()
+    off = ~_reflect_shell_mask(spatial, False, cuda)
+    assert torch.equal(st[:, off], dx[:, off])
+    assert torch.equal(kt.reflect_shell_ndhwc(g_ext, st.clone()),
+                       kt.reflect_shell_plain(g_ext, st.clone()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,spatial,C", [
+    (2, (2, 2, 2), 8), (1, (3, 3, 3), 16), (2, (2, 5, 9), 8),
+    (1, (8, 5, 3), 48), (2, (16, 16, 16), 16), (1, (7, 4, 9), 12),
+    (1, (34, 18, 10), 1),
+])
+def test_reflect_shell_kernel_matches_plain_bit_for_bit(cuda, B, spatial,
+                                                        C):
+    """The shell pass on f32 g_ext (16-byte path at C % 8 == 0, scalar
+    otherwise) writes every shell voxel with its plain version's bits and
+    leaves every other voxel of dx as it was."""
+    from anatomix_tpu_torch.kernels import conv_train as kt
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    g_ext = torch.randn((B, *(s + 2 for s in spatial), C), generator=g,
+                        device=cuda)
+    dx0 = torch.randn((B, *spatial, C), generator=g, device=cuda).bfloat16()
+    n = kt.reflect_shell_ndhwc.launches
+    got = kt.reflect_shell_ndhwc(g_ext, dx0.clone())
+    torch.cuda.synchronize()
+    assert kt.reflect_shell_ndhwc.launches == n + 1
+    assert torch.equal(got, kt.reflect_shell_plain(g_ext, dx0.clone()))
+    off = ~_reflect_shell_mask(spatial, False, cuda)
+    assert torch.equal(got[:, off], dx0[:, off])
+
+
+@pytest.mark.gpu
+def test_zeros_dgrad_and_k1_take_no_shell_pass(cuda):
+    """The zero-padded dgrad and the K1 forward against their plain
+    versions, neither launching the reflect shell pass."""
+    from anatomix_tpu_torch.kernels import conv_train as kt
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    dy = torch.randn((2, 6, 7, 5, 16), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((27 * 16, 16), generator=g, device=cuda)
+         * 0.1).bfloat16()
+    b = torch.randn((16,), generator=g, device=cuda) * 0.1
+    n = kt.reflect_shell_ndhwc.launches
+    dx = kt.conv3x3x3_dgrad_ndhwc(dy, w, pad_type="zeros")
+    y = conv3x3x3_ndhwc(dy, w, b, act="none", pad_type="reflect")
+    torch.cuda.synchronize()
+    assert kt.reflect_shell_ndhwc.launches == n
+    assert _maxrel(dx.float().cpu(), kt.conv3x3x3_dgrad_ndhwc_plain(
+        dy, w, pad_type="zeros").float().cpu()) < 1e-2
+    assert _maxrel(y.float().cpu(), conv3x3x3_ndhwc_plain(
+        dy, w, b, act="none", pad_type="reflect").float().cpu()) < 1e-2
