@@ -1,9 +1,13 @@
 """Pretraining of the port: the contrastive train step (config, SupPatchNCE
 loss, patch sampling and projectors, schedules, the train-mode UNet or ViT
-on the kernels and their backward kernels, AdamW) and `build_all`.
+on the kernels and their backward kernels, AdamW), `build_all`, the
+two-view dataset with its paired augmentation, warm start, and the trainer
+loop with its CLI (`python -m anatomix_tpu_torch.pretraining.train`).
 
 Importing this package imports none of its modules; names load on first
-use.
+use. The loop itself is `pretraining.train.train`: the name `train` here is
+the submodule (which the import system binds on the package whenever it is
+imported), so it is not also a lazy name for the function.
 """
 
 _LAZY_ATTRS = {
@@ -20,6 +24,12 @@ _LAZY_ATTRS = {
     "backbone_tap_channels": "anatomix_tpu_torch.pretraining.train_step",
     "make_optimizer": "anatomix_tpu_torch.pretraining.train_step",
     "build_all": "anatomix_tpu_torch.pretraining.train",
+    "compute_val_loss": "anatomix_tpu_torch.pretraining.train",
+    "build_parser": "anatomix_tpu_torch.pretraining.train",
+    "config_from_args": "anatomix_tpu_torch.pretraining.train",
+    "H5TwoViewDataset": "anatomix_tpu_torch.pretraining.dataset",
+    "make_pair_augment": "anatomix_tpu_torch.pretraining.dataset",
+    "normalize_img": "anatomix_tpu_torch.pretraining.dataset",
 }
 
 

@@ -54,6 +54,7 @@ from anatomix_tpu_torch.pretraining.patch_sample import (
     nearest_downsample,
     sample_patch_coords,
 )
+from anatomix_tpu_torch.utils.profiling import annotate
 
 _STAT_NAMES = ("mean", "var", "running_mean", "running_var")
 
@@ -339,9 +340,10 @@ def nce_forward(
     tap_layers = tuple(tap_layers)
     B = views.shape[0]
     x = torch.cat([views[:, 0], views[:, 1]], dim=0)  # (2B, ...)
-    taps, new_g_stats = _backbone_forward(
-        plan, params_g, x, tap_layers, train, compute_dtype,
-        eval_norm_layers, plain)
+    with annotate("step/forward"):
+        taps, new_g_stats = _backbone_forward(
+            plan, params_g, x, tap_layers, train, compute_dtype,
+            eval_norm_layers, plain)
     if nce_weights is None:
         nce_weights = [1.0 / len(tap_layers)] * len(tap_layers)
 
@@ -352,37 +354,40 @@ def nce_forward(
     for t, (layer_id, feat, w_t) in enumerate(
             zip(tap_layers, taps, nce_weights)):
         tap_spatial = tuple(feat.shape[1:4])
-        coords = torch.stack([
-            sample_patch_coords(
-                generator, tap_spatial, num_patches,
-                mask=(None if fg_masks is None
-                      else nearest_downsample(fg_masks[b], tap_spatial)))
-            for b in range(B)
-        ]).to(feat.device)  # (B, P, 3)
-        g1 = torch.stack([gather_at_coords(feat[b], coords[b])
-                          for b in range(B)])
-        g2 = torch.stack([gather_at_coords(feat[B + b], coords[b])
-                          for b in range(B)])
-        stacked = torch.stack([g1, g2], dim=1)  # (B, 2, P, ch)
-        P = stacked.shape[2]
-        proj, f_stats = apply_patch_mlp(
-            params_f[f"mlp_{t}"], stacked.reshape(B * 2 * P, -1),
-            train=train)
-        new_f_stats[f"mlp_{t}"] = {
-            "linears": params_f[f"mlp_{t}"]["linears"], "bns": f_stats}
-        proj = proj.reshape(B, 2, P, -1)
-        loss_t = torch.stack([
-            sup_patch_nce_loss(
-                proj[b], labels_at_coords(seg3d[b], coords[b], tap_spatial),
-                temperature=nce.temperature,
-                weigh_rarity=nce.weigh_rarity,
-                balance_denominator=nce.balance_denominator,
-                weighting_mode=nce.weighting_mode,
-            )
-            for b in range(B)
-        ]).mean()
-        total = total + loss_t * w_t * nce.lambda_nce
-        per_layer[str(layer_id)] = loss_t
+        with annotate("step/sampler"):
+            coords = torch.stack([
+                sample_patch_coords(
+                    generator, tap_spatial, num_patches,
+                    mask=(None if fg_masks is None
+                          else nearest_downsample(fg_masks[b], tap_spatial)))
+                for b in range(B)
+            ]).to(feat.device)  # (B, P, 3)
+        with annotate("step/loss"):
+            g1 = torch.stack([gather_at_coords(feat[b], coords[b])
+                              for b in range(B)])
+            g2 = torch.stack([gather_at_coords(feat[B + b], coords[b])
+                              for b in range(B)])
+            stacked = torch.stack([g1, g2], dim=1)  # (B, 2, P, ch)
+            P = stacked.shape[2]
+            proj, f_stats = apply_patch_mlp(
+                params_f[f"mlp_{t}"], stacked.reshape(B * 2 * P, -1),
+                train=train)
+            new_f_stats[f"mlp_{t}"] = {
+                "linears": params_f[f"mlp_{t}"]["linears"], "bns": f_stats}
+            proj = proj.reshape(B, 2, P, -1)
+            loss_t = torch.stack([
+                sup_patch_nce_loss(
+                    proj[b],
+                    labels_at_coords(seg3d[b], coords[b], tap_spatial),
+                    temperature=nce.temperature,
+                    weigh_rarity=nce.weigh_rarity,
+                    balance_denominator=nce.balance_denominator,
+                    weighting_mode=nce.weighting_mode,
+                )
+                for b in range(B)
+            ]).mean()
+            total = total + loss_t * w_t * nce.lambda_nce
+            per_layer[str(layer_id)] = loss_t
     aux = {"new_g_stats": new_g_stats, "new_f_stats": new_f_stats,
            "per_layer": per_layer}
     return total, aux
@@ -399,7 +404,8 @@ def nce_loss_and_grads(plan, params_g, params_f, views, segs, generator,
                             generator, **kwargs)
     flat = [v for _, v in tree_items(leaves_g)] + [
         v for _, v in tree_items(leaves_f)]
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    with annotate("step/backward"):
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
     it = iter(grads)
@@ -440,11 +446,14 @@ def build_train_step(
     compute_dtype: torch.dtype = torch.bfloat16,
     frozen_layers: Sequence[int] = (),
     use_fg_mask: bool = False,
+    plain: bool = False,
 ):
     """The train step `(state, views, segs, generator) -> (state,
     metrics)`; `views` (B, 2, D, H, W, 1) and `segs` (B, D, H, W, 1) are
     moved to the parameters' device. Metrics (0-d tensors and floats):
-    loss, grad_norm_G, grad_norm_F, lr and nce_<layer>."""
+    loss, grad_norm_G, grad_norm_F, lr and nce_<layer>. `plain=True` runs
+    the backbone's f32 reference path (`nce_forward`'s), the route the
+    kernels' multi-step curve is held against."""
     nce = NCEOptions(
         temperature=nce_temperature, lambda_nce=lambda_nce,
         weigh_rarity=weigh_rarity, balance_denominator=balance_denominator,
@@ -471,6 +480,7 @@ def build_train_step(
             compute_dtype=compute_dtype, eval_norm_layers=eval_norms,
             # label > 0 is the foreground mask
             fg_masks=(segs[..., 0] > 0) if use_fg_mask else None,
+            plain=plain,
         )
         tx_g = make_optimizer(
             lr, grad_clip=grad_clip, schedule=scaled_schedule,
@@ -480,10 +490,11 @@ def build_train_step(
             lr, grad_clip=grad_clip_f if grad_clip_f is not None
             else grad_clip, schedule=scaled_schedule,
             mask=_trainable_mask(state.params_f), **opt_common)
-        params_g, opt_state_g = tx_g.update(grads_g, state.opt_state_g,
-                                            state.params_g)
-        params_f, opt_state_f = tx_f.update(grads_f, state.opt_state_f,
-                                            state.params_f)
+        with annotate("step/optimizer"):
+            params_g, opt_state_g = tx_g.update(grads_g, state.opt_state_g,
+                                                state.params_g)
+            params_f, opt_state_f = tx_f.update(grads_f, state.opt_state_f,
+                                                state.params_f)
         params_g = _merge_bn_stats(params_g, aux["new_g_stats"])
         # projector: new running stats, optimizer-updated scale and bias
         params_f = {

@@ -1,1 +1,2 @@
-"""Utilities of the port (NIfTI IO)."""
+"""Utilities of the port: NIfTI IO, checkpoints, scalar logging, figures
+and volume dumps, profiling hooks."""

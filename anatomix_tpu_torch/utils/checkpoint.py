@@ -3,11 +3,18 @@ leaves (the port of `anatomix_tpu/utils/checkpoint.py`'s `.npz` format).
 
 A tree of dicts, lists and tensors flattens to `path/to/leaf` keys; lists
 carry a `__len__` entry, as in the JAX package's `save_pytree`, so
-`load_pytree` reads the JAX package's files as well.
+`load_pytree` reads the JAX package's files as well, including a list of
+arrays, which the JAX package's own reader cannot read back.
+
+The trainer's resumable state (`latest_train_state.npz`) is the named-key
+tree of `save_train_state`, not the JAX package's ordered leaves
+(`save_state_leaves`), which only a JAX treedef can read.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any
 
 import numpy as np
@@ -112,3 +119,19 @@ def load_train_state(path: str, device: str | torch.device = "cuda"):
         opt_state_g=opt(tree["opt_state_g"]),
         opt_state_f=opt(tree["opt_state_f"]),
     )
+
+
+def save_json(path: str, obj: Any) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2, default=str)
+
+
+def latest_checkpoint(ckpt_dir: str, prefix: str = "epoch") -> str | None:
+    """The last `<prefix>*.npz` of `ckpt_dir` in name order, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    cands = [f for f in os.listdir(ckpt_dir)
+             if f.startswith(prefix) and f.endswith(".npz")]
+    if not cands:
+        return None
+    return os.path.join(ckpt_dir, sorted(cands)[-1])

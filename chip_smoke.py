@@ -61,7 +61,19 @@ Phases, each printed on its own lines; any failure exits non-zero:
      (dq, dk, dv) through the whole backward against the plain attention
      backward from the same forward; the output volume against the plain
      f32 path on the smooth and the noisy batch;
-  9. the `kernels` JSON line (launches on each path, errors, times and
+  9. the trainer loop, input pipeline included: `[train-loop]`, the port's
+     `pretraining.train.train` at `PretrainConfig()` over seeded 160^3
+     subjects given as a mapping (three to train on, one to validate; each
+     step's batch read, normalized, sent as f16 / i16 and augmented on the
+     device by the prefetch thread on its own stream), 8 steps with the
+     save and eval cadences at 4, then a resume to 12: per step the loss,
+     the host-clock wait for the batch and step, and the step's CUDA-event
+     time, every step's launches equal to `[train-step128]`'s, the files of
+     the run dir; `[train-loop-gate]`, four batches of the loop's pipeline
+     stepped from one state on the kernels and on the f32 plain route, each
+     loss within 2.5x the plain route's spread under bf16-rounded views +
+     1e-3; `[vit-train-loop]`, the loop with `netG="primus"`, 4 steps;
+ 10. the `kernels` JSON line (launches on each path, errors, times and
      bounds), then the device's JSON line last.
 
 Each path runs with every launch count set to 0 just before it and read
@@ -74,8 +86,9 @@ plain path under 3e-2, and under 2.5x the plain path run in bf16 + 1e-3.
 `--quick` runs phases 1 and 2 only; `--bisect` runs phases 1 and 2, the
 P1 bisection and the 6M and dev forwards on both volumes; `--profile` runs
 phases 1 and 2, then
-profiles the 6M, the dev and the ViT sliding paths on 160^3 and one 6M and
-one ViT pretraining step at 128^3 with torch.profiler; `--dgrad-split`
+profiles the 6M, the dev and the ViT sliding paths on 160^3, one 6M and
+one ViT pretraining step at 128^3, and one step of the 6M trainer loop
+(host time by `record_function` range) with torch.profiler; `--dgrad-split`
 runs phase 1, then times the 6M step's 19 reflect input gradients apart
 into conv, fold and glue, and the step itself in rounds
 (`run_dgrad_split`; it reads only the dgrad wrapper and the step's entry
@@ -1178,6 +1191,18 @@ def fold_library(torch, g):
     return lambda: torch.ops.aten.reflection_pad3d_backward(gc, inp, [1] * 6)
 
 
+# the record_function ranges of the loop and the step; torch.profiler also
+# lists each as a CUDA row spanning the kernels it enqueued, which is not
+# device work of its own
+RANGES = ("loop/", "data/", "step/")
+
+
+def is_device_work(ev) -> bool:
+    from torch.autograd import DeviceType
+
+    return ev.device_type == DeviceType.CUDA and not ev.key.startswith(RANGES)
+
+
 def device_ms_by_kernel(torch, fn, reps: int = 10) -> dict:
     """Device ms per call of `fn` by kernel name, from torch.profiler."""
     from torch.autograd import DeviceType
@@ -1703,6 +1728,8 @@ def main(argv) -> int:
         report["profile_train"] = profile_train(torch, dev, out_dir)
         report["profile_vit_train"] = profile_train(torch, dev, out_dir,
                                                     netG="primus")
+        report["profile_train_loop"] = profile_train_loop(
+            torch, dev, out_dir, loop_data(torch, dev))
         with open(os.path.join(out_dir, "chip_profile.json"), "w") as f:
             json.dump(report, f, indent=1)
         return 0
@@ -1812,11 +1839,21 @@ def main(argv) -> int:
 
     # phase 8: the 26M ViT's pretraining step
     report["vit_train"] = run_vit_train(torch, dev, wrappers, paths, ka)
+
+    # phase 9: the trainer loop (input pipeline included), its multi-step
+    # gate against the plain route, and the ViT's loop
+    data = loop_data(torch, dev)
+    report["train_loop"] = run_train_loop(
+        torch, dev, wrappers, paths, data, report["train"]["median_step_ms"])
+    report["train_loop_gate"] = run_train_loop_gate(torch, dev, data)
+    report["vit_train_loop"] = run_vit_train_loop(torch, dev, wrappers,
+                                                  paths, data)
+    del data
     for name in wrappers:
         log(f"[launches] {name}: " + ", ".join(
             f"{p} {v[name]}" for p, v in paths.items()))
 
-    # phase 9: the kernels line
+    # phase 10: the kernels line
     replaces = {
         "conv3x3x3_ndhwc": (
             "anatomix_tpu/ops/pallas/conv_block.py:248 "
@@ -2400,9 +2437,12 @@ def profile_train(torch, dev, out_dir, netG="unet"):
             else "self_cuda_time_total")
     rows = sorted(
         ((getattr(ev, attr) / 1e3, ev.count, ev.key) for ev in events
-         if ev.device_type == DeviceType.CUDA and getattr(ev, attr) > 0),
+         if is_device_work(ev) and getattr(ev, attr) > 0),
         reverse=True)
     busy_ms = sum(r[0] for r in rows)
+    host = sorted(((ev.cpu_time_total / 1e3, ev.count, ev.key)
+                   for ev in events if ev.key.startswith(RANGES)
+                   and ev.device_type == DeviceType.CPU), reverse=True)
     with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
         f.write(events.table(sort_by=attr, row_limit=60))
     fold = [r for r in rows if "reflect_shell" in r[2]]
@@ -2413,10 +2453,14 @@ def profile_train(torch, dev, out_dir, netG="unet"):
         f"launches")
     for ms, count, key in rows[:24]:
         log(f"[profile]   {ms:9.3f} ms  {count:5d}x  {key[:90]}")
+    for ms, count, key in host:
+        log(f"[profile]   {ms:9.3f} ms host  {count:3d}x  {key}")
     del state
     torch.cuda.empty_cache()
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, fold_ms=fold_ms,
-                top=[dict(ms=r[0], count=r[1], name=r[2]) for r in rows[:30]])
+                top=[dict(ms=r[0], count=r[1], name=r[2]) for r in rows[:30]],
+                host_ranges=[dict(ms=r[0], count=r[1], name=r[2])
+                             for r in host])
 
 
 def train_dw_check(torch, kt, plan, state0, views, segs, sampler, kw):
@@ -2898,6 +2942,376 @@ def run_vit_train(torch, dev, wrappers, paths, ka):
     return dict(losses=losses, step_ms=step_ms, median_step_ms=med_ms,
                 peak_gib=peak, launches_per_step=c, loss_rel=loss_rel,
                 floor=floor, first_step=chk, forward=fwd)
+
+# -----------------------------------------------------------------------------
+# the trainer loop
+
+LOOP_SIZE = 160  # the loop's volumes, larger than the 128^3 crop
+
+
+def loop_data(torch, dev):
+    """The loop's seeded subjects as mappings of subject -> {"img" (2, S^3)
+    f32, "seg" (S^3) uint8}, S = LOOP_SIZE: three to train on, one to
+    validate. Timepoint 0 is the CT-like volume (blobs plus noise), 1 the
+    same anatomy under a gamma and a gain; the labels a smooth field
+    quantized to 10 classes."""
+    def subject(i):
+        vol = synthetic_volume(torch, dev, LOOP_SIZE, seed=30 + i)[0, ..., 0]
+        img = torch.stack([vol, 0.9 * vol ** 1.3 + 0.05])
+        seg = (smooth_field(torch, dev, LOOP_SIZE, seed=50 + i) * 10).clamp(
+            max=9).to(torch.uint8)
+        return {"img": img.cpu().numpy(), "seg": seg.cpu().numpy()}
+
+    return ({f"{i:06d}": subject(i) for i in range(3)},
+            {"000100": subject(3)})
+
+
+def counted_steps(train_mod, wrappers, per_step, hook=None):
+    """Patch `train_mod.build_all` so that each loop step records its
+    launches (the counts' change across the call), the step counter it
+    started from and its host time; `hook()` runs after each step.
+    Returns the function that undoes the patch."""
+    build_all = train_mod.build_all
+
+    def patched(*args, **kwargs):
+        plan, taps, state, step = build_all(*args, **kwargs)
+
+        def step_counted(state, *a):
+            before = counts(wrappers)
+            t0 = time.perf_counter()
+            out = step(state, *a)
+            per_step.append(dict(start=state.step, launches={
+                k: v - before[k] for k, v in counts(wrappers).items()},
+                enqueue_s=time.perf_counter() - t0))
+            if hook is not None:
+                hook()
+            return out
+
+        return plan, taps, state, step_counted
+
+    train_mod.build_all = patched
+    return lambda: setattr(train_mod, "build_all", build_all)
+
+
+def loop_scalars(run_dir):
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [r for r in recs if "loss/loss" in r]
+    val = [r["loss/val"] for r in recs if "loss/val" in r]
+    return steps, val
+
+
+def check_loop(name, per_step, steps, want_launches, first, last):
+    """Fail on a non-finite loss, a step range other than (first, last] or
+    a step whose launches differ from the single-step phase's."""
+    losses = [r["loss/loss"] for r in steps]
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise RuntimeError(f"{name}: non-finite loss {losses}")
+    if [r["step"] for r in steps] != list(range(first + 1, last + 1)) or \
+            per_step[0]["start"] != first or len(per_step) != last - first:
+        raise RuntimeError(f"{name}: ran steps {[r['step'] for r in steps]} "
+                           f"from {per_step[0]['start']}, want {first} -> "
+                           f"{last}")
+    bad = [i for i, s in enumerate(per_step) if s["launches"] !=
+           want_launches]
+    if bad:
+        raise RuntimeError(f"{name}: launches of step {bad[0] + first + 1} "
+                           f"{per_step[bad[0]]['launches']}, want "
+                           f"{want_launches}")
+
+
+def log_loop(name, per_step, steps):
+    for s, r in zip(per_step, steps):
+        dev_ms = r.get("time/step_device_ms", float("nan"))
+        log(f"[{name}] step {r['step']}: loss {r['loss/loss']:.6f}, data "
+            f"{r['time/data']:.4f} s, step {r['time/step']:.4f} s (host, "
+            f"enqueue {s['enqueue_s']:.4f}), device {dev_ms:.4f} ms (CUDA "
+            f"events)")
+
+
+def loop_summary(per_step, steps) -> dict:
+    later = steps[1:]  # the first step of a run carries its set-up
+    return dict(
+        losses=[r["loss/loss"] for r in steps],
+        step_s=[r["time/step"] for r in steps],
+        data_s=[r["time/data"] for r in steps],
+        device_ms=[r.get("time/step_device_ms") for r in steps],
+        median_step_ms=1e3 * statistics.median(r["time/step"] for r in later),
+        median_data_ms=1e3 * statistics.median(r["time/data"] for r in later),
+        median_device_ms=statistics.median(
+            r.get("time/step_device_ms", float("nan")) for r in later),
+        launches_per_step=per_step[0]["launches"])
+
+
+def run_train_loop(torch, dev, wrappers, paths, data, step_ms):
+    """`[train-loop]`: the port's trainer, `train()`, at `PretrainConfig()`
+    (the 6M UNet at full width and depth, crop 128^3, every augmentation)
+    on the card: 8 steps over three 160^3 subjects with a val subject, the
+    save and eval cadences at 4, then `continue_train` to 12. Every step's
+    launches are `[train-step128]`'s, whose median step time (`step_ms`)
+    is printed beside the loop's."""
+    import tempfile
+
+    from anatomix_tpu_torch.pretraining import train as train_mod
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+
+    train_data, val_data = data
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PretrainConfig(name="loop", ckpt_dir=tmp, dataroot=tmp,
+                             max_iters=8, print_freq=1, evaluation_freq=4,
+                             n_val_during_train=1, save_latest_freq=4,
+                             display_freq=0)
+        run_dir = os.path.join(tmp, cfg.name)
+        for tag, c, first, last in (
+                ("train_loop", cfg, 0, 8),
+                ("train_loop_resume",
+                 PretrainConfig(**{**cfg.__dict__, "continue_train": True,
+                                   "max_iters": 12}), 8, 12)):
+            per_step = []
+            undo = counted_steps(train_mod, wrappers, per_step)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            try:
+                state = train_mod.train(c, train_data, val_data, device=dev)
+            finally:
+                undo()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            paths[tag] = counts(wrappers)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            steps, val = loop_scalars(run_dir)
+            steps = steps[first:]
+            log_loop("train-loop", per_step, steps)
+            check_loop(f"train-loop ({tag})", per_step, steps,
+                       paths["train"], first, last)
+            if state.step != last:
+                raise RuntimeError(f"train-loop: ended at {state.step}")
+            missing = [n for n in (
+                "train_opt.json", "latest_train_state.npz",
+                "latest_net_G.npz", "latest_net_F.npz", "4_net_G.npz",
+                "8_net_G.npz", "best_val_net_G.npz", "best_val_loss.txt",
+                "visuals/latest_view1.nii.gz", "visuals/latest_seg.nii.gz")
+                + (("12_net_G.npz",) if last == 12 else ())
+                if not os.path.exists(os.path.join(run_dir, n))]
+            if missing:
+                raise RuntimeError(f"train-loop: missing {missing}")
+            if not val or not all(v == v for v in val):
+                raise RuntimeError(f"train-loop: val losses {val}")
+            summary = loop_summary(per_step, steps)
+            log(f"[train-loop] {tag}: steps {first} -> {last} in {wall:.2f} s "
+                f"(set-up and val included); median of steps 2+: host step "
+                f"{summary['median_step_ms']:.4f} ms, wait for the batch "
+                f"{summary['median_data_ms']:.4f} ms, device "
+                f"{summary['median_device_ms']:.4f} ms; [train-step128] "
+                f"median {step_ms:.4f} ms; val losses {val}; "
+                f"peak {peak:.2f} GiB; launches per step "
+                f"{summary['launches_per_step']}; {nvidia_smi()}")
+            out[tag] = dict(summary, wall_s=wall, val_losses=val,
+                            peak_gib=peak)
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_loop_gate(torch, dev, data):
+    """`[train-loop-gate]`: four consecutive batches of the loop's own
+    pipeline (`BatchPipeline`: read, f16 / i16 transfer, the paired
+    augmentation), four steps from one state on the kernels, four on the f32
+    plain route, and four on the plain route with the views rounded to
+    bf16. At each step the kernels' loss must sit within 2.5x the plain
+    route's own spread under that rounding + 1e-3 of the plain loss
+    (relative): the two-part rule of PERF.md section 2."""
+    import numpy as np
+
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+    from anatomix_tpu_torch.pretraining.dataset import H5TwoViewDataset
+    from anatomix_tpu_torch.pretraining.train import BatchPipeline, build_all
+
+    cfg = PretrainConfig()
+    ds = H5TwoViewDataset(data[0], cfg)
+    pipe = BatchPipeline(ds, cfg, np.random.default_rng(cfg.seed), dev,
+                         (cfg.seed, cfg.seed + 1))
+    batches = []
+    for i in range(4):
+        views, segs = pipe([i % len(ds)])
+        pipe.ready(views, segs)
+        batches.append((views, segs))
+    _, _, state0, step_k = build_all(cfg, 1000, device=dev)
+    _, _, _, step_p = build_all(cfg, 1000, device=dev, plain=True)
+
+    def run(step, bf16_views=False):
+        state, losses = state0, []
+        for i, (views, segs) in enumerate(batches):
+            if bf16_views:
+                views = views.to(torch.bfloat16).float()
+            state, m = step(state, views, segs,
+                            torch.Generator(device=dev).manual_seed(100 + i))
+            losses.append(float(m["loss"]))
+        return losses
+
+    t0 = time.perf_counter()
+    kern = run(step_k)
+    t_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = run(step_p)
+    t_p = time.perf_counter() - t0
+    spread = run(step_p, bf16_views=True)
+    rel_k = [abs(k - p) / abs(p) for k, p in zip(kern, plain)]
+    rel_q = [abs(q - p) / abs(p) for q, p in zip(spread, plain)]
+    bound = [2.5 * q + 1e-3 for q in rel_q]
+    log(f"[train-loop-gate] losses on the kernels {kern}, plain f32 {plain}, "
+        f"plain f32 on bf16 views {spread}; |kernels - plain| / |plain| "
+        f"{['%.3e' % v for v in rel_k]} vs bound 2.5 x spread + 1e-3 "
+        f"{['%.3e' % v for v in bound]}; 4 steps {t_k:.2f} s on the kernels, "
+        f"{t_p:.2f} s plain")
+    if not all(v == v for v in kern + plain + spread):
+        raise RuntimeError("train-loop-gate: non-finite loss")
+    bad = [i + 1 for i, (r, b) in enumerate(zip(rel_k, bound)) if not r <= b]
+    if bad:
+        raise RuntimeError(f"train-loop-gate: steps {bad} outside the bound: "
+                           f"{rel_k} vs {bound}")
+    del state0
+    torch.cuda.empty_cache()
+    return dict(kernels=kern, plain=plain, plain_bf16_views=spread,
+                rel_err=rel_k, bound=bound, kernels_s=t_k, plain_s=t_p)
+
+
+def run_vit_train_loop(torch, dev, wrappers, paths, data):
+    """`[vit-train-loop]`: the trainer with `netG="primus"` (the 26M ViT
+    at full width and depth, crop 128^3): 4 steps, no val; every step's
+    launches are `[vit-train-step128]`'s."""
+    import tempfile
+
+    from anatomix_tpu_torch.pretraining import train as train_mod
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PretrainConfig(netG="primus", name="vit", ckpt_dir=tmp,
+                             dataroot=tmp, max_iters=4, print_freq=1,
+                             evaluation_freq=1000, save_latest_freq=1000,
+                             display_freq=0)
+        per_step = []
+        undo = counted_steps(train_mod, wrappers, per_step)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        try:
+            state = train_mod.train(cfg, data[0], device=dev)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths["vit_train_loop"] = counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps, _ = loop_scalars(os.path.join(tmp, cfg.name))
+    log_loop("vit-train-loop", per_step, steps)
+    check_loop("vit-train-loop", per_step, steps, paths["vit_train"], 0, 4)
+    if state.step != 4:
+        raise RuntimeError(f"vit-train-loop: ended at {state.step}")
+    summary = loop_summary(per_step, steps)
+    log(f"[vit-train-loop] 4 steps in {wall:.2f} s (set-up included); median "
+        f"of steps 2-4: host step {summary['median_step_ms']:.4f} ms, wait "
+        f"for the batch {summary['median_data_ms']:.4f} ms, device "
+        f"{summary['median_device_ms']:.4f} ms; peak {peak:.2f} GiB; launches "
+        f"per step {summary['launches_per_step']}; {nvidia_smi()}")
+    del state
+    torch.cuda.empty_cache()
+    return dict(summary, wall_s=wall, peak_gib=peak)
+
+
+def profile_train_loop(torch, dev, out_dir, data):
+    """P3 where the user pays it: one step of the trainer loop at
+    `PretrainConfig()` under torch.profiler (CPU and CUDA activities; the
+    window from the end of loop step 3 to the end of step 4, which holds
+    the wait for the batch, the step and the worker's next batch), its
+    host time by `record_function` range (`loop/*` in
+    `pretraining/train.py`, `step/*` in `pretraining/train_step.py`) and
+    the device's busy share; then one batch of the loop's pipeline on this
+    thread (the profiler records the ranges of the thread that runs it;
+    the loop's worker thread falls outside), by its `data/*` ranges."""
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from anatomix_tpu_torch.pretraining import train as train_mod
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+
+    window = {}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=2, warmup=1, active=1))
+
+    def hook():
+        window.setdefault("end", []).append(time.perf_counter())
+        prof.step()
+        window.setdefault("start", []).append(time.perf_counter())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = PretrainConfig(name="prof", ckpt_dir=tmp, dataroot=tmp,
+                             max_iters=5, print_freq=1,
+                             evaluation_freq=1000, save_latest_freq=1000,
+                             display_freq=0)
+        per_step = []
+        undo = counted_steps(train_mod, {}, per_step, hook)
+        try:
+            with prof:
+                train_mod.train(cfg, data[0], device=dev)
+        finally:
+            undo()
+    wall_ms = 1e3 * (window["end"][3] - window["start"][2])
+    events = prof.key_averages()
+    attr = ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    busy_ms = sum(getattr(ev, attr) for ev in events
+                  if is_device_work(ev)) / 1e3
+    ranges = sorted(
+        ((ev.key, ev.count, ev.cpu_time_total / 1e3) for ev in events
+         if ev.key.startswith(RANGES) and ev.device_type == DeviceType.CPU),
+        key=lambda r: -r[2])
+    with open(os.path.join(out_dir, "profile_train_loop.txt"), "w") as f:
+        f.write(events.table(sort_by="cpu_time_total", row_limit=80))
+    log(f"[profile] train_loop step: wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    for key, count, ms in ranges:
+        log(f"[profile]   {ms:9.3f} ms host  {count:3d}x  {key}")
+
+    # one batch of the pipeline, alone
+    import numpy as np
+
+    from anatomix_tpu_torch.pretraining.dataset import H5TwoViewDataset
+    from anatomix_tpu_torch.pretraining.train import BatchPipeline
+
+    pipe = BatchPipeline(H5TwoViewDataset(data[0], cfg), cfg,
+                         np.random.default_rng(0), dev, (1, 2))
+    pipe.ready(*pipe([0]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as bprof:
+        t0 = time.perf_counter()
+        pipe.ready(*pipe([1]))
+        torch.cuda.synchronize()
+        batch_ms = 1e3 * (time.perf_counter() - t0)
+    bev = bprof.key_averages()
+    batch_busy = sum(getattr(ev, attr) for ev in bev
+                     if is_device_work(ev)) / 1e3
+    data_ranges = sorted(((ev.key, ev.count, ev.cpu_time_total / 1e3)
+                          for ev in bev if ev.key.startswith("data/")
+                          and ev.device_type == DeviceType.CPU),
+                         key=lambda r: -r[2])
+    log(f"[profile] one batch of the pipeline alone: wall {batch_ms:.2f} ms, "
+        f"device busy {batch_busy:.2f} ms")
+    for key, count, ms in data_ranges:
+        log(f"[profile]   {ms:9.3f} ms host  {count:3d}x  {key}")
+    torch.cuda.empty_cache()
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                ranges=[dict(name=k, count=c, ms=m) for k, c, m in ranges],
+                batch_ms=batch_ms, batch_busy_ms=batch_busy,
+                data_ranges=[dict(name=k, count=c, ms=m)
+                             for k, c, m in data_ranges])
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""Hygiene of the port: it imports neither JAX nor the JAX package, its
-entry points refuse to run on a missing card, and the card-only tests are
-marked."""
+"""Hygiene of the port: it imports neither JAX nor the JAX package (nor, at
+module import, h5py, matplotlib or TensorBoard, which the loop loads only
+when it uses them), its entry points refuse to run on a missing card, and
+the card-only tests are marked."""
 
 import ast
 import os
@@ -22,9 +23,11 @@ names = ["anatomix_tpu_torch"] + [
 ]
 for name in names:
     importlib.import_module(name)
+lazy = ("h5py", "matplotlib", "tensorboard", "torch.utils.tensorboard")
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "optax", "flax", "h5py")
-             or m.startswith(("jax.", "jaxlib", "optax.", "flax.", "h5py."))
+             if m in ("jax", "optax", "flax") + lazy
+             or m.startswith(("jax.", "jaxlib", "optax.", "flax."))
+             or m.startswith(tuple(n + "." for n in lazy))
              or m == "anatomix_tpu" or m.startswith("anatomix_tpu."))
 print(len(names))
 print(bad)
@@ -52,7 +55,7 @@ def test_pretraining_package_is_lazy():
     code = ("import sys, anatomix_tpu_torch.pretraining as p\n"
             "print(sorted(m for m in sys.modules if m.startswith("
             "('anatomix_tpu_torch.pretraining.', 'jax', 'optax', 'flax', "
-            "'h5py', 'anatomix_tpu.'))))\n"
+            "'h5py', 'matplotlib', 'tensorboard', 'anatomix_tpu.'))))\n"
             "print(p.build_all.__module__)")
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
@@ -157,6 +160,21 @@ def test_build_all_raises_without_cuda(monkeypatch, tmp_path):
         load_train_state(path)
     back = load_train_state(path, device="cpu")
     assert back.params_g["model.0.weight"].device.type == "cpu"
+
+
+def test_train_raises_without_cuda(monkeypatch, tmp_path):
+    """The trainer and its CLI default to the card: with none, `train`
+    raises `resolve_device`'s error before it writes anything."""
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+    from anatomix_tpu_torch.pretraining.train import build_parser, train
+
+    assert build_parser().parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = PretrainConfig(ckpt_dir=str(tmp_path / "ckpt"),
+                         dataroot=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg)
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_cli_defaults_to_cuda(monkeypatch, tmp_path):
