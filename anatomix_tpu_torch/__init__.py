@@ -18,6 +18,7 @@ _LAZY = {
     "extract": "anatomix_tpu_torch.extract",
     "utils": "anatomix_tpu_torch.utils",
     "pretraining": "anatomix_tpu_torch.pretraining",
+    "registration": "anatomix_tpu_torch.registration",
 }
 
 _LAZY_ATTRS = {

@@ -1,11 +1,28 @@
-"""2x pooling on NDHWC volumes (the UNet's `Pool(2)` downsampling, torch
-`ceil_mode=False`: a trailing odd voxel is dropped), and the max pool of the
-pretraining step's train walk on the block layout."""
+"""Pooling on NDHWC volumes.
+
+* `max_pool` / `avg_pool`: the UNet's `Pool(2)` downsampling (torch
+  `ceil_mode=False`: a trailing odd voxel is dropped); registration also
+  pools its merged features to the grid spacing with `avg_pool(x, grid_sp)`.
+* `max_pool_block`: the max pool of the pretraining step's train walk on
+  the block layout.
+* `avg_pool3d`: the JAX package's `avg_pool3d` (torch's
+  `F.avg_pool3d(count_include_pad=True)`, any padding) on NDHWC volumes;
+  `box_filter`'s step. The registration modules that hold NCDHW tensors
+  (MIND's patch SSD, the correlation volume's smoothing, the mask
+  smoothing, the coupled-convex field) call `F.avg_pool3d` directly.
+* `box_filter`: repeated stride-1 zero-padded box smoothing, the
+  reference's `apply_avg_pool3d` (the instance optimisation's field and
+  `smooth_disp`).
+"""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def _as3(v) -> tuple[int, int, int]:
+    return (v,) * 3 if isinstance(v, int) else tuple(v)
 
 
 def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
@@ -16,6 +33,29 @@ def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 def avg_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     y = F.avg_pool3d(x.permute(0, 4, 1, 2, 3).float(), window, window)
     return y.permute(0, 2, 3, 4, 1).contiguous().to(x.dtype)
+
+
+def avg_pool3d(x: torch.Tensor, kernel_size, *, stride=1,
+               padding=0) -> torch.Tensor:
+    """`F.avg_pool3d(count_include_pad=True)` on NDHWC `x`: zero padding
+    by `padding` on each side (any width; torch's own argument takes at
+    most half the kernel, so the pad is explicit), every window's sum
+    divided by the whole kernel volume. Computed in f32, returned in `x`'s
+    dtype."""
+    k, s, p = _as3(kernel_size), _as3(stride), _as3(padding)
+    y = F.pad(x.permute(0, 4, 1, 2, 3).float(),
+              tuple(v for pi in reversed(p) for v in (pi, pi)))
+    y = F.avg_pool3d(y, k, s)
+    return y.permute(0, 2, 3, 4, 1).to(x.dtype)
+
+
+def box_filter(x: torch.Tensor, kernel_size: int,
+               num_repeats: int) -> torch.Tensor:
+    """`num_repeats` stride-1 zero-padded box means of width
+    `kernel_size` (odd) on NDHWC `x`."""
+    for _ in range(num_repeats):
+        x = avg_pool3d(x, kernel_size, stride=1, padding=kernel_size // 2)
+    return x
 
 
 class _MaxPoolBlock(torch.autograd.Function):

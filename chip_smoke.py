@@ -73,7 +73,21 @@ Phases, each printed on its own lines; any failure exits non-zero:
      stepped from one state on the kernels and on the f32 plain route, each
      loss within 2.5x the plain route's spread under bf16-rounded views +
      1e-3; `[vit-train-loop]`, the loop with `netG="primus"`, 4 steps;
- 10. the `kernels` JSON line (launches on each path, errors, times and
+ 10. registration (ConvexAdam on the 6M UNet's features, seeded weights
+     written to a `.pth` and loaded by `load_model(ckpt_path=...)`):
+     `[registration]` at `bench.py`'s settings (a 192^3 pair of
+     `default_rng(3)` uniform volumes x 500, `extract_strategy="full"`,
+     grid_sp 2, disp_hw 1, 80 Adam iterations, inverse consistency):
+     `registration_solver_seconds_192`, the median of three
+     `register_pair` calls after a warm one, beside the extraction's time;
+     `[registration-gate]`, a structured 192^3 pair (labelled ellipsoids,
+     the moving one warped by a known smooth field of at most 3 voxels)
+     registered with the CLI's `sliding` default on the kernels and on the
+     f32 plain route: the kernels' macro-Dice must gain 0.1 over the
+     unregistered pair and stay within 0.02 of the plain route's;
+     `[registration-cli]`, the CLI on NIfTI files of that pair with masks
+     (the EDT infill) and `--warp_seg`;
+ 11. the `kernels` JSON line (launches on each path, errors, times and
      bounds), then the device's JSON line last.
 
 Each path runs with every launch count set to 0 just before it and read
@@ -87,8 +101,10 @@ plain path under 3e-2, and under 2.5x the plain path run in bf16 + 1e-3.
 P1 bisection and the 6M and dev forwards on both volumes; `--profile` runs
 phases 1 and 2, then
 profiles the 6M, the dev and the ViT sliding paths on 160^3, one 6M and
-one ViT pretraining step at 128^3, and one step of the 6M trainer loop
-(host time by `record_function` range) with torch.profiler; `--dgrad-split`
+one ViT pretraining step at 128^3, one step of the 6M trainer loop
+(host time by `record_function` range) and the registration solver at
+192^3 (its busy share, top device operations, and host time by `reg/*`
+range) with torch.profiler; `--dgrad-split`
 runs phase 1, then times the 6M step's 19 reflect input gradients apart
 into conv, fold and glue, and the step itself in rounds
 (`run_dgrad_split`; it reads only the dgrad wrapper and the step's entry
@@ -1191,16 +1207,18 @@ def fold_library(torch, g):
     return lambda: torch.ops.aten.reflection_pad3d_backward(gc, inp, [1] * 6)
 
 
-# the record_function ranges of the loop and the step; torch.profiler also
-# lists each as a CUDA row spanning the kernels it enqueued, which is not
-# device work of its own
-RANGES = ("loop/", "data/", "step/")
+# the record_function ranges of the loop, the step and registration;
+# torch.profiler also lists each as a CUDA row spanning the kernels it
+# enqueued, which is not device work of its own (nor is torch.optim's
+# `Optimizer.step#...` range)
+RANGES = ("loop/", "data/", "step/", "reg/")
 
 
 def is_device_work(ev) -> bool:
     from torch.autograd import DeviceType
 
-    return ev.device_type == DeviceType.CUDA and not ev.key.startswith(RANGES)
+    return ev.device_type == DeviceType.CUDA and not ev.key.startswith(
+        RANGES + ("Optimizer.",))
 
 
 def device_ms_by_kernel(torch, fn, reps: int = 10) -> dict:
@@ -1730,6 +1748,8 @@ def main(argv) -> int:
                                                     netG="primus")
         report["profile_train_loop"] = profile_train_loop(
             torch, dev, out_dir, loop_data(torch, dev))
+        report["profile_registration"] = profile_registration(
+            torch, dev, out_dir, plan, sd)
         with open(os.path.join(out_dir, "chip_profile.json"), "w") as f:
             json.dump(report, f, indent=1)
         return 0
@@ -1849,11 +1869,27 @@ def main(argv) -> int:
     report["vit_train_loop"] = run_vit_train_loop(torch, dev, wrappers,
                                                   paths, data)
     del data
+
+    # phase 10: registration (ConvexAdam on the 6M UNet's features)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = seeded_pth(torch, plan, os.path.join(tmp, "anatomix_seed0.pth"))
+        rplan, rsd = load_model(ckpt_path=ckpt, device=dev)
+        report["registration"] = run_registration(torch, dev, wrappers, paths,
+                                                  rplan, rsd)
+        pair = structured_pair(torch, dev, REG_SIZE)
+        report["registration_gate"] = run_registration_gate(
+            torch, dev, wrappers, paths, rplan, rsd, pair)
+        report["registration_cli"] = run_registration_cli(
+            torch, dev, wrappers, paths, ckpt, pair)
+    del rsd, pair
+    torch.cuda.empty_cache()
     for name in wrappers:
         log(f"[launches] {name}: " + ", ".join(
             f"{p} {v[name]}" for p, v in paths.items()))
 
-    # phase 10: the kernels line
+    # phase 11: the kernels line
     replaces = {
         "conv3x3x3_ndhwc": (
             "anatomix_tpu/ops/pallas/conv_block.py:248 "
@@ -3312,6 +3348,377 @@ def profile_train_loop(torch, dev, out_dir, data):
                 batch_ms=batch_ms, batch_busy_ms=batch_busy,
                 data_ranges=[dict(name=k, count=c, ms=m)
                              for k, c, m in data_ranges])
+
+
+# -----------------------------------------------------------------------------
+# registration: ConvexAdam on the 6M UNet's features
+
+REG_SIZE = 192
+# bench.py's registration settings (`registration_solver_seconds_192`):
+# the solver's, then the extraction's
+REG_SOLVE_KW = dict(grid_sp=2, disp_hw=1, selected_niter=80, grid_sp_adam=2,
+                    ic=True)
+REG_BENCH_KW = dict(REG_SOLVE_KW, extract_strategy="full")
+
+
+def seeded_pth(torch, plan, path):
+    """The 6M UNet's seeded weights (those of `load_model("scratch",
+    seed=0)`) written as a `.pth`, so registration loads a file as a user
+    would."""
+    from anatomix_tpu_torch.models.unet import init_params
+
+    torch.save(init_params(plan, torch.Generator().manual_seed(0)), path)
+    return path
+
+
+def structured_pair(torch, dev, size: int, seed: int = 5):
+    """A seeded registration pair with labels (numpy, (size,)^3 f32): the
+    fixed volume is a body ellipsoid holding a smooth field, with six
+    labelled organ ellipsoids of distinct intensities (radii 3-5.5 % of
+    the extent) and a constant background; the moving volume and its
+    labels are the fixed ones warped (trilinear, nearest) by a known
+    smooth displacement of at most 3 voxels."""
+    import numpy as np
+
+    from anatomix_tpu_torch.registration.warp import warp_volume
+
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, size, dtype=np.float32)
+    z, y, x = np.meshgrid(t, t, t, indexing="ij")
+    body = (((z - 0.5) / 0.42) ** 2 + ((y - 0.5) / 0.4) ** 2
+            + ((x - 0.5) / 0.38) ** 2) <= 1.0
+    img = np.where(body, 100.0 + 40.0 * np.sin(3 * np.pi * z)
+                   * np.cos(2 * np.pi * y) + 30.0 * np.sin(4 * np.pi * x),
+                   0.0).astype(np.float32)
+    seg = np.zeros_like(img)
+    for lab in range(1, 7):
+        c = rng.uniform(0.3, 0.7, 3)
+        r = rng.uniform(0.03, 0.055, 3)
+        inside = (((z - c[0]) / r[0]) ** 2 + ((y - c[1]) / r[1]) ** 2
+                  + ((x - c[2]) / r[2]) ** 2) <= 1.0
+        img[inside] = 150.0 + 100.0 * lab
+        seg[inside] = lab
+    u = np.stack([np.sin(2 * np.pi * y + 0.3) + 0.6 * np.cos(2 * np.pi * x),
+                  np.cos(2 * np.pi * z) + 0.6 * np.sin(2 * np.pi * x + 1.0),
+                  np.sin(2 * np.pi * z + 2.0) + 0.6 * np.cos(2 * np.pi * y)],
+                 axis=-1)
+    u *= 3.0 / np.sqrt((u ** 2).sum(-1)).max()
+    u_t = torch.as_tensor(u[None], dtype=torch.float32, device=dev)
+
+    def warp(a, mode):
+        v = torch.as_tensor(a, device=dev)[None, ..., None]
+        return warp_volume(v, u_t, mode=mode)[0, ..., 0].cpu().numpy()
+
+    return img, seg, warp(img, "bilinear"), warp(seg, "nearest")
+
+
+def neg_jacobian_share(torch, disp) -> float:
+    """Share of voxels whose deformation has a negative Jacobian
+    determinant (`jacobian_det` on the (x, y, z)-ordered field, whose
+    identity has determinant 1)."""
+    from anatomix_tpu_torch.registration.warp import (
+        generate_grid,
+        jacobian_det,
+    )
+
+    grid = generate_grid(disp.shape[1:4], device=disp.device)
+    det = jacobian_det(torch.flip(disp, dims=(-1,)), grid)
+    return (det < 0).float().mean().item()
+
+
+def registration_routes(torch, dev, plan, sd, fixed, moving, strategy,
+                        solve_kw, disp_kernels, tag):
+    """The pair's solver inputs (`pair_features`) on three routes: the
+    kernels (bf16), the plain f32 route (`impl="eager"`) and the plain
+    route in bf16 (the eager module under bf16 autocast). Gates, with the
+    smoke's two-part rule (TOL_MODEL; TOL_VS_BF16_PLAIN x the plain route
+    in bf16 + TOL_VS_BF16_PLAIN_ABS): the network channels of each
+    volume's merged features (mean|err|/std against the plain f32 route;
+    the 12 MIND channels are the same on every route), and the field:
+    mean|disp_kernels - disp_plain| against mean|disp_plain_bf16 -
+    disp_plain|, each plain field from `solve` on its route's features.
+    Recorded: mean|disp_kernels - solve(kernel features)|, two solves of
+    the same inputs (the atomic `avg_pool3d` backward)."""
+    from anatomix_tpu_torch.registration.pipeline import pair_features, solve
+
+    def feats(**kw):
+        return pair_features(fixed, moving, plan, sd, device=dev,
+                             extract_strategy=strategy, **kw)
+
+    plain_kw = dict(impl="eager", compute_dtype=torch.float32)
+    routes = {"kernels": feats(), "plain": feats(**plain_kw)}
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        routes["plain_bf16"] = feats(**plain_kw)
+    out = {}
+    for i, vol in enumerate(("fixed", "moving")):
+        ref = routes["plain"][i][..., 12:]
+        e = {r: mean_rel(routes[r][i][..., 12:], ref)
+             for r in ("kernels", "plain_bf16")}
+        out[f"features_{vol}"] = e
+        log(f"[{tag}] {vol} features ({strategy}) vs the f32 plain route, "
+            f"mean|err|/std: kernels {e['kernels']:.4e}, the plain route in "
+            f"bf16 {e['plain_bf16']:.4e} (tol {TOL_MODEL} and "
+            f"{TOL_VS_BF16_PLAIN}x plain bf16 + {TOL_VS_BF16_PLAIN_ABS})")
+        two_part_gate(f"{tag} {vol} features", e["kernels"], e["plain_bf16"])
+    disps = {r: solve(*f, **solve_kw) for r, f in routes.items()}
+    del routes
+
+    def mean_diff(a, b):
+        return (a - b).abs().mean().item()
+
+    d_k = mean_diff(disp_kernels, disps["plain"])
+    d_b = mean_diff(disps["plain_bf16"], disps["plain"])
+    d_rr = mean_diff(disp_kernels, disps["kernels"])
+    limit = TOL_VS_BF16_PLAIN * d_b + TOL_VS_BF16_PLAIN_ABS
+    out.update(mean_abs_disp_diff=d_k, plain_bf16_mean_abs_disp_diff=d_b,
+               resolve_mean_abs_disp_diff=d_rr, disp_limit=limit)
+    log(f"[{tag}] mean|disp - disp of the f32 plain route| (voxels): kernels "
+        f"{d_k:.4e}, the plain route in bf16 {d_b:.4e} (limit {limit:.4e}); "
+        f"a second solve of the kernels' features {d_rr:.4e}")
+    if not d_k <= limit:
+        raise RuntimeError(f"{tag}: mean|disp kernels - plain| {d_k:.4e} "
+                           f"over {limit:.4e} (plain bf16 {d_b:.4e})")
+    return out, disps["plain"]
+
+
+def run_registration(torch, dev, wrappers, paths, plan, sd):
+    """`[registration]` at bench.py's settings: a 192^3 pair of
+    `default_rng(3)` uniform volumes x 500, the 6M UNet at full width
+    with seeded weights from a `.pth`, `extract_strategy="full"`;
+    `registration_solver_seconds_192` is the median solver time of three
+    `register_pair` calls after a warm one. The features and the field
+    are then held against the plain route (`registration_routes`)."""
+    import numpy as np
+
+    from anatomix_tpu_torch.extract import extract_features
+    from anatomix_tpu_torch.registration.pipeline import register_pair
+
+    rng = np.random.default_rng(3)
+    fixed = rng.random((REG_SIZE,) * 3).astype(np.float32) * 500
+    moving = rng.random((REG_SIZE,) * 3).astype(np.float32) * 500
+    register_pair(fixed, moving, plan, sd, device=dev, **REG_BENCH_KW)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    solver_s, walls = [], []
+    for i in range(3):
+        if i == 0:
+            reset_counts(wrappers)
+        (disp, s), wall = timed(torch, lambda: register_pair(
+            fixed, moving, plan, sd, device=dev, **REG_BENCH_KW))
+        if i == 0:
+            launched = paths["registration_full"] = counts(wrappers)
+        solver_s.append(s)
+        walls.append(wall)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_path("registration", disp, (1, REG_SIZE, REG_SIZE, REG_SIZE, 3),
+               launched, ["conv3x3x3_ndhwc", "conv3x3x3_upcat_ndhwc"])
+    _, extract_s = timed(torch, lambda: extract_features(
+        fixed, moving, plan, sd, strategy="full", device=dev))
+    out = dict(registration_solver_seconds_192=statistics.median(solver_s),
+               solver_s=solver_s, pair_wall_s=walls, extract_s=extract_s,
+               peak_gib=peak, launches=launched,
+               max_abs_disp=disp.abs().max().item())
+    log(f"[registration] 192^3 pair (bench.py settings: {REG_BENCH_KW}): "
+        f"registration_solver_seconds_192 {out['registration_solver_seconds_192']:.4f}"
+        f" (median of {['%.4f' % v for v in solver_s]}); extraction of both "
+        f"volumes {extract_s:.4f} s; whole pair {['%.4f' % v for v in walls]}"
+        f" s; peak {peak:.2f} GiB; max|disp| {out['max_abs_disp']:.3f}; "
+        f"launches {launched}; {nvidia_smi()}")
+    out["check"], _ = registration_routes(torch, dev, plan, sd, fixed,
+                                          moving, "full", REG_SOLVE_KW, disp,
+                                          "registration")
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_registration_gate(torch, dev, wrappers, paths, plan, sd, pair):
+    """`[registration-gate]`: the structured 192^3 pair registered by
+    `register_pair` at the CLI's defaults (`sliding`) on the kernels
+    (bf16), then `registration_routes` (features and field against the
+    plain route). Gate: the kernels' macro-Dice after >= before + 0.1 and
+    >= the plain f32 route's - 0.02. Recorded: the share of negative
+    Jacobians on each route."""
+    from anatomix_tpu_torch.registration.pipeline import (
+        macro_dice,
+        register_pair,
+    )
+    from anatomix_tpu_torch.registration.warp import warp_volume
+
+    fixed, fseg, moving, mseg = pair
+    before = macro_dice(fseg, mseg)
+    mseg_t = torch.as_tensor(mseg, device=dev)[None, ..., None]
+    reset_counts(wrappers)
+    (disp, solver_s), wall = timed(torch, lambda: register_pair(
+        fixed, moving, plan, sd, device=dev))
+    launched = paths["registration_sliding"] = counts(wrappers)
+    check_path("registration-gate", disp,
+               (1, REG_SIZE, REG_SIZE, REG_SIZE, 3), launched,
+               ["conv3x3x3_ndhwc", "conv3x3x3_upcat_ndhwc", "blend_scatter"])
+    res = dict(dice_before=before, launches=launched, wall_s=wall,
+               solver_s=solver_s)
+    res["check"], disp_plain = registration_routes(
+        torch, dev, plan, sd, fixed, moving, "sliding", {}, disp,
+        "registration-gate")
+    for route, d in (("kernels", disp), ("plain", disp_plain)):
+        moved = warp_volume(mseg_t, d, mode="nearest")[0, ..., 0]
+        res[route] = dict(dice=macro_dice(fseg, moved.cpu().numpy()),
+                          neg_jacobian_share=neg_jacobian_share(torch, d))
+    k, p = res["kernels"], res["plain"]
+    log(f"[registration-gate] structured 192^3 pair, sliding: macro-Dice "
+        f"before {before:.4f}; kernels {k['dice']:.4f} (pair {wall:.3f} s, "
+        f"solver {solver_s:.4f} s, negative Jacobians "
+        f"{k['neg_jacobian_share']:.3e}); plain f32 {p['dice']:.4f} "
+        f"(negative Jacobians {p['neg_jacobian_share']:.3e}); launches "
+        f"{launched}")
+    if not (k["dice"] >= before + 0.1 and k["dice"] >= p["dice"] - 0.02):
+        raise RuntimeError(
+            f"registration-gate: Dice {k['dice']:.4f} against before "
+            f"{before:.4f} + 0.1 and plain {p['dice']:.4f} - 0.02")
+    del disp, disp_plain
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_registration_cli(torch, dev, wrappers, paths, ckpt, pair):
+    """`[registration-cli]`: `python -m anatomix_tpu_torch.registration.cli`
+    once on NIfTI files of the structured pair, with masks from the labels
+    (so the EDT infill runs on the card) and `--warp_seg`: the three output
+    files and the printed Dice are checked."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from anatomix_tpu_torch.registration.cli import main as cli_main
+    from anatomix_tpu_torch.utils.nifti import load_volume, save_volume
+
+    fixed, fseg, moving, mseg = pair
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {}
+        for name, arr in (("fixed", fixed), ("moving", moving),
+                          ("fixed_seg", fseg), ("moving_seg", mseg),
+                          ("fixed_mask", (fseg > 0).astype(np.float32)),
+                          ("moving_mask", (mseg > 0).astype(np.float32))):
+            files[name] = os.path.join(tmp, f"{name}.nii")
+            save_volume(files[name], arr, np.eye(4))
+        out_dir = os.path.join(tmp, "out")
+        buf = io.StringIO()
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli_main([
+                "--fixed", files["fixed"], "--moving", files["moving"],
+                "--exp_name", "smoke", "--ckpt_path", ckpt,
+                "--use_mask", "--path_mask_fixed", files["fixed_mask"],
+                "--path_mask_moving", files["moving_mask"], "--warp_seg",
+                "--path_seg_fixed", files["fixed_seg"],
+                "--path_seg_moving", files["moving_seg"],
+                "--result_path", out_dir, "--device", str(dev)])
+        wall = time.perf_counter() - t0
+        launched = paths["registration_cli"] = counts(wrappers)
+        text = buf.getvalue()
+        dice = [float(line.split(":", 1)[1]) for line in text.splitlines()
+                if line.startswith("Dice:")]
+        shapes = {}
+        for prefix in ("disp_", "moved_", "labels_moved_"):
+            names = [f for f in os.listdir(out_dir) if f.startswith(prefix)]
+            if len(names) != 1:
+                raise RuntimeError(f"registration-cli: {prefix}* {names}")
+            vol, _ = load_volume(os.path.join(out_dir, names[0]))
+            if not np.isfinite(vol).all():
+                raise RuntimeError(f"registration-cli: {names[0]} non-finite")
+            shapes[prefix] = vol.shape
+    want = {"disp_": (REG_SIZE,) * 3 + (3,), "moved_": (REG_SIZE,) * 3,
+            "labels_moved_": (REG_SIZE,) * 3}
+    if shapes != want or len(dice) != 1 or not 0.0 <= dice[0] <= 1.0:
+        raise RuntimeError(f"registration-cli: shapes {shapes}, Dice {dice};"
+                           f" output {text!r}")
+    missing = [k for k in ("conv3x3x3_ndhwc", "conv3x3x3_upcat_ndhwc",
+                           "blend_scatter") if launched[k] == 0]
+    if missing:
+        raise RuntimeError(f"registration-cli: kernels not launched {missing}")
+    log(f"[registration-cli] --use_mask --warp_seg on the structured pair: "
+        f"Dice {dice[0]:.4f} in {wall:.3f} s (file IO included); outputs "
+        f"{shapes}; launches {launched}")
+    return dict(dice=dice[0], wall_s=wall, launches=launched)
+
+
+def profile_registration(torch, dev, out_dir, plan, sd):
+    """The registration pair of `[registration]` under torch.profiler:
+    (1) the solver alone (the grid pooling, stage 1 and the 80 Adam
+    iterations on the merged features), its device busy share and top
+    device operations; (2) the whole `register_pair` and the image warp,
+    host time by `reg/*` range."""
+    import numpy as np
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from anatomix_tpu_torch.registration.pipeline import (
+        pair_features,
+        register_pair,
+        solve,
+    )
+    from anatomix_tpu_torch.registration.warp import warp_volume
+
+    rng = np.random.default_rng(3)
+    fixed = rng.random((REG_SIZE,) * 3).astype(np.float32) * 500
+    moving = rng.random((REG_SIZE,) * 3).astype(np.float32) * 500
+    ffix, fmov = pair_features(fixed, moving, plan, sd, device=dev,
+                               extract_strategy="full")
+    solve(ffix, fmov, **REG_SOLVE_KW)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        solve(ffix, fmov, **REG_SOLVE_KW)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    attr = ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    rows = sorted(((getattr(ev, attr) / 1e3, ev.count, ev.key)
+                   for ev in events if is_device_work(ev)
+                   and getattr(ev, attr) > 0), reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    with open(os.path.join(out_dir, "profile_registration_solver.txt"),
+              "w") as f:
+        f.write(events.table(sort_by=attr, row_limit=60))
+    log(f"[profile] registration solver 192^3: wall {wall_ms:.2f} ms, device "
+        f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    for ms, count, key in rows[:16]:
+        log(f"[profile]   {ms:9.3f} ms  {count:5d}x  {key[:90]}")
+
+    mov_t = torch.as_tensor(moving, device=dev)[None, ..., None]
+    with profile(activities=acts) as prof2:
+        t0 = time.perf_counter()
+        disp, _ = register_pair(fixed, moving, plan, sd, device=dev,
+                                **REG_BENCH_KW)
+        warp_volume(mov_t, disp)
+        torch.cuda.synchronize()
+        pair_ms = 1e3 * (time.perf_counter() - t0)
+    ev2 = prof2.key_averages()
+    pair_busy = sum(getattr(ev, attr) for ev in ev2
+                    if is_device_work(ev)) / 1e3
+    ranges = sorted(((ev.key, ev.count, ev.cpu_time_total / 1e3)
+                     for ev in ev2 if ev.key.startswith("reg/")
+                     and ev.device_type == DeviceType.CPU),
+                    key=lambda r: -r[2])
+    with open(os.path.join(out_dir, "profile_registration_pair.txt"),
+              "w") as f:
+        f.write(ev2.table(sort_by="cpu_time_total", row_limit=60))
+    log(f"[profile] register_pair + warp 192^3: wall {pair_ms:.2f} ms, device "
+        f"busy {pair_busy:.2f} ms ({100 * pair_busy / pair_ms:.1f} %); host "
+        f"time by range:")
+    for key, count, ms in ranges:
+        log(f"[profile]   {ms:9.3f} ms host  {count:3d}x  {key}")
+    torch.cuda.empty_cache()
+    return dict(solver_wall_ms=wall_ms, solver_busy_ms=busy_ms,
+                top=[dict(ms=r[0], count=r[1], name=r[2]) for r in rows[:20]],
+                pair_wall_ms=pair_ms, pair_busy_ms=pair_busy,
+                ranges=[dict(name=k, count=c, ms=m) for k, c, m in ranges])
 
 
 if __name__ == "__main__":

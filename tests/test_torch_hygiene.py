@@ -64,6 +64,54 @@ def test_pretraining_package_is_lazy():
     assert out == ["[]", "anatomix_tpu_torch.pretraining.train"]
 
 
+def test_registration_imports_no_jax():
+    """`anatomix_tpu_torch.registration` and the ops it brought (the EDT)
+    are in the walk above, and importing the package loads nothing of JAX,
+    optax or the JAX package."""
+    import pkgutil
+
+    import anatomix_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(
+        anatomix_tpu_torch.__path__, "anatomix_tpu_torch.")}
+    want = {f"anatomix_tpu_torch.registration.{m}" for m in (
+        "cli", "correlate", "merge", "mind", "pipeline", "solver", "warp")}
+    assert want | {"anatomix_tpu_torch.registration",
+                   "anatomix_tpu_torch.ops.edt"} <= names
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    code = ("import sys, anatomix_tpu_torch as p\n"
+            "r = p.registration\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'optax', 'flax', 'anatomix_tpu')))\n"
+            "print(len(r.__all__))")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=ROOT, env=env, timeout=120, check=True,
+    ).stdout.splitlines()
+    assert out == ["[]", "23"]
+
+
+def test_registration_raises_without_cuda(monkeypatch, tmp_path):
+    """`register_pair`, `convex_adam` and the CLI default to the card:
+    with none they raise before reading or writing anything."""
+    from anatomix_tpu_torch.registration.cli import build_parser, main
+    from anatomix_tpu_torch.registration.pipeline import register_pair
+
+    argv = ["--fixed", str(tmp_path / "missing_f.nii.gz"),
+            "--moving", str(tmp_path / "missing_m.nii.gz"),
+            "--exp_name", "x", "--ckpt_path", str(tmp_path / "missing.pth"),
+            "--result_path", str(tmp_path / "out")]
+    assert build_parser().parse_args(argv).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(argv)
+    assert not (tmp_path / "out").exists()
+    # the volumes, the plan and the weights are never touched
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        register_pair(None, None, None, None)
+
+
 def test_load_from_hf_at_the_top_level():
     """`anatomix_tpu_torch.load_from_hf` is `models.load.load_from_hf`, as
     the JAX package re-exports its own."""
