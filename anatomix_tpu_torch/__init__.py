@@ -19,6 +19,8 @@ _LAZY = {
     "utils": "anatomix_tpu_torch.utils",
     "pretraining": "anatomix_tpu_torch.pretraining",
     "registration": "anatomix_tpu_torch.registration",
+    "segmentation": "anatomix_tpu_torch.segmentation",
+    "synthgen": "anatomix_tpu_torch.synthgen",
 }
 
 _LAZY_ATTRS = {

@@ -70,6 +70,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from anatomix_tpu_torch.device import resolve_device
 from anatomix_tpu_torch.kernels.attention import (
     flash_attention,
     flash_attention_plain,
@@ -375,15 +376,19 @@ def _apply_rope(x, cos, sin):
 
 
 class Primus(nn.Module):
-    """The Primus ViT on `device`. `forward(x)` takes (B, D, H, W) or
-    (B, D, H, W, Ci) f32 with spatial `cfg.input_shape` and returns the
-    (B, D, H, W, num_classes) output volume, f32 (or, with `emit="fold"`,
-    the folded rows of the stitch)."""
+    """The Primus ViT on `device` (the card unless the caller names another
+    device; a CUDA device raises, as `resolve_device` does, when no card is
+    present). `forward(x)` takes (B, D, H, W) or (B, D, H, W, Ci) f32 with
+    spatial `cfg.input_shape` and returns the (B, D, H, W, num_classes)
+    output volume, f32 (or, with `emit="fold"`, the folded rows of the
+    stitch)."""
 
     def __init__(self, cfg: PrimusConfig, *,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         super().__init__()
         check_supported(cfg)
+        if torch.device(device).type == "cuda":
+            resolve_device(device)
         self.cfg = cfg
         kw = dict(device=device)
         d = cfg.embed_dim
@@ -406,7 +411,7 @@ class Primus(nn.Module):
         self._packs: dict[torch.dtype, dict[str, Any]] = {}
 
     @classmethod
-    def from_state_dict(cls, cfg, state_dict, *, device="cpu"):
+    def from_state_dict(cls, cfg, state_dict, *, device="cuda"):
         model = cls(cfg, device=device)
         model.load_state_dict(state_dict)
         return model.eval()

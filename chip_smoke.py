@@ -87,7 +87,24 @@ Phases, each printed on its own lines; any failure exits non-zero:
      unregistered pair and stay within 0.02 of the plain route's;
      `[registration-cli]`, the CLI on NIfTI files of that pair with masks
      (the EDT infill) and `--warp_seg`;
- 11. the `kernels` JSON line (launches on each path, errors, times and
+ 11. few-shot segmentation finetuning at the CLI's defaults (the 6M UNet
+     from a seeded `.pth` and a fresh 1x1x1 head, 4 classes, crop 128^3,
+     batch 3, Adam 2e-4, DiceCE) on three seeded 192^3 subjects and a
+     256^3 validation subject written as NIfTI (labelled ellipsoids on a
+     textured background): `[segmentation]`, 40 steps on the kernels,
+     `segmentation_step_seconds_128crop` (median of steps 2+, host clock)
+     beside its CUDA-event time, the wait for the batch, the launches of
+     each step (those of `[train-step128]`) and the peak memory, and
+     `segmentation_val_seconds_256` (125 windows in 32 chunks, K4 at 5
+     channels); `[segmentation-gate]`, the same batches on the f32 plain
+     route: the first loss, the first four losses against the plain
+     route's bf16 spread, every T-x / T-w launch of a step and its dW
+     against the plain backward of the same forward, the validation logits
+     after training against the plain route on the same parameters (the
+     two-part rule, Dice within 0.02), and learning on both routes;
+     `[segmentation-cli]`, the CLI for 2 epochs of 4 steps with validation
+     and checkpoints;
+ 12. the `kernels` JSON line (launches on each path, errors, times and
      bounds), then the device's JSON line last.
 
 Each path runs with every launch count set to 0 just before it and read
@@ -102,9 +119,11 @@ P1 bisection and the 6M and dev forwards on both volumes; `--profile` runs
 phases 1 and 2, then
 profiles the 6M, the dev and the ViT sliding paths on 160^3, one 6M and
 one ViT pretraining step at 128^3, one step of the 6M trainer loop
-(host time by `record_function` range) and the registration solver at
+(host time by `record_function` range), the registration solver at
 192^3 (its busy share, top device operations, and host time by `reg/*`
-range) with torch.profiler; `--dgrad-split`
+range) and one segmentation step and one 256^3 validation (the same, by
+`seg/*` range) with torch.profiler; `--segmentation` runs phase 1 and
+then phase 11 alone; `--dgrad-split`
 runs phase 1, then times the 6M step's 19 reflect input gradients apart
 into conv, fold and glue, and the step itself in rounds
 (`run_dgrad_split`; it reads only the dgrad wrapper and the step's entry
@@ -397,14 +416,20 @@ def check_upcat(kc, torch, F, dev, gen, B, S, c1, c2, co):
     )
 
 
-def check_scatter(ks, sw, torch, dev, gen, C=16, win_dtype=None):
+def check_scatter(ks, sw, torch, dev, gen, C=16, win_dtype=None,
+                  mode="gaussian"):
     """One stitch chunk on the 256^3 x C sliding canvas: two overlapping
     128^3 windows (starts 25 apart, MONAI's stride at overlap 0.8) and one
-    masked padding window; f32 windows, or bf16 (the ViT's fold exit)."""
+    masked padding window; f32 windows, or bf16 (the ViT's fold exit);
+    Gaussian blend factors, or with `mode="constant"` ones (segmentation's
+    validation, whose logits have an odd channel count)."""
     import numpy as np
 
     r, S = 128, 256
-    axes, minv = sw.gaussian_importance_axes((r, r, r), 0.25)
+    if mode == "gaussian":
+        axes, minv = sw.gaussian_importance_axes((r, r, r), 0.25)
+    else:
+        axes, minv = [np.ones(r)] * 3, 0.0
     gd, gh, gw = (torch.as_tensor(a, dtype=torch.float32, device=dev)
                   for a in axes)
     starts_np = np.array([[0, 25, 50], [25, 50, 25], [0, 0, 0]], np.int32)
@@ -438,7 +463,8 @@ def check_scatter(ks, sw, torch, dev, gen, C=16, win_dtype=None):
     b_ms, b_by = bound(4.0 * elems, nbytes, PEAK_F32_FLOPS)
     return dict(
         shape=f"canvas {S}^3x{C} f32, 3 windows {r}^3 (1 masked)"
-        + (" bf16" if out.dtype == torch.bfloat16 else ""),
+        + (" bf16" if out.dtype == torch.bfloat16 else "")
+        + (f" {mode}" if mode != "gaussian" else ""),
         max_abs_err=err, rel_err=rel, tol=TOL_SCATTER, ok=rel < TOL_SCATTER,
         ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
         bound_by=b_by,
@@ -1211,7 +1237,7 @@ def fold_library(torch, g):
 # torch.profiler also lists each as a CUDA row spanning the kernels it
 # enqueued, which is not device work of its own (nor is torch.optim's
 # `Optimizer.step#...` range)
-RANGES = ("loop/", "data/", "step/", "reg/")
+RANGES = ("loop/", "data/", "step/", "reg/", "seg/")
 
 
 def is_device_work(ev) -> bool:
@@ -1529,6 +1555,20 @@ def main(argv) -> int:
         "reflect_shell_ndhwc": kt.reflect_shell_ndhwc,
     }
 
+    if "--segmentation" in argv:
+        # phase 1, then phase 11 alone
+        kwargs = ANATOMIX_VARIANTS["anatomix"]["unet_kwargs"]
+        splan = build_plan(UnetConfig(**kwargs))
+        paths = {}
+        report["segmentation"], report["segmentation_cli"] = \
+            run_segmentation_phases(torch, dev, wrappers, paths, kt, splan)
+        report["paths"] = paths
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_segmentation.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        return 0
+
     # phase 2: kernels vs plain at the main paths' shapes
     gen = torch.Generator(device=dev).manual_seed(0)
     checks = {name: [] for name in wrappers}
@@ -1564,6 +1604,9 @@ def main(argv) -> int:
     # the ViT's fold exit hands the stitch bf16 windows
     checks["blend_scatter"].append(check_scatter(
         ks, sw, torch, dev, gen, C=32, win_dtype=torch.bfloat16))
+    # segmentation's validation: n_classes + 1 = 5 logit channels, constant
+    checks["blend_scatter"].append(check_scatter(
+        ks, sw, torch, dev, gen, C=SEG_CLASSES + 1, mode="constant"))
     # the dev decoder's convs on the split operands (3 c1 + 3 c2)
     for B, S, c1, c2, co in [
         (2, 128, 3 * 32, 3 * 64, 32), (2, 32, 3 * 128, 3 * 256, 128),
@@ -1750,6 +1793,13 @@ def main(argv) -> int:
             torch, dev, out_dir, loop_data(torch, dev))
         report["profile_registration"] = profile_registration(
             torch, dev, out_dir, plan, sd)
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            report["profile_segmentation"] = profile_segmentation(
+                torch, dev, out_dir,
+                seeded_pth(torch, plan, os.path.join(tmp, "seed0.pth")),
+                seg_dataset(os.path.join(tmp, "data")))
         with open(os.path.join(out_dir, "chip_profile.json"), "w") as f:
             json.dump(report, f, indent=1)
         return 0
@@ -1885,11 +1935,16 @@ def main(argv) -> int:
             torch, dev, wrappers, paths, ckpt, pair)
     del rsd, pair
     torch.cuda.empty_cache()
+
+    # phase 11: few-shot segmentation finetuning (the step, validation,
+    # the gate against the plain route, the CLI)
+    report["segmentation"], report["segmentation_cli"] = \
+        run_segmentation_phases(torch, dev, wrappers, paths, kt, plan)
     for name in wrappers:
         log(f"[launches] {name}: " + ", ".join(
             f"{p} {v[name]}" for p, v in paths.items()))
 
-    # phase 11: the kernels line
+    # phase 12: the kernels line
     replaces = {
         "conv3x3x3_ndhwc": (
             "anatomix_tpu/ops/pallas/conv_block.py:248 "
@@ -3719,6 +3774,575 @@ def profile_registration(torch, dev, out_dir, plan, sd):
                 top=[dict(ms=r[0], count=r[1], name=r[2]) for r in rows[:20]],
                 pair_wall_ms=pair_ms, pair_busy_ms=pair_busy,
                 ranges=[dict(name=k, count=c, ms=m) for k, c, m in ranges])
+
+
+
+# -----------------------------------------------------------------------------
+# segmentation: few-shot finetuning of the 6M UNet
+
+SEG_CLASSES = 4
+SEG_TRAIN_SIZE = 192
+SEG_VAL_SIZE = 256
+# the CLI's defaults (`segmentation/train.py` build_parser)
+SEG_CROP = 128
+SEG_BATCH = 3
+SEG_LR = 2e-4
+SEG_EPOCHS = 500
+SEG_ITERS = 75
+SEG_STEPS = 40  # the learning check's steps on each route
+SEG_GATE_STEPS = 4  # the steps held to the plain route's bf16 spread
+
+
+def seg_subject(size: int, seed: int):
+    """A seeded structured subject (numpy, (size,)^3): a smoothly textured
+    background (int16 CT-like values, two sinusoids) holding labelled
+    ellipsoids of classes 1-4, three of each, of distinct intensities
+    (radii 5-12 % of the extent); the labels uint8."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, 1.0, size, dtype=np.float32)
+    texture = (20.0 * np.sin(3 * np.pi * t)[:, None, None]
+               * np.cos(2 * np.pi * t)[None, :, None]
+               + 15.0 * np.sin(4 * np.pi * t)[None, None, :])
+    img = 60.0 + texture
+    lab = np.zeros((size,) * 3, np.uint8)
+    for c in range(1, SEG_CLASSES + 1):
+        for _ in range(3):
+            ctr = rng.uniform(0.2, 0.8, 3)
+            r = rng.uniform(0.05, 0.12, 3)
+            # the ellipsoid's bounding box, then the voxels inside it
+            lo = np.searchsorted(t, ctr - r)
+            hi = np.searchsorted(t, ctr + r, side="right")
+            box = tuple(slice(a, b) for a, b in zip(lo, hi))
+            q = sum(((t[sl] - ctr[a]) / r[a]).reshape(
+                [-1 if k == a else 1 for k in range(3)]) ** 2
+                for a, sl in enumerate(box))
+            inside = q <= 1.0
+            lab[box][inside] = c
+            img[box][inside] = 100.0 + 60.0 * c + 0.3 * texture[box][inside]
+    return img.astype(np.int16), lab
+
+
+def seg_dataset(root: str) -> str:
+    """Three 192^3 training subjects and one 256^3 validation subject as
+    NIfTI (`.nii.gz`) under `root` in the imagesTr/labelsTr/imagesVal/
+    labelsVal layout, written by a thread each (gzip releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from anatomix_tpu_torch.utils.nifti import save_volume
+
+    jobs = [("Tr", f"case{i}", SEG_TRAIN_SIZE, 70 + i) for i in range(3)]
+    jobs.append(("Val", "case9", SEG_VAL_SIZE, 79))
+    for sub in ("imagesTr", "labelsTr", "imagesVal", "labelsVal"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+
+    def write(job):
+        split, name, size, seed = job
+        img, lab = seg_subject(size, seed)
+        save_volume(os.path.join(root, f"images{split}", f"{name}.nii.gz"),
+                    img)
+        save_volume(os.path.join(root, f"labels{split}", f"{name}.nii.gz"),
+                    lab)
+
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        list(pool.map(write, jobs))
+    return root
+
+
+def seg_model(torch, dev, ckpt, lr=SEG_LR, plain=False):
+    """The 6M UNet from the seeded `.pth` and a fresh head, its Adam and
+    train step on the CLI's schedule (constant over these steps)."""
+    from anatomix_tpu_torch.segmentation.model import load_seg_model
+    from anatomix_tpu_torch.segmentation.train import (
+        build_seg_train_step,
+        cosine_annealing,
+        make_seg_optimizer,
+    )
+
+    plan, params = load_seg_model(SEG_CLASSES, ckpt_path=ckpt, device=dev)
+    # the CLI's epoch: 3 subjects x (75 x 3 // 3) samples, 75 steps
+    step = build_seg_train_step(
+        plan, make_seg_optimizer(params, lr),
+        cosine_annealing(lr, SEG_EPOCHS, SEG_ITERS), plain=plain)
+    return plan, params, step
+
+
+def seg_val_logits(torch, plan, params, vol, plain=False):
+    """The validation volume's sliding-window logits as `validate` takes
+    them (roi = crop, overlap 0.7, sw_batch 4, constant blend)."""
+    from anatomix_tpu_torch.ops.sliding_window import (
+        sliding_window_inference,
+    )
+    from anatomix_tpu_torch.segmentation.model import make_seg_predictor
+
+    return sliding_window_inference(
+        vol[None, ..., None], make_seg_predictor(plan, params, plain=plain),
+        SEG_CLASSES + 1, roi_size=(SEG_CROP,) * 3, sw_batch_size=4,
+        overlap=0.7, mode="constant")
+
+
+def seg_backward_check(torch, kt, plan, ckpt, dev, batch):
+    """The first step's loss and gradients from the initial state on the
+    first batch: (a) the kernel route, recording each T-x / T-w launch
+    with its inputs; (b) the same forward with the conv backward on the
+    plain versions; (c) the plain f32 route; (d) the plain route on the
+    images rounded to bf16. (a) vs (b) holds the backward on the kernels
+    against the plain backward of the same activations; (a) vs (c) is the
+    end-to-end dW error and (d) vs (c) its floor."""
+    from anatomix_tpu_torch.segmentation.model import load_seg_model
+    from anatomix_tpu_torch.segmentation.train import (
+        seg_loss,
+        trainable_leaves,
+    )
+
+    records = []
+
+    def rec(fn, which):
+        def call(a, b, *, pad_type):
+            out = fn(a, b, pad_type=pad_type)
+            records.append((which, (a, b), pad_type, out))
+            return out
+        return call
+
+    def run(images, plain=False):
+        params = load_seg_model(SEG_CLASSES, ckpt_path=ckpt, device=dev)[1]
+        leaves = trainable_leaves(params)
+        for _, v in leaves:
+            v.requires_grad_()
+        loss, _ = seg_loss(plan, params, images, batch[1], plain=plain)
+        grads = torch.autograd.grad(loss, [v for _, v in leaves])
+        return loss.item(), {name.split("/", 1)[1]: g for (name, _), g in
+                             zip(leaves, grads)}
+
+    with kt.backward_route(rec(kt.conv3x3x3_dgrad_ndhwc, "dgrad"),
+                           rec(kt.conv3x3x3_wgrad_ndhwc, "wgrad")):
+        loss_k, grads_k = run(batch[0])
+    with kt.backward_route(kt.conv3x3x3_dgrad_ndhwc_plain,
+                           kt.conv3x3x3_wgrad_ndhwc_plain):
+        loss_b, grads_b = run(batch[0])
+    loss_p, grads_p = run(batch[0], plain=True)
+    _, grads_q = run(batch[0].to(torch.bfloat16).float(), plain=True)
+
+    def dw_err(grads, ref):
+        return {i: float((grads[f"model.{i}.weight"]
+                          - ref[f"model.{i}.weight"]).abs().mean()
+                         / ref[f"model.{i}.weight"].std())
+                for i in plan.conv_indices}
+
+    launches = {"wgrad": [], "dgrad": [], "dgrad_shell": []}
+    for which, args, pad, got in records:
+        plain_fn = (kt.conv3x3x3_wgrad_ndhwc_plain if which == "wgrad"
+                    else kt.conv3x3x3_dgrad_ndhwc_plain)
+        ref = plain_fn(*args, pad_type=pad)
+        launches[which].append(rel_err(got, ref)[1])
+        if which == "dgrad":
+            launches["dgrad_shell"].append(shell_rel_err(torch, got, ref))
+    return dict(loss_kernels=loss_k, loss_same_forward=loss_b,
+                loss_plain=loss_p, dw_backward=dw_err(grads_k, grads_b),
+                dw_end_to_end=dw_err(grads_k, grads_p),
+                dw_floor=dw_err(grads_q, grads_p), launch_errs=launches)
+
+
+def run_segmentation(torch, dev, wrappers, paths, kt, ckpt, root):
+    """Phase 11: few-shot finetuning at the CLI's defaults (the 6M UNet at
+    full width from a seeded `.pth`, 4 classes, crop 128^3, batch 3, Adam
+    at 2e-4, DiceCE) on three 192^3 subjects, validated on a 256^3 one.
+
+    `[segmentation]`: `segmentation_val_seconds_256` (one `validate` of
+    the 256^3 volume: 125 windows in 32 chunks of 4, host clock between
+    synchronizes, before and after training) and 40 steps on the
+    kernels, each batch read and transformed by `train.load_batch`:
+    `segmentation_step_seconds_128crop`, the median of steps 2+ on the host
+    clock between `torch.cuda.synchronize()`, beside its CUDA-event time,
+    the host-clock wait for the batch, the launches of each step and the
+    peak memory.
+
+    `[segmentation-gate]`: the same 40 batches stepped from the same state
+    on the plain f32 route (`plain=True`), and the first 4 on the plain
+    route with the images rounded to bf16. Gates: the first loss within
+    1e-2; each of the first 4 losses within 2.5x the plain route's spread
+    + 1e-3; every T-x / T-w launch of the first step against its plain
+    version and the step's dW against the plain backward from the same
+    forward (`seg_backward_check`); the validation logits after the
+    kernels' 40 steps, the fused forward against the plain route on the
+    same parameters, to the two-part rule, and their Dice losses within
+    0.02; on both routes the last 5 train losses' mean under 0.8x the
+    first 5's and the validation Dice loss lower after training."""
+    import numpy as np
+
+    from anatomix_tpu_torch.ops.sliding_window import compute_window_starts
+    from anatomix_tpu_torch.segmentation.data import (
+        VolumeCache,
+        data_handler,
+    )
+    from anatomix_tpu_torch.segmentation.losses import dice_loss
+    from anatomix_tpu_torch.segmentation.train import load_batch, validate
+    from anatomix_tpu_torch.segmentation.transforms import val_transform
+
+    tri, trs, vai, vas = data_handler(root, 3, SEG_STEPS, SEG_BATCH)
+    cache = VolumeCache(dev)
+    _, load_s = timed(torch, lambda: [cache.get(p) for p in tri[:3] + trs[:3]
+                                      + vai + vas])
+    val_vol = val_transform(cache.get(vai[0]))
+    val_lab = cache.get(vas[0])
+    order = np.random.default_rng(0).permutation(len(tri))
+    gen = torch.Generator().manual_seed(0)
+    field_gen = torch.Generator(device=dev).manual_seed(0)
+    plan, params, step = seg_model(torch, dev, ckpt)
+    n_conv = len(plan.conv_indices)
+    n_resize = sum(spec.kind in ("pool", "upsample") for spec in plan.layers)
+    want = {k: 0 for k in wrappers}
+    want.update({"conv3x3x3_ndhwc": n_conv, "conv3x3x3_wgrad_ndhwc": n_conv,
+                 "conv3x3x3_dgrad_ndhwc": n_conv - 1,
+                 "reflect_shell_ndhwc": n_conv - 1,
+                 "space_to_depth2_ndhwc": n_resize,
+                 "depth_to_space2_ndhwc": n_resize})
+
+    def val_timed(tag):
+        reset_counts(wrappers)
+        dl, sec = timed(torch, lambda: validate(
+            plan, params, vai, vas, cache, SEG_CROP, SEG_CLASSES,
+            plain=False))
+        paths[tag] = counts(wrappers)
+        return dl, sec
+
+    val_before, val_before_s = val_timed("segmentation_val_256")
+    n_win = len(compute_window_starts((SEG_VAL_SIZE,) * 3, (SEG_CROP,) * 3,
+                                      0.7))
+    chunks = -(-n_win // 4)
+    want_val = {k: 0 for k in wrappers}
+    want_val.update({"conv3x3x3_ndhwc": 16 * chunks,
+                     "conv3x3x3_upcat_ndhwc": 4 * chunks,
+                     "blend_scatter": chunks})
+    if paths["segmentation_val_256"] != want_val:
+        raise RuntimeError(f"segmentation: validation launches "
+                           f"{paths['segmentation_val_256']}, want {want_val}")
+
+    batches, losses, host_s, dev_ms, data_s, per_step = [], [], [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    for i in range(SEG_STEPS):
+        idxs = order[i * SEG_BATCH:(i + 1) * SEG_BATCH]
+        batch, t_data = timed(torch, lambda: load_batch(
+            cache, tri, trs, idxs, SEG_CROP, gen, field_gen))
+        batches.append(batch)
+        before = counts(wrappers)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        loss = step(params, *batch)
+        ev1.record()
+        torch.cuda.synchronize()
+        host_s.append(time.perf_counter() - t0)
+        dev_ms.append(ev0.elapsed_time(ev1))
+        data_s.append(t_data)
+        losses.append(float(loss))
+        per_step.append({k: v - before[k] for k, v in counts(wrappers).items()})
+        if i == 0:
+            # the first step's peak (Adam's moments included), before the
+            # batches kept for the plain route pile up
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    paths["segmentation_train"] = counts(wrappers)
+    val_after, val_after_s = val_timed("segmentation_val_256_after")
+    if paths["segmentation_val_256_after"] != want_val:
+        raise RuntimeError("segmentation: validation launches after training "
+                           f"{paths['segmentation_val_256_after']}")
+    bad = [i + 1 for i, c in enumerate(per_step) if c != want]
+    if bad:
+        raise RuntimeError(f"segmentation: launches of step {bad[0]} "
+                           f"{per_step[bad[0] - 1]}, want {want}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"segmentation: non-finite loss {losses}")
+    res = dict(
+        segmentation_step_seconds_128crop=statistics.median(host_s[1:]),
+        segmentation_val_seconds_256=val_after_s,
+        val_before_training_s=val_before_s, step_device_ms=dev_ms,
+        step_host_s=host_s, data_s=data_s, losses=losses, peak_gib=peak,
+        launches_per_step=per_step[0], val_launches=want_val,
+        windows=n_win, chunks=chunks, volume_load_s=load_s,
+        val_dice_loss=dict(kernels_before=val_before,
+                           kernels_after=val_after))
+    log(f"[segmentation] 6M UNet, {SEG_CLASSES} classes, crop {SEG_CROP}^3 x "
+        f"batch {SEG_BATCH}, Adam {SEG_LR}, {SEG_STEPS} steps on three "
+        f"{SEG_TRAIN_SIZE}^3 subjects (read in {load_s:.3f} s): "
+        f"segmentation_step_seconds_128crop "
+        f"{res['segmentation_step_seconds_128crop']:.4f} (median of steps "
+        f"2+, host clock); CUDA events median "
+        f"{statistics.median(dev_ms[1:]):.4f} ms; wait for the batch "
+        f"median {1e3 * statistics.median(data_s[1:]):.4f} ms; peak "
+        f"{peak:.2f} GiB (the first step); launches per step {per_step[0]}; "
+        f"{nvidia_smi()}")
+    log(f"[segmentation] segmentation_val_seconds_256 {val_after_s:.4f} "
+        f"(before training {val_before_s:.4f}; {n_win} windows in {chunks} "
+        f"chunks of 4, roi {SEG_CROP}, overlap 0.7, constant; launches "
+        f"{want_val}); val Dice loss {val_before:.4f} -> {val_after:.4f}")
+    log(f"[segmentation] losses {['%.4f' % v for v in losses]}")
+
+    # [segmentation-gate]: the plain route on the same batches
+    gate = seg_backward_check(torch, kt, plan, ckpt, dev, batches[0])
+    _, pparams, pstep = seg_model(torch, dev, ckpt, plain=True)
+    p_before = validate(plan, pparams, vai, vas, cache, SEG_CROP,
+                        SEG_CLASSES, plain=True)
+    t0 = time.perf_counter()
+    plain = [float(pstep(pparams, *b)) for b in batches]
+    plain_s = time.perf_counter() - t0
+    p_after = validate(plan, pparams, vai, vas, cache, SEG_CROP,
+                       SEG_CLASSES, plain=True)
+    del pparams
+    _, qparams, qstep = seg_model(torch, dev, ckpt, plain=True)
+    spread = [float(qstep(qparams, b[0].to(torch.bfloat16).float(), b[1]))
+              for b in batches[:SEG_GATE_STEPS]]
+    del qparams
+    rel_k = [abs(k - p) / abs(p) for k, p in zip(losses, plain)]
+    rel_q = [abs(q - p) / abs(p) for q, p in zip(spread, plain)]
+    bound_q = [TOL_VS_BF16_PLAIN * q + TOL_VS_BF16_PLAIN_ABS for q in rel_q]
+    # the validation logits after the kernels' steps, on the same
+    # parameters: the fused forward, the plain f32 route, and the plain
+    # route in bf16
+    routes = {"kernels": seg_val_logits(torch, plan, params, val_vol),
+              "plain": seg_val_logits(torch, plan, params, val_vol, True)}
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        routes["plain_bf16"] = seg_val_logits(torch, plan, params, val_vol,
+                                              True)
+    e = {r: mean_rel(routes[r], routes["plain"])
+         for r in ("kernels", "plain_bf16")}
+    dice = {r: float(dice_loss(v, val_lab[None])) for r, v in routes.items()}
+    del routes
+    learn = {}
+    for route, curve, (before, after) in (
+            ("kernels", losses, (val_before, val_after)),
+            ("plain", plain, (p_before, p_after))):
+        first, last = np.mean(curve[:5]), np.mean(curve[-5:])
+        learn[route] = dict(first5=float(first), last5=float(last),
+                            val_before=before, val_after=after)
+    errs = gate["launch_errs"]
+    log(f"[segmentation-gate] first loss {losses[0]:.6f} (seg_loss on the "
+        f"kernels {gate['loss_kernels']!r}, with the plain conv backward "
+        f"{gate['loss_same_forward']!r}) vs the plain f32 route "
+        f"{plain[0]:.6f}: rel {rel_k[0]:.3e} (tol {TOL_TRAIN_LOSS})")
+    log(f"[segmentation-gate] losses of steps 1-{SEG_GATE_STEPS}: kernels "
+        f"{losses[:SEG_GATE_STEPS]}, plain f32 {plain[:SEG_GATE_STEPS]}, "
+        f"plain f32 on bf16 images {spread}; |kernels - plain| / |plain| "
+        f"{['%.3e' % v for v in rel_k[:SEG_GATE_STEPS]]} vs bound "
+        f"{['%.3e' % v for v in bound_q]}; {SEG_STEPS} plain steps "
+        f"{plain_s:.2f} s")
+    log(f"[segmentation-gate] the first step's {len(errs['wgrad'])} wgrad and "
+        f"{len(errs['dgrad'])} dgrad launches vs their plain versions on the "
+        f"same tensors: max rel {max(errs['wgrad']):.3e} (tol {TOL_WGRAD}), "
+        f"{max(errs['dgrad']):.3e} (tol {TOL_CONV_BF16}); the reflect shell "
+        f"alone {max(errs['dgrad_shell']):.3e}")
+    log(f"[segmentation-gate] dW mean|err|/std, the backward on the kernels "
+        f"vs the plain conv backward from the same forward (tol "
+        f"{TOL_TRAIN_DW}): {fmt_dw(gate['dw_backward'])}")
+    log(f"[segmentation-gate] dW end to end vs the plain f32 route: "
+        f"{fmt_dw(gate['dw_end_to_end'])}; the plain route on bf16 images "
+        f"vs itself: {fmt_dw(gate['dw_floor'])}")
+    log(f"[segmentation-gate] validation logits after {SEG_STEPS} steps, "
+        f"same parameters, vs the plain f32 route, mean|err|/std: fused "
+        f"kernels {e['kernels']:.4e}, the plain route in bf16 "
+        f"{e['plain_bf16']:.4e} (tol {TOL_MODEL} and {TOL_VS_BF16_PLAIN}x "
+        f"plain bf16 + {TOL_VS_BF16_PLAIN_ABS}); Dice loss kernels "
+        f"{dice['kernels']:.4f}, plain {dice['plain']:.4f}, plain bf16 "
+        f"{dice['plain_bf16']:.4f} (tol 0.02)")
+    for route, r in learn.items():
+        log(f"[segmentation-gate] learning on the {route} route: train loss "
+            f"mean of steps 1-5 {r['first5']:.4f}, of steps "
+            f"{SEG_STEPS - 4}-{SEG_STEPS} {r['last5']:.4f} (want < 0.8x); "
+            f"val Dice loss {r['val_before']:.4f} -> {r['val_after']:.4f}")
+    if not rel_k[0] < TOL_TRAIN_LOSS:
+        raise RuntimeError(f"segmentation-gate: first loss {losses[0]} vs "
+                           f"{plain[0]}")
+    bad = [i + 1 for i, (r, b) in enumerate(zip(rel_k, bound_q))
+           if not r <= b]
+    if bad:
+        raise RuntimeError(f"segmentation-gate: steps {bad} outside the "
+                           f"bound: {rel_k[:SEG_GATE_STEPS]} vs {bound_q}")
+    if (len(errs["wgrad"]), len(errs["dgrad"])) != (n_conv, n_conv - 1):
+        raise RuntimeError(f"segmentation-gate: recorded {errs}")
+    if not (max(errs["wgrad"]) < TOL_WGRAD
+            and max(errs["dgrad"]) < TOL_CONV_BF16
+            and max(errs["dgrad_shell"]) < TOL_CONV_BF16):
+        raise RuntimeError(f"segmentation-gate: kernel errors {errs}")
+    if not max(gate["dw_backward"].values()) < TOL_TRAIN_DW:
+        raise RuntimeError(f"segmentation-gate: backward dW "
+                           f"{gate['dw_backward']} over {TOL_TRAIN_DW}")
+    two_part_gate("segmentation-gate validation logits", e["kernels"],
+                  e["plain_bf16"])
+    if not abs(dice["kernels"] - dice["plain"]) <= 0.02:
+        raise RuntimeError(f"segmentation-gate: Dice losses {dice}")
+    for route, r in learn.items():
+        if not (r["last5"] < 0.8 * r["first5"]
+                and r["val_after"] < r["val_before"]):
+            raise RuntimeError(f"segmentation-gate: no learning on the "
+                               f"{route} route: {r}")
+    res["gate"] = dict(
+        plain_losses=plain, plain_bf16_losses=spread, rel_err=rel_k,
+        bound=bound_q, plain_steps_s=plain_s, first_step=gate,
+        val_logits=e, val_dice_loss=dice, learning=learn)
+    del batches, params, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_segmentation_cli(torch, dev, wrappers, paths, ckpt, root):
+    """`[segmentation-cli]`: `python -m anatomix_tpu_torch.segmentation.
+    train` on the NIfTI dataset with `--n_epochs 2 --n_iters_per_epoch 4
+    --val_interval 1` (the CLI's other defaults: crop 128, batch 3, lr
+    2e-4), run from a temporary working directory: the best and per-epoch
+    checkpoints, the scalars, finite losses."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from anatomix_tpu_torch.segmentation.train import build_parser, main
+    from anatomix_tpu_torch.utils.checkpoint import load_pytree
+
+    argv = ["--exp_name", "smoke", "--dataset", root, "--n_classes",
+            str(SEG_CLASSES), "--pretrained_ckpt", ckpt, "--crop_size",
+            str(SEG_CROP), "--n_epochs", "2",
+            "--n_iters_per_epoch", "4", "--val_interval", "1", "--device",
+            str(dev)]
+    cwd = os.getcwd()
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                main(build_parser().parse_args(argv))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            paths["segmentation_cli"] = launched = counts(wrappers)
+            ckpt_dir = os.path.join("finetuning_runs", "checkpoints", "smoke")
+            names = sorted(os.listdir(ckpt_dir))
+            state = load_pytree(os.path.join(ckpt_dir, "epoch0002.npz"))
+            with open(os.path.join("finetuning_runs", "runs", "smoke",
+                                   "scalars.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+        finally:
+            os.chdir(cwd)
+    train = [r["train_loss"] for r in recs if "train_loss" in r]
+    val = [r["val_loss_mean_dice"] for r in recs if "val_loss_mean_dice" in r]
+    if not ({"epoch0001.npz", "epoch0002.npz"} <= set(names)
+            and any(n.startswith("best_dict_epoch") for n in names)):
+        raise RuntimeError(f"segmentation-cli: checkpoints {names}")
+    if int(state["epoch"]) != 2 or int(state["opt_state"]["count"]) != 8:
+        raise RuntimeError(f"segmentation-cli: epoch {state['epoch']}, "
+                           f"count {state['opt_state']['count']}")
+    if len(train) != 8 or len(val) != 2 or not np.isfinite(train + val).all():
+        raise RuntimeError(f"segmentation-cli: losses {train}, val {val}")
+    missing = [k for k in ("conv3x3x3_ndhwc", "conv3x3x3_upcat_ndhwc",
+                           "blend_scatter", "conv3x3x3_wgrad_ndhwc",
+                           "conv3x3x3_dgrad_ndhwc", "space_to_depth2_ndhwc",
+                           "depth_to_space2_ndhwc") if launched[k] == 0]
+    if missing:
+        raise RuntimeError(f"segmentation-cli: kernels not launched {missing}")
+    log(f"[segmentation-cli] 2 epochs x 4 steps, val every epoch, in "
+        f"{wall:.2f} s (reads and checkpoints included): train losses "
+        f"{['%.4f' % v for v in train]}, val Dice loss {val}; checkpoints "
+        f"{names}; launches {launched}")
+    return dict(wall_s=wall, train_losses=train, val_losses=val,
+                checkpoints=names, launches=launched)
+
+
+def run_segmentation_phases(torch, dev, wrappers, paths, kt, plan):
+    """Phase 11 in a temporary directory: the 6M UNet's seeded weights as
+    a `.pth`, the NIfTI dataset, then `[segmentation]`,
+    `[segmentation-gate]` and `[segmentation-cli]`."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = seeded_pth(torch, plan, os.path.join(tmp, "anatomix_seed0.pth"))
+        t0 = time.perf_counter()
+        root = seg_dataset(os.path.join(tmp, "data"))
+        log(f"[segmentation] wrote the NIfTI dataset in "
+            f"{time.perf_counter() - t0:.2f} s")
+        res = run_segmentation(torch, dev, wrappers, paths, kt, ckpt, root)
+        cli = run_segmentation_cli(torch, dev, wrappers, paths, ckpt, root)
+    return res, cli
+
+
+def profile_segmentation(torch, dev, out_dir, ckpt, root):
+    """One segmentation step (its batch read and transformed first) and one
+    256^3 validation under torch.profiler: each one's device busy share
+    and top device operations, and host time by `seg/*` range."""
+    import numpy as np
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from anatomix_tpu_torch.segmentation.data import (
+        VolumeCache,
+        data_handler,
+    )
+    from anatomix_tpu_torch.segmentation.train import load_batch, validate
+    from anatomix_tpu_torch.utils.profiling import annotate
+
+    tri, trs, vai, vas = data_handler(root, 3, 4, SEG_BATCH)
+    cache = VolumeCache(dev)
+    plan, params, step = seg_model(torch, dev, ckpt)
+    gen = torch.Generator().manual_seed(0)
+    field_gen = torch.Generator(device=dev).manual_seed(0)
+    order = np.random.default_rng(0).permutation(len(tri))
+
+    def one_step(i):
+        idxs = order[i * SEG_BATCH:(i + 1) * SEG_BATCH]
+        with annotate("seg/data"):
+            batch = load_batch(cache, tri, trs, idxs, SEG_CROP, gen,
+                               field_gen)
+        with annotate("seg/step"):
+            float(step(params, *batch))
+
+    def one_val():
+        with annotate("seg/val"):
+            validate(plan, params, vai, vas, cache, SEG_CROP, SEG_CLASSES)
+
+    one_step(0)
+    one_val()
+    torch.cuda.synchronize()
+    out = {}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for tag, fn in (("step", lambda: one_step(1)), ("val", one_val)):
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        events = prof.key_averages()
+        attr = ("self_device_time_total"
+                if hasattr(events[0], "self_device_time_total")
+                else "self_cuda_time_total")
+        rows = sorted(((getattr(ev, attr) / 1e3, ev.count, ev.key)
+                       for ev in events if is_device_work(ev)
+                       and getattr(ev, attr) > 0), reverse=True)
+        busy_ms = sum(r[0] for r in rows)
+        ranges = sorted(((ev.cpu_time_total / 1e3, ev.count, ev.key)
+                         for ev in events if ev.key.startswith("seg/")
+                         and ev.device_type == DeviceType.CPU), reverse=True)
+        with open(os.path.join(out_dir, f"profile_segmentation_{tag}.txt"),
+                  "w") as f:
+            f.write(events.table(sort_by=attr, row_limit=60))
+        log(f"[profile] segmentation {tag}: wall {wall_ms:.2f} ms, device "
+            f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+        for ms, count, key in rows[:16]:
+            log(f"[profile]   {ms:9.3f} ms  {count:5d}x  {key[:90]}")
+        for ms, count, key in ranges:
+            log(f"[profile]   {ms:9.3f} ms host  {count:3d}x  {key}")
+        out[tag] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                        top=[dict(ms=r[0], count=r[1], name=r[2])
+                             for r in rows[:20]],
+                        ranges=[dict(ms=m, count=c, name=k)
+                                for m, c, k in ranges])
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

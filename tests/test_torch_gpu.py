@@ -988,3 +988,68 @@ def test_edt_on_the_card_equals_the_cpu_bit_for_bit(cuda):
             # passes (x, then y, then z) takes the one at z - 3
             assert int(dist2[c, c, c]) == 9
             assert idx[:, c, c, c].tolist() == [c, c, c - 3]
+
+
+@pytest.mark.gpu
+def test_segmentation_step_on_the_card_matches_the_plain_route(cuda):
+    """Few-shot finetuning of the 6M UNet at full width (seeded weights, 4
+    classes, crop 64^3, batch 2) on the kernels (bf16) and on the plain
+    f32 route from the same state and batch: the first loss within 1e-2
+    relative and three steps' losses within 5e-2 of each other; K1, T-x,
+    T-w and the L pair launched by the kernel step; then the eval logits
+    of a 96^3 volume with the kernels' parameters through the sliding
+    window (K1, K3, and K4 at 5 channels, one launch a chunk) within 3e-2
+    of the plain route's on the same parameters (mean|err|/std)."""
+    from anatomix_tpu_torch.kernels import conv_train as kt
+    from anatomix_tpu_torch.kernels import reshuffle as kr
+    from anatomix_tpu_torch.ops.sliding_window import (
+        compute_window_starts,
+        sliding_window_inference,
+    )
+    from anatomix_tpu_torch.segmentation import model as pm
+    from anatomix_tpu_torch.segmentation import train as ptr
+
+    rng = np.random.default_rng(0)
+
+    def blocks(shape):
+        """Labelled boxes on a noisy background: image (..., 1), labels."""
+        lab = np.zeros(shape, np.int64)
+        for c in range(1, 5):
+            for b in range(shape[0]):
+                o = rng.integers(0, shape[1] - 24, 3)
+                lab[b, o[0]:o[0] + 24, o[1]:o[1] + 24, o[2]:o[2] + 24] = c
+        img = lab[..., None] * 0.2 + rng.standard_normal(lab.shape + (1,))
+        return (torch.from_numpy(img.astype(np.float32)).to(cuda),
+                torch.from_numpy(lab).to(cuda))
+
+    x, y = blocks((2, 64, 64, 64))
+    vol, _ = blocks((1, 96, 96, 96))
+    chunks = -(-len(compute_window_starts((96,) * 3, (64,) * 3, 0.7)) // 4)
+    wrappers = (conv3x3x3_ndhwc, kt.conv3x3x3_dgrad_ndhwc,
+                kt.conv3x3x3_wgrad_ndhwc, kr.space_to_depth2_ndhwc,
+                kr.depth_to_space2_ndhwc)
+    losses = {}
+    for plain in (False, True):
+        plan, params = pm.load_seg_model(4, ckpt_path="scratch",
+                                         device=cuda)
+        step = ptr.build_seg_train_step(
+            plan, ptr.make_seg_optimizer(params, 1e-3), plain=plain)
+        n = [w.launches for w in wrappers]
+        losses[plain] = [float(step(params, x, y)) for _ in range(3)]
+        if plain:
+            continue
+        assert all(w.launches > k for w, k in zip(wrappers, n))
+        # the kernels' parameters through the fused forward and the plain
+        # route; the stitch runs K4 on both
+        k4 = blend_scatter.launches
+        logits = {p: sliding_window_inference(
+            vol, pm.make_seg_predictor(plan, params, plain=p), 5,
+            roi_size=(64,) * 3, sw_batch_size=4, overlap=0.7,
+            mode="constant") for p in (False, True)}
+        assert blend_scatter.launches == k4 + 2 * chunks
+    assert abs(losses[False][0] - losses[True][0]) <= 1e-2 * losses[True][0]
+    for k, p in zip(losses[False], losses[True]):
+        assert abs(k - p) <= 5e-2 * p, losses
+    ref = logits[True]
+    err = ((logits[False] - ref).abs().mean() / ref.std()).item()
+    assert torch.isfinite(logits[False]).all() and err < 3e-2, err

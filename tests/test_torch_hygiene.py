@@ -112,6 +112,82 @@ def test_registration_raises_without_cuda(monkeypatch, tmp_path):
         register_pair(None, None, None, None)
 
 
+def test_segmentation_convert_cli_and_synthgen_import_no_jax():
+    """The segmentation package, `models/convert_cli` and `synthgen` are in
+    the walk above; importing them loads nothing of JAX, optax, the JAX
+    package or h5py (step 3 imports it when it runs)."""
+    import pkgutil
+
+    import anatomix_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(
+        anatomix_tpu_torch.__path__, "anatomix_tpu_torch.")}
+    want = {f"anatomix_tpu_torch.segmentation.{m}" for m in (
+        "data", "losses", "model", "transforms", "train")}
+    want |= {f"anatomix_tpu_torch.synthgen.{m}" for m in (
+        "core", "transforms_np", "pipeline")}
+    assert want | {"anatomix_tpu_torch.models.convert_cli"} <= names
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    code = ("import sys, anatomix_tpu_torch as p\n"
+            "s, g = p.segmentation, p.synthgen\n"
+            "import anatomix_tpu_torch.segmentation.train\n"
+            "import anatomix_tpu_torch.models.convert_cli\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'optax', 'flax', 'anatomix_tpu', 'h5py')))\n"
+            "print(len(s.__all__), len(g.__all__))")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=ROOT, env=env, timeout=120, check=True,
+    ).stdout.splitlines()
+    assert out == ["[]", "13 23"]
+
+
+def test_segmentation_raises_without_cuda(monkeypatch, tmp_path):
+    """`load_seg_model` and the finetuning CLI default to the card: with
+    none they raise `resolve_device`'s error before reading or writing
+    anything (the checkpoint and the dataset here do not exist)."""
+    from anatomix_tpu_torch.segmentation.model import load_seg_model
+    from anatomix_tpu_torch.segmentation.train import build_parser, main
+
+    argv = ["--exp_name", "x", "--dataset", str(tmp_path / "missing"),
+            "--n_classes", "2", "--pretrained_ckpt",
+            str(tmp_path / "missing.pth")]
+    assert build_parser().parse_args(argv).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_seg_model(2, ckpt_path=str(tmp_path / "missing.pth"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(build_parser().parse_args(argv))
+    assert not (tmp_path / "finetuning_runs").exists()
+
+
+def test_primus_raises_without_cuda(monkeypatch):
+    """`Primus` and `Primus.from_state_dict` default to the card and raise
+    without one, as `resolve_device` does; a device the caller names
+    passes as given (the CPU, and `meta`, which `resolve_device` would
+    refuse)."""
+    from anatomix_tpu_torch.models.vit3d import (
+        Primus,
+        PrimusConfig,
+        init_primus_params,
+    )
+
+    cfg = PrimusConfig(embed_dim=16, eva_depth=1, eva_numheads=2,
+                       input_shape=(16, 16, 16), num_register_tokens=1,
+                       tokenizer_base_features=4)
+    sd = init_primus_params(cfg, torch.Generator().manual_seed(0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Primus.from_state_dict(cfg, sd)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Primus(cfg)
+    model = Primus.from_state_dict(cfg, sd, device="cpu")
+    assert model.pos_embed.device.type == "cpu"
+    assert Primus(cfg, device="meta").pos_embed.device.type == "meta"
+
+
 def test_load_from_hf_at_the_top_level():
     """`anatomix_tpu_torch.load_from_hf` is `models.load.load_from_hf`, as
     the JAX package re-exports its own."""

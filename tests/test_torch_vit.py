@@ -103,7 +103,7 @@ def test_tokenizer_matches_jax(base):
     (Pallas K1, V2, D1 in interpret mode)."""
     jcfg, params, cfg, sd = _models(tokenizer_base_features=base)
     x = _randn(1, (1, 32, 32, 32, 1), 0.3, 0.5)
-    model = Primus.from_state_dict(cfg, sd)
+    model = Primus.from_state_dict(cfg, sd, device="cpu")
     with torch.no_grad():
         got = model._tokenizer(torch.from_numpy(x), model._pack(torch.float32),
                                _PLAIN, torch.float32)
@@ -127,7 +127,7 @@ def test_decoder_matches_jax(out_norm):
     jcfg, params, cfg, sd = _models(out_norm=out_norm)
     grid = _randn(2, (2, 2, 2, 2, 64))
     dec = jax.tree_util.tree_map(jnp.asarray, params["decoder"])
-    model = Primus.from_state_dict(cfg, sd)
+    model = Primus.from_state_dict(cfg, sd, device="cpu")
     with torch.no_grad():
         got = model._decoder(torch.from_numpy(grid),
                              model._pack(torch.float32), _PLAIN,
@@ -197,7 +197,7 @@ def test_stages_match_jax_on_smooth_input(small):
     bf16 bound at the exit."""
     jcfg, params, cfg, sd = small
     x = _smooth(8, (2, 32, 32, 32, 1))
-    model = Primus.from_state_dict(cfg, sd)
+    model = Primus.from_state_dict(cfg, sd, device="cpu")
     rec, rec_bf16 = {}, {}
     with torch.no_grad():
         got = model(torch.from_numpy(x), compute_dtype=torch.float32,

@@ -151,7 +151,8 @@ def _stage_decoder(out_norm):
             torch.from_numpy(b)))
         ch = co
     grid = rng.standard_normal((2, 4, 4, 4, 24)).astype(np.float32)
-    model = Primus(PrimusConfig(**dict(SMALL_V1, out_norm=out_norm)))
+    model = Primus(PrimusConfig(**dict(SMALL_V1, out_norm=out_norm)),
+                   device="cpu")
     return dec, {"dec": packs}, grid, model
 
 
@@ -214,7 +215,7 @@ def test_v1_tokenizer_is_the_strided_conv():
     for patch, ci in ((2, 1), (4, 2), (16, 1)):
         cfg = PrimusConfig(**dict(SMALL_V1, patch_embed_size=(patch,) * 3,
                                   input_channels=ci))
-        model = Primus(cfg)
+        model = Primus(cfg, device="cpu")
         torch.nn.init.normal_(model.tokenizer.proj.weight,
                               generator=torch.Generator().manual_seed(patch))
         x = torch.from_numpy(_randn(patch, (2, 32, 32, 32, ci)))
@@ -273,7 +274,7 @@ def test_vit_sliding_fold_route_matches_jax():
     assert len(calls) == 4 and calls[0] == (2, 16, 16, 16, 256)
     assert got.shape == (1, 48, 48, 48, 32)
     assert _rel(got, ref) < SLIDE_TOL
-    model = Primus.from_state_dict(cfg, sd)
+    model = Primus.from_state_dict(cfg, sd, device="cpu")
     with torch.inference_mode():
         block = sliding_window_inference(
             torch.from_numpy(vol), lambda w: model(
