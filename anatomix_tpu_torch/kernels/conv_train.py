@@ -156,14 +156,26 @@ class WgradPlan(NamedTuple):
         return (ctypes.c_int * len(self))(*self)
 
 
+# the longest run of 64-position bricks one block of the gather ring
+# reduces in its wgmma accumulator: that f32 accumulation's error grows
+# with the run. On the dev step's 128^3 convs, runs of 5462 and 1772
+# bricks read 1.6e-3 and 6e-4 of max |dW| from the plain version (NVIDIA
+# H100); the 6M and ViT paths' runs, up to 1024 bricks (the 6M
+# segmentation step's 64^3 96 -> 32 at batch 3), stay under 5.5e-4.
+# Longer grids take more splits, added in by the f32 atomics; no plan of
+# the 6M and ViT paths reaches the cap.
+WGRAD_MAX_RUN = 1024
+
+
 def wgrad_plan(B: int, grid, ci: int, co: int, stride: int = 1
                ) -> WgradPlan:
     """The launch plan of `csrc/conv3d_wgrad.cu` for dy's (B, gz, gy, gx)
     grid: the positions are split over as many blocks as fill every SM
     once (each dW tile's blocks reduce disjoint runs of bricks, at least 4
-    each), whatever the grid's size. A narrow stride-1 conv (each
-    warpgroup's share of dW's 64-row tiles at most 11 at Co <= 16, 4 at
-    Co <= 32) takes the halo-brick kernel."""
+    each), whatever the grid's size, and into runs of at most
+    `WGRAD_MAX_RUN` bricks. A narrow stride-1 conv (each warpgroup's share
+    of dW's 64-row tiles at most 11 at Co <= 16, 4 at Co <= 32) takes the
+    halo-brick kernel."""
     bn = n_tile(co)
     gz, gy, gx = grid
     cp = _cdiv(ci, 8) * 8
@@ -187,7 +199,7 @@ def wgrad_plan(B: int, grid, ci: int, co: int, stride: int = 1
     stage = TILE_M * STEP_K * 2 + STEP_K * bn * 2
     per_sm = max(1, SMEM_PER_SM // (RING_STAGES * stage))
     splits = max(1, min(NUM_SMS * per_sm // (m_tiles * n_tiles),
-                        n_bricks // 4))
+                        n_bricks // 4), _cdiv(n_bricks, WGRAD_MAX_RUN))
     per_split = _cdiv(n_bricks, splits)
     return WgradPlan(bn, bx, by, bz, bb, *tiles, m_tiles, n_tiles,
                      _cdiv(n_bricks, per_split), per_split)
@@ -505,9 +517,11 @@ def conv3x3x3_dgrad_ndhwc(
         dx = torch.empty((B, D, H, W, ci), dtype=torch.bfloat16,
                          device=dy.device)
         plan = conv_plan(B, (d, h, w), co, ci, mode=MODE_S2_DGRAD)
+        # held until the launch is enqueued (see `_dgrad_launch`)
+        w_t = transpose_packed(w_packed, ci)
+        bias = _zero_bias(ci, dy.device)
         rc = _fn("conv3x3x3_dgrad_s2_ndhwc")(
-            dy.data_ptr(), transpose_packed(w_packed, ci).data_ptr(),
-            _zero_bias(ci, dy.device).data_ptr(), dx.data_ptr(),
+            dy.data_ptr(), w_t.data_ptr(), bias.data_ptr(), dx.data_ptr(),
             plan.as_c(), B, d, h, w, D, H, W, co, ci,
             torch.cuda.current_stream(dy.device).cuda_stream,
         )
@@ -555,9 +569,14 @@ def _dgrad_launch(dy, w_packed, ci, g_ext):
     grid = (D + 2, H + 2, W + 2) if reflect else (D, H, W)
     plan = conv_plan(B, grid, co, ci)
     ws = workspace(plan, B * grid[0] * grid[1] * grid[2], ci, dy.device)
+    # the flipped weights are held until the launch is enqueued: a tensor
+    # freed before it (a temporary whose pointer alone is passed) gives its
+    # memory to the next allocation on the stream, and the first call's
+    # `_zero_bias` filled it with zeros ahead of the kernel
+    w_t = flip_transpose_packed(w_packed, ci)
+    bias = _zero_bias(ci, dy.device)
     rc = _fn("conv3x3x3_dgrad_ndhwc")(
-        dy.data_ptr(), flip_transpose_packed(w_packed, ci).data_ptr(),
-        _zero_bias(ci, dy.device).data_ptr(),
+        dy.data_ptr(), w_t.data_ptr(), bias.data_ptr(),
         g_ext.data_ptr() if reflect else None, dx.data_ptr(),
         ws.data_ptr() if ws is not None else None, plan.as_c(), B, D, H, W,
         co, ci, int(reflect), torch.cuda.current_stream(dy.device).cuda_stream,

@@ -43,7 +43,6 @@ from anatomix_tpu_torch.models.unet import (
     build_plan,
     check_supported,
 )
-from anatomix_tpu_torch.models.unet_train_block import train_block_eligible
 from anatomix_tpu_torch.models.vit3d.primus import PrimusConfig
 from anatomix_tpu_torch.models.vit3d.primus_train import \
     check_train_supported as check_primus_supported
@@ -99,10 +98,6 @@ def build_all(cfg: PretrainConfig, steps_per_epoch: int, *,
             interp=cfg.interp_type, norm_eps=cfg.norm_eps_G,
         ))
         check_supported(plan.config)
-        if not train_block_eligible(plan):
-            raise NotImplementedError(
-                "the port's pretraining step covers batch norm, Max pool, "
-                "nearest upsampling and reflect padding")
         taps = cfg.tap_layers()
     elif cfg.netG == "primus":
         # the 26M ViT at the crop size (`anatomix_tpu/pretraining/train.py`)

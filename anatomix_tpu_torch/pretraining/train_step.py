@@ -14,8 +14,11 @@ decoupled decay `lr * wd * p`), on the trainable leaves only; batch-norm
 running stats and frozen layers get a hard zero update; `MultiSteps`
 averages `grad_accum` gradients before an update. The step runs eagerly;
 convs of the UNet run on the conv kernels and their backward kernels
-(`kernels/conv_train.py`), in bf16 with f32 accumulation; batch norm, the
-projector, the loss and the optimizer in f32. The ViT (`plan` a
+(`kernels/conv_train.py`), in bf16 with f32 accumulation (a live instance
+norm's convs on the three-term split); the norms, the projector, the loss
+and the optimizer in f32. The 6M family takes the block walk
+(`models/unet_train_block.py`), every other UNet the general walk
+(`models/unet_train.py`). The ViT (`plan` a
 `PrimusConfig`) runs `models/vit3d/primus_train.primus_train_apply`: its
 convs and attention on the kernels and their backward kernels, the rest in
 f32; every ViT leaf is trainable.
@@ -36,10 +39,7 @@ import torch
 
 from anatomix_tpu_torch.device import resolve_device
 from anatomix_tpu_torch.models.unet import UnetPlan, init_params
-from anatomix_tpu_torch.models.unet_train_block import (
-    train_block_eligible,
-    unet_apply_train_block,
-)
+from anatomix_tpu_torch.models.unet_train import unet_train_forward
 from anatomix_tpu_torch.models.vit3d.primus import (
     PrimusConfig,
     init_primus_params,
@@ -293,20 +293,20 @@ class NCEOptions:
 
 def _backbone_forward(plan, params_g, x, tap_layers, train, compute_dtype,
                       eval_norm_layers, plain):
-    """`(taps, new_g_stats)`: the UNet's train walk, or the ViT's output
+    """`(taps, new_g_stats)`: the UNet's train walk (the 6M family's block
+    walk, or the general walk for every other UNet), or the ViT's output
     volume as its single tap (the JAX package's `_backbone_forward`)."""
     if isinstance(plan, PrimusConfig):
         return [primus_train_apply(plan, params_g, x,
                                    compute_dtype=compute_dtype,
                                    plain=plain)], {}
-    if not isinstance(plan, UnetPlan) or not train_block_eligible(plan):
+    if not isinstance(plan, UnetPlan):
         raise NotImplementedError(
-            "the port's pretraining step covers the anatomix UNet family "
-            "(batch norm, Max pool, nearest, reflect) and the Primus ViT")
+            "the port's pretraining step covers the UNets and the Primus ViT")
     if not train:
         eval_norm_layers = [i for i, s in enumerate(plan.layers)
                             if s.kind == "norm"]
-    _, taps, new_g_stats = unet_apply_train_block(
+    _, taps, new_g_stats = unet_train_forward(
         plan, params_g, x, layers=tap_layers,
         eval_norm_layers=eval_norm_layers, compute_dtype=compute_dtype,
         plain=plain,

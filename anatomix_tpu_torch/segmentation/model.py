@@ -12,15 +12,23 @@ backbone's reference-keyed float leaves (`model.<idx>.weight`, ...,
 weight (n_classes + 1, C, 1, 1, 1). The head is an f32 matmul outside any
 kernel, as JAX computes it as an `einsum` outside any Pallas kernel.
 
-`seg_forward(train=True)` runs the train walk of `models/
-unet_train_block.py` (K1 forward, T-x / T-w backward, the L permutations
-for the pools and upsamples) in bf16 on the card, or its f32 plain path
-(`plain=True`, the default on the CPU). The eval forward
-(`make_seg_predictor`) folds the batch norms into the convs and packs
-them for the fused forward (K1, K3) on the card, or runs the eager f32
+`seg_forward(train=True)` runs the train walk in bf16 on the card, or its
+f32 plain path (`plain=True`, the default on the CPU): for the 6M family
+the block walk of `models/unet_train_block.py` (K1 forward, T-x / T-w
+backward, the L permutations for the pools and upsamples), for every other
+UNet (the `anatomix-dev` backbone's instance norms, Avg pool and trilinear
+decoder) the general walk of `models/unet_train.py` (K1 forward on the
+three-term split under a live norm, T-x / T-w backward). The eval forward
+(`make_seg_predictor`) folds the batch norms into the convs and packs them
+for the fused forward (K1, K3; a live-norm backbone packs its unfolded
+plan: K1, D1, D2, D3 and the split) on the card, or runs the eager f32
 `Unet` (`plain=True`, the default on the CPU). The pack is built from the
 parameters at the call that makes the predictor: after training steps,
 make a new one.
+
+A `--pretrained_ckpt` backbone is built with `norm_eps` 1e-5 whatever its
+norm (the reference's default, which the JAX package copies), a registry
+variant with its own (1e-2 for `anatomix-dev`): ROADMAP fault F8.
 """
 
 from __future__ import annotations
@@ -36,15 +44,12 @@ from anatomix_tpu_torch.extract import fold_batchnorm
 from anatomix_tpu_torch.models.convert import from_jax_params, to_jax_params
 from anatomix_tpu_torch.models.load import load_from_hf, load_model
 from anatomix_tpu_torch.models.registry import ANATOMIX_VARIANTS
-from anatomix_tpu_torch.models.unet import Unet, UnetPlan
+from anatomix_tpu_torch.models.unet import Unet, UnetPlan, check_supported
 from anatomix_tpu_torch.models.unet_fused import (
     prepack_fused,
     unet_apply_fused,
 )
-from anatomix_tpu_torch.models.unet_train_block import (
-    train_block_eligible,
-    unet_apply_train_block,
-)
+from anatomix_tpu_torch.models.unet_train import unet_train_forward
 
 
 def init_head(generator: torch.Generator, feat_channels: int,
@@ -122,15 +127,13 @@ def load_seg_model(
 
 
 def check_trainable(plan) -> None:
-    """Raise `NotImplementedError` for a backbone the train walk does not
-    cover (the `anatomix-dev` UNet's instance norms, Avg pool and trilinear
-    decoder, or other UNet options)."""
-    if not isinstance(plan, UnetPlan) or not train_block_eligible(plan):
-        raise NotImplementedError(
-            "finetuning covers the anatomix UNet family (batch norm, Max "
-            "pool, nearest upsampling, reflect padding); other backbones "
-            "arrive with the remaining UNet options (ROADMAP Queue 1 item "
-            "15)")
+    """Raise for a backbone the train walks do not cover: a ViT plan
+    (`ValueError`), or UNet options the port does not run
+    (`NotImplementedError` naming the ROADMAP item, from
+    `models.unet.check_supported`)."""
+    if not isinstance(plan, UnetPlan):
+        raise ValueError("segmentation finetunes the UNet backbones")
+    check_supported(plan.config)
 
 
 def make_seg_predictor(plan: UnetPlan, params: dict[str, Any], *,
@@ -181,7 +184,8 @@ def seg_forward(
     """Backbone features -> class logits (f32) of `x` (B, D, H, W, 1). With
     `train=True` returns `(logits, new_stats)`, batch norm on the batch's
     statistics and `new_stats[str(idx)] = (running_mean, running_var)`
-    updated (momentum 0.1, unbiased variance): the train walk on the
+    updated (momentum 0.1, unbiased variance; empty for instance norms):
+    the train walk on the
     kernels in `compute_dtype` (default bf16 on the card, f32 on the CPU,
     where the kernel wrappers run their plain versions), or with
     `plain=True` (the default off the card) in f32 with `F.conv3d` under
@@ -191,7 +195,7 @@ def seg_forward(
         return make_seg_predictor(plan, params, compute_dtype=compute_dtype,
                                   plain=plain)(x)
     check_trainable(plan)
-    feats, _, new_stats = unet_apply_train_block(
+    feats, _, new_stats = unet_train_forward(
         plan, params["backbone"], x, layers=(),
         compute_dtype=compute_dtype or (
             torch.bfloat16 if x.device.type == "cuda" else torch.float32),

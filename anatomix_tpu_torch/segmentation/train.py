@@ -124,7 +124,8 @@ def build_seg_train_step(plan, optimizer: torch.optim.Adam,
     (a 0-d tensor): one update of `params` in place by `optimizer` (made by
     `make_seg_optimizer` on these parameters), at `schedule(count)` when a
     schedule is given; the running stats are then replaced by the step's.
-    Raises `NotImplementedError` for a backbone outside the train walk."""
+    Raises for a backbone the train walks do not cover
+    (`model.check_trainable`)."""
     check_trainable(plan)
 
     def step(params, images, labels):

@@ -51,6 +51,17 @@ Phases, each printed on its own lines; any failure exits non-zero:
      against its plain version (whole, and on the reflect shell alone),
      and the end-to-end dW beside the floor a bf16 rounding of the views
      sets, on three batches;
+  7b. the 94M dev UNet's pretraining step (`[dev-train-step128]`:
+     `PretrainConfig` at the `anatomix-dev` options, ngf 32, num_downs 5,
+     instance norm eps 1e-2, Avg pool, trilinear, taps 34, 38, 45, 52,
+     59, 79; crop 128^3, the two views as batch 2, 512 patches, netF
+     256x3, AdamW) with seeded weights on `[train-step128]`'s batch: five
+     steps through `build_all` -> `step` on the general train walk (K1 on
+     the three-term split, T-x with the shell pass, T-w);
+     `dev_pretrain_step_seconds_128crop`, the peak memory; the first loss,
+     every conv's dW and every backward launch against the plain
+     versions, as in phase 7; the output volume on a smooth and a noisy
+     batch to the two-part rule;
   8. the 26M ViT's pretraining step (`[vit-train-step128]`,
      `PretrainConfig(netG="primus")`: the ViT at full width and depth,
      crop 128^3, the two views as batch 2, its single tap, 512 patches,
@@ -103,7 +114,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
      after training against the plain route on the same parameters (the
      two-part rule, Dice within 0.02), and learning on both routes;
      `[segmentation-cli]`, the CLI for 2 epochs of 4 steps with validation
-     and checkpoints;
+     and checkpoints; then the 94M dev backbone (`[dev-segmentation]`,
+     loaded through `hf_variant="anatomix-dev"` from a seeded local
+     `.pth`: eps 1e-2): `dev_segmentation_val_seconds_256` (K1, D1, D2,
+     D3, K4), 10 steps at the CLI's defaults on the general train walk,
+     `dev_segmentation_step_seconds_128crop`, the first four losses
+     against the f32 plain route's bf16-image spread, the validation
+     logits at 160^3 to the two-part rule; `[dev-segmentation-cli]`, the
+     CLI with `--hf_variant anatomix-dev` for one epoch of 4 steps;
  12. the `kernels` JSON line (launches on each path, errors, times and
      bounds), then the device's JSON line last.
 
@@ -122,8 +140,13 @@ one ViT pretraining step at 128^3, one step of the 6M trainer loop
 (host time by `record_function` range), the registration solver at
 192^3 (its busy share, top device operations, and host time by `reg/*`
 range) and one segmentation step and one 256^3 validation (the same, by
-`seg/*` range) with torch.profiler; `--segmentation` runs phase 1 and
-then phase 11 alone; `--dgrad-split`
+`seg/*` range) with torch.profiler, and one dev pretraining step, one
+dev finetuning step and one dev 256^3 validation;
+`--segmentation` runs phase 1 and then phase 11's 6M part alone;
+`--dev-train`
+runs phase 1, the backward kernels at the dev widths, then phase 7b and
+phase 11's dev part alone (with `--profile`: the dev profiles alone);
+`--dgrad-split`
 runs phase 1, then times the 6M step's 19 reflect input gradients apart
 into conv, fold and glue, and the step itself in rounds
 (`run_dgrad_split`; it reads only the dgrad wrapper and the step's entry
@@ -1556,16 +1579,48 @@ def main(argv) -> int:
     }
 
     if "--segmentation" in argv:
-        # phase 1, then phase 11 alone
+        # phase 1, then phase 11's 6M part alone (`--dev-train` runs the
+        # dev part)
         kwargs = ANATOMIX_VARIANTS["anatomix"]["unet_kwargs"]
         splan = build_plan(UnetConfig(**kwargs))
         paths = {}
-        report["segmentation"], report["segmentation_cli"] = \
-            run_segmentation_phases(torch, dev, wrappers, paths, kt, splan)
+        report.update(run_segmentation_phases(torch, dev, wrappers, paths,
+                                              kt, splan, dev_backbone=False))
         report["paths"] = paths
         out_dir = os.path.join(ROOT, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_segmentation.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        return 0
+
+    if "--dev-train" in argv:
+        # phase 1, the dev widths' backward kernels, then the dev training
+        # phases alone (phase 7b and phase 11's dev part)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        checks = dev_backward_checks(kt, torch, F, dev, gen)
+        failed = log_kernel_rows(checks)
+        if failed:
+            raise RuntimeError(f"kernel disagrees with its plain version: "
+                               f"{failed}")
+        report["checks"] = checks
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        if "--profile" in argv:
+            # the dev step, one dev finetuning step and one validation
+            report["profile_dev_train"] = profile_train(torch, dev, out_dir,
+                                                        netG="dev")
+            report["profile_dev_segmentation"] = profile_dev_segmentation(
+                torch, dev, out_dir)
+            with open(os.path.join(out_dir, "chip_dev_profile.json"),
+                      "w") as f:
+                json.dump(report, f, indent=1)
+            return 0
+        paths = {}
+        report["dev_train"] = run_dev_train(torch, dev, wrappers, paths, kt)
+        report.update(run_segmentation_phases(
+            torch, dev, wrappers, paths, kt, None, six_m=False))
+        report["paths"] = paths
+        with open(os.path.join(out_dir, "chip_dev_train.json"), "w") as f:
             json.dump(report, f, indent=1)
         return 0
 
@@ -1708,23 +1763,10 @@ def main(argv) -> int:
     for dtype in (torch.float32, torch.bfloat16):
         checks["space_to_depth_c1_ndhwc"].append(check_c1(
             kr8, torch, dev, gen, 2, 128, dtype))
-    failed = []
-    for name, rows in checks.items():
-        for row in rows:
-            log(f"[kernel] {name} {row['shape']}: max_abs_err "
-                f"{row['max_abs_err']:.3e} rel {row['rel_err']:.3e} "
-                f"(tol {row['tol']:g}) ms {row['ms']:.4f} plain_ms "
-                f"{row['plain_ms']:.4f} library_ms {row['library_ms']} "
-                f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})"
-                + (f"; plan: {row['plan']}" if "plan" in row else "")
-                + (f"; reflect split: conv {row['conv_ms']:.4f} + fold "
-                   f"{row['fold_ms']:.4f} ms (fold library_ms "
-                   f"{row['fold_library_ms']:.4f}), shell-only rel "
-                   f"{row['shell_rel_err']:.3e}, two launches max|diff| "
-                   f"{row['repeat_max_abs_diff']}" if "conv_ms" in row
-                   else ""))
-            if not row["ok"]:
-                failed.append(f"{name} {row['shape']}")
+    # the dev pretraining step's and dev finetuning's backward widths
+    for name, rows in dev_backward_checks(kt, torch, F, dev, gen).items():
+        checks[name] += rows
+    failed = log_kernel_rows(checks)
     report["checks"] = checks
     failed += check_attention_ragged(ka, torch, dev, gen)
     # the forward conv stays the same bits from run to run (split K sums
@@ -1789,6 +1831,8 @@ def main(argv) -> int:
         report["profile_train"] = profile_train(torch, dev, out_dir)
         report["profile_vit_train"] = profile_train(torch, dev, out_dir,
                                                     netG="primus")
+        report["profile_dev_train"] = profile_train(torch, dev, out_dir,
+                                                    netG="dev")
         report["profile_train_loop"] = profile_train_loop(
             torch, dev, out_dir, loop_data(torch, dev))
         report["profile_registration"] = profile_registration(
@@ -1800,6 +1844,8 @@ def main(argv) -> int:
                 torch, dev, out_dir,
                 seeded_pth(torch, plan, os.path.join(tmp, "seed0.pth")),
                 seg_dataset(os.path.join(tmp, "data")))
+        report["profile_dev_segmentation"] = profile_dev_segmentation(
+            torch, dev, out_dir)
         with open(os.path.join(out_dir, "chip_profile.json"), "w") as f:
             json.dump(report, f, indent=1)
         return 0
@@ -1907,6 +1953,9 @@ def main(argv) -> int:
     # phase 7: the 6M pretraining step at the reference configuration
     report["train"] = run_train(torch, dev, wrappers, paths, kt)
 
+    # phase 7b: the 94M dev UNet's pretraining step (the general walk)
+    report["dev_train"] = run_dev_train(torch, dev, wrappers, paths, kt)
+
     # phase 8: the 26M ViT's pretraining step
     report["vit_train"] = run_vit_train(torch, dev, wrappers, paths, ka)
 
@@ -1936,10 +1985,11 @@ def main(argv) -> int:
     del rsd, pair
     torch.cuda.empty_cache()
 
-    # phase 11: few-shot segmentation finetuning (the step, validation,
-    # the gate against the plain route, the CLI)
-    report["segmentation"], report["segmentation_cli"] = \
-        run_segmentation_phases(torch, dev, wrappers, paths, kt, plan)
+    # phase 11: few-shot segmentation finetuning of the 6M and the dev
+    # backbone (the step, validation, the gate against the plain route, the
+    # CLI)
+    report.update(run_segmentation_phases(torch, dev, wrappers, paths, kt,
+                                          plan))
     for name in wrappers:
         log(f"[launches] {name}: " + ", ".join(
             f"{p} {v[name]}" for p, v in paths.items()))
@@ -2502,15 +2552,18 @@ def train_batch(torch, dev, S: int, seed: int = 12, noisy: bool = False):
 
 def profile_train(torch, dev, out_dir, netG="unet"):
     """Kernel time by name and the device's busy share over one pretraining
-    step at `PretrainConfig(netG=netG)`, from torch.profiler."""
+    step at `PretrainConfig(netG=netG)` (`netG="dev"`: the dev UNet's
+    `dev_pretrain_config()`), from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from anatomix_tpu_torch.pretraining.config import PretrainConfig
     from anatomix_tpu_torch.pretraining.train import build_all
 
-    cfg = PretrainConfig(netG=netG)
-    tag = "train_step128" if netG == "unet" else "vit_train_step128"
+    cfg = (dev_pretrain_config() if netG == "dev"
+           else PretrainConfig(netG=netG))
+    tag = {"unet": "train_step128", "primus": "vit_train_step128",
+           "dev": "dev_train_step128"}[netG]
     _, _, state, step = build_all(cfg, 1000, device=dev)
     views, segs = train_batch(torch, dev, cfg.crop_size)
     sampler = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa
@@ -2746,6 +2799,219 @@ def run_train(torch, dev, wrappers, paths, kt):
     return dict(losses=losses, step_ms=step_ms, median_step_ms=med_ms,
                 peak_gib=peak, launches_per_step=c, loss_rel=loss_rel,
                 labels=n_labels, first_step=main, other_batches=others)
+
+
+# the dev pretraining step: the 94M `anatomix-dev` UNet's options with the
+# 6M default's tap roles (the last encoder conv before the bottleneck, the
+# bottleneck's first conv, the first conv of three decoder levels, the
+# output conv) on the dev plan
+DEV_TAPS = (34, 38, 45, 52, 59, 79)
+
+
+def dev_pretrain_config():
+    """`PretrainConfig` at the `anatomix-dev` UNet's published options
+    (registry: ngf 32, num_downs 5, output 32, instance norm eps 1e-2, Avg
+    pool, trilinear), the launcher's other defaults (crop 128, 512
+    patches, netF 256x3, AdamW 2e-4)."""
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+
+    return PretrainConfig(ngf=32, num_downs=5, output_nc=32,
+                          normG="instance", norm_eps_G=1e-2,
+                          pool_type="Avg", interp_type="trilinear",
+                          nce_layers=DEV_TAPS)
+
+
+def dev_backward_checks(kt, torch, F, dev, gen) -> dict:
+    """T-w, T-x and the reflect shell pass at the dev step's widths (crop
+    128, the two views as batch 2): the entry conv (wgrad only), the
+    full-resolution conv and its decoder concat, the 8^3 level and the
+    first decoder conv after the concat (1536 -> 512, whose dgrad writes
+    1536 channels), the 4^3 bottleneck (512 -> 1024, 1024 -> 1024); the
+    shell at 4^3, where it holds most of the volume, and at 8^3."""
+    rows = {"conv3x3x3_wgrad_ndhwc": [], "conv3x3x3_dgrad_ndhwc": [],
+            "reflect_shell_ndhwc": []}
+    for B, S, ci, co in [(2, 128, 1, 32), (2, 128, 32, 32), (2, 128, 96, 32),
+                         (2, 8, 512, 512), (2, 8, 1536, 512),
+                         (2, 4, 512, 1024), (2, 4, 1024, 1024)]:
+        for which in ("wgrad", "dgrad"):
+            if which == "dgrad" and ci == 1:
+                continue
+            rows[f"conv3x3x3_{which}_ndhwc"].append(check_conv_backward(
+                kt, torch, F, dev, gen, B, S, ci, co, which))
+    for B, S, C in [(2, 4, 512), (2, 4, 1024), (2, 8, 1536)]:
+        rows["reflect_shell_ndhwc"].append(
+            check_reflect_shell(kt, torch, dev, gen, B, S, C))
+    return rows
+
+
+def log_kernel_rows(checks) -> list[str]:
+    """Print each kernel row; the names of the rows that failed."""
+    failed = []
+    for name, rows in checks.items():
+        for row in rows:
+            log(f"[kernel] {name} {row['shape']}: max_abs_err "
+                f"{row['max_abs_err']:.3e} rel {row['rel_err']:.3e} "
+                f"(tol {row['tol']:g}) ms {row['ms']:.4f} plain_ms "
+                f"{row['plain_ms']:.4f} library_ms {row['library_ms']} "
+                f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']})"
+                + (f"; plan: {row['plan']}" if "plan" in row else "")
+                + (f"; reflect split: conv {row['conv_ms']:.4f} + fold "
+                   f"{row['fold_ms']:.4f} ms (fold library_ms "
+                   f"{row['fold_library_ms']:.4f}), shell-only rel "
+                   f"{row['shell_rel_err']:.3e}, two launches max|diff| "
+                   f"{row['repeat_max_abs_diff']}" if "conv_ms" in row
+                   else ""))
+            if not row["ok"]:
+                failed.append(f"{name} {row['shape']}")
+    return failed
+
+
+def dev_forward_check(torch, dev, plan, params, batches) -> dict:
+    """The dev train walk's output volume (no grad) on the kernels (the
+    convs on the three-term split) and the plain walk run in bf16 (bf16
+    convs under autocast, f32 norms), each against the f32 plain walk, on
+    each batch ((1, 2, S^3, 1) views, run as batch 2)."""
+    from anatomix_tpu_torch.models.unet_train import unet_apply_train
+
+    out = {}
+    with torch.no_grad():
+        for name, views in batches.items():
+            x = torch.cat([views[:, 0], views[:, 1]], dim=0)
+            ref = unet_apply_train(plan, params, x, plain=True)[0]
+            got = unet_apply_train(plan, params, x)[0]
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                ref_b = unet_apply_train(plan, params, x, plain=True)[0]
+            out[name] = dict(kernels=model_err(got, ref),
+                             plain_bf16=model_err(ref_b, ref))
+            del ref, got, ref_b
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_dev_train(torch, dev, wrappers, paths, kt):
+    """`[dev-train-step128]`: the 94M dev UNet's pretraining step at
+    `dev_pretrain_config()` (full width and depth, crop 128^3, the two
+    views as batch 2, 512 patches, netF 256x3, AdamW 2e-4) with seeded
+    weights on `[train-step128]`'s seeded batch: five steps through
+    `build_all` -> `step` (the general train walk: K1 on the three-term
+    split, T-x with the reflect shell pass, T-w);
+    `dev_pretrain_step_seconds_128crop` the median CUDA-event time of steps
+    2-5, the peak memory of the first step; then the first step's loss and
+    every conv's dW against the plain paths (`train_dw_check`), every
+    dgrad and wgrad launch against its plain version on the step's own
+    tensors, and the output volume on a smooth and a noisy batch to the
+    two-part rule."""
+    from anatomix_tpu_torch.pretraining.train import build_all
+    from anatomix_tpu_torch.pretraining.train_step import NCEOptions
+
+    cfg = dev_pretrain_config()
+    plan, taps, state0, step = build_all(cfg, 1000, device=dev)
+    S = cfg.crop_size
+    views, segs = train_batch(torch, dev, S)
+    n_conv = len(plan.conv_indices)
+    log(f"[dev-train-step128] anatomix-dev options: ngf {cfg.ngf}, "
+        f"num_downs {cfg.num_downs}, {cfg.normG} eps {cfg.norm_eps_G}, "
+        f"{cfg.pool_type} pool, {cfg.interp_type}; crop {S}^3 x batch "
+        f"{cfg.batch_size} (2 views), taps {taps} "
+        f"({plan.tap_channels(taps)} ch), {cfg.num_patches} patches, netF "
+        f"{cfg.netF_nc}x{cfg.n_mlps}, {n_conv} convs, "
+        f"{sum(v.numel() for v in state0.params_g.values())} G parameters")
+    sampler = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa
+
+    state = state0
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(5):
+        if i == 0:
+            reset_counts(wrappers)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, views, segs, sampler())
+        end.record()
+        torch.cuda.synchronize()
+        if i == 0:
+            c = paths["dev_train"] = counts(wrappers)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    med_ms = statistics.median(step_ms[1:])
+    log(f"[dev-train-step128] losses {losses}; step ms {step_ms}; "
+        f"dev_pretrain_step_seconds_128crop {med_ms / 1e3:.6f} (median of "
+        f"steps 2-5, CUDA events); peak {peak:.2f} GiB (the first step); "
+        f"launches per step {c}; {nvidia_smi()}")
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        raise RuntimeError(f"dev-train-step128: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"dev-train-step128: loss did not fall {losses}")
+    # every conv forward (on the split) and weight gradient, every dx but
+    # the entry conv's (a split store and a shell pass each); pools and
+    # upsamples are torch glue on the spatial grid
+    want = {k: 0 for k in wrappers}
+    want.update({"conv3x3x3_ndhwc": n_conv, "conv3x3x3_wgrad_ndhwc": n_conv,
+                 "conv3x3x3_dgrad_ndhwc": n_conv - 1,
+                 "reflect_shell_ndhwc": n_conv - 1})
+    if c != want:
+        raise RuntimeError(f"dev-train-step128: launches {c}, want {want}")
+    del state
+
+    kw = dict(tap_layers=taps, num_patches=cfg.num_patches,
+              nce=NCEOptions(temperature=cfg.nce_T))
+    main = train_dw_check(torch, kt, plan, state0, views, segs, sampler, kw)
+    loss_rel = abs(losses[0] - main["loss_plain"]) / abs(main["loss_plain"])
+    errs = main["launch_errs"]
+    log(f"[dev-train-step128] first loss {losses[0]:.6f} (nce_forward on the "
+        f"kernels {main['loss_kernels']!r}, with the plain conv backward "
+        f"{main['loss_same_forward']!r}) vs plain f32 path "
+        f"{main['loss_plain']:.6f}: rel {loss_rel:.3e} (tol "
+        f"{TOL_TRAIN_LOSS}); plain loss+grads {main['plain_seconds']:.4f} s")
+    log(f"[dev-train-step128] this step's {len(errs['wgrad'])} wgrad and "
+        f"{len(errs['dgrad'])} dgrad launches vs their plain versions on the "
+        f"same tensors: max rel {max(errs['wgrad']):.3e} (tol {TOL_WGRAD}), "
+        f"{max(errs['dgrad']):.3e} (tol {TOL_CONV_BF16}); dgrad on the "
+        f"reflect shell alone {max(errs['dgrad_shell']):.3e} (tol "
+        f"{TOL_CONV_BF16})")
+    log(f"[dev-train-step128] dW mean|err|/std, the step's backward on the "
+        f"kernels vs the plain conv backward from the same forward (tol "
+        f"{TOL_TRAIN_DW}): {fmt_dw(main['dw_backward'])}")
+    log(f"[dev-train-step128] dW mean|err|/std end to end, the kernel path "
+        f"vs the plain f32 path: {fmt_dw(main['dw_end_to_end'])}")
+    log(f"[dev-train-step128] the plain f32 path on bf16-rounded views vs "
+        f"itself: {fmt_dw(main['dw_floor'])}")
+    if not loss_rel < TOL_TRAIN_LOSS:
+        raise RuntimeError(f"dev-train-step128: loss {losses[0]} vs "
+                           f"{main['loss_plain']}")
+    if (len(errs["wgrad"]), len(errs["dgrad"])) != (n_conv, n_conv - 1):
+        raise RuntimeError(f"dev-train-step128: recorded {errs}")
+    if not (max(errs["wgrad"]) < TOL_WGRAD
+            and max(errs["dgrad"]) < TOL_CONV_BF16
+            and max(errs["dgrad_shell"]) < TOL_CONV_BF16):
+        raise RuntimeError(f"dev-train-step128: kernel errors {errs}")
+    if not max(main["dw_backward"].values()) < TOL_TRAIN_DW:
+        raise RuntimeError(f"dev-train-step128: backward dW "
+                           f"{main['dw_backward']} over {TOL_TRAIN_DW}")
+    # the output volume on the step's smooth batch and on the noisy one
+    fwd = dev_forward_check(torch, dev, plan, state0.params_g, {
+        "smooth": views, "noisy": train_batch(torch, dev, S, noisy=True)[0]})
+    log("[dev-train-step128] output volume vs the f32 plain walk, mean"
+        "|err|/std (max/max): " + "; ".join(
+            f"{b} kernels {r['kernels']['mean_err_over_std']:.3e} "
+            f"({r['kernels']['max_err_over_max']:.3e}), plain walk in bf16 "
+            f"{r['plain_bf16']['mean_err_over_std']:.3e}"
+            for b, r in fwd.items())
+        + f" (tol {TOL_MODEL} and {TOL_VS_BF16_PLAIN}x the plain walk in "
+        f"bf16 + {TOL_VS_BF16_PLAIN_ABS})")
+    for b, r in fwd.items():
+        two_part_gate(f"dev-train-step128 output, {b} batch",
+                      r["kernels"]["mean_err_over_std"],
+                      r["plain_bf16"]["mean_err_over_std"])
+    del state0
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=step_ms, median_step_ms=med_ms,
+                dev_pretrain_step_seconds_128crop=med_ms / 1e3,
+                peak_gib=peak, launches_per_step=c, loss_rel=loss_rel,
+                first_step=main, forward=fwd)
 
 
 def attention_grad_check(torch, ka, cfg, state0, views, segs, sampler, kw):
@@ -3417,9 +3683,9 @@ REG_BENCH_KW = dict(REG_SOLVE_KW, extract_strategy="full")
 
 
 def seeded_pth(torch, plan, path):
-    """The 6M UNet's seeded weights (those of `load_model("scratch",
-    seed=0)`) written as a `.pth`, so registration loads a file as a user
-    would."""
+    """A UNet's seeded weights (for the 6M UNet those of
+    `load_model("scratch", seed=0)`) written as a `.pth`, so registration
+    and segmentation load a file as a user would."""
     from anatomix_tpu_torch.models.unet import init_params
 
     torch.save(init_params(plan, torch.Generator().manual_seed(0)), path)
@@ -4188,12 +4454,20 @@ def run_segmentation(torch, dev, wrappers, paths, kt, ckpt, root):
     return res
 
 
-def run_segmentation_cli(torch, dev, wrappers, paths, ckpt, root):
+def run_segmentation_cli(torch, dev, wrappers, paths, source, root, *,
+                         tag="segmentation-cli", epochs=2,
+                         expect=("conv3x3x3_ndhwc", "conv3x3x3_upcat_ndhwc",
+                                 "blend_scatter", "conv3x3x3_wgrad_ndhwc",
+                                 "conv3x3x3_dgrad_ndhwc",
+                                 "space_to_depth2_ndhwc",
+                                 "depth_to_space2_ndhwc")):
     """`[segmentation-cli]`: `python -m anatomix_tpu_torch.segmentation.
-    train` on the NIfTI dataset with `--n_epochs 2 --n_iters_per_epoch 4
-    --val_interval 1` (the CLI's other defaults: crop 128, batch 3, lr
-    2e-4), run from a temporary working directory: the best and per-epoch
-    checkpoints, the scalars, finite losses."""
+    train` on the NIfTI dataset with the backbone `source` (its CLI
+    arguments: `--pretrained_ckpt` or `--hf_variant` and `--cache_path`),
+    `--n_epochs epochs --n_iters_per_epoch 4 --val_interval 1` (the
+    CLI's other defaults: crop 128, batch 3, lr 2e-4), run from a temporary
+    working directory: the best and per-epoch checkpoints, the scalars,
+    finite losses, and every kernel of `expect` launched."""
     import contextlib
     import io
     import tempfile
@@ -4203,13 +4477,14 @@ def run_segmentation_cli(torch, dev, wrappers, paths, ckpt, root):
     from anatomix_tpu_torch.segmentation.train import build_parser, main
     from anatomix_tpu_torch.utils.checkpoint import load_pytree
 
+    iters = 4
     argv = ["--exp_name", "smoke", "--dataset", root, "--n_classes",
-            str(SEG_CLASSES), "--pretrained_ckpt", ckpt, "--crop_size",
-            str(SEG_CROP), "--n_epochs", "2",
-            "--n_iters_per_epoch", "4", "--val_interval", "1", "--device",
-            str(dev)]
+            str(SEG_CLASSES), *source, "--crop_size", str(SEG_CROP),
+            "--n_epochs", str(epochs), "--n_iters_per_epoch", str(iters),
+            "--val_interval", "1", "--device", str(dev)]
     cwd = os.getcwd()
     buf = io.StringIO()
+    last = f"epoch{epochs:04d}.npz"
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
@@ -4219,10 +4494,10 @@ def run_segmentation_cli(torch, dev, wrappers, paths, ckpt, root):
                 main(build_parser().parse_args(argv))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            paths["segmentation_cli"] = launched = counts(wrappers)
+            paths[tag.replace("-", "_")] = launched = counts(wrappers)
             ckpt_dir = os.path.join("finetuning_runs", "checkpoints", "smoke")
             names = sorted(os.listdir(ckpt_dir))
-            state = load_pytree(os.path.join(ckpt_dir, "epoch0002.npz"))
+            state = load_pytree(os.path.join(ckpt_dir, last))
             with open(os.path.join("finetuning_runs", "runs", "smoke",
                                    "scalars.jsonl")) as f:
                 recs = [json.loads(line) for line in f]
@@ -4230,21 +4505,20 @@ def run_segmentation_cli(torch, dev, wrappers, paths, ckpt, root):
             os.chdir(cwd)
     train = [r["train_loss"] for r in recs if "train_loss" in r]
     val = [r["val_loss_mean_dice"] for r in recs if "val_loss_mean_dice" in r]
-    if not ({"epoch0001.npz", "epoch0002.npz"} <= set(names)
+    if not ({f"epoch{e + 1:04d}.npz" for e in range(epochs)} <= set(names)
             and any(n.startswith("best_dict_epoch") for n in names)):
-        raise RuntimeError(f"segmentation-cli: checkpoints {names}")
-    if int(state["epoch"]) != 2 or int(state["opt_state"]["count"]) != 8:
-        raise RuntimeError(f"segmentation-cli: epoch {state['epoch']}, "
+        raise RuntimeError(f"{tag}: checkpoints {names}")
+    if (int(state["epoch"]) != epochs
+            or int(state["opt_state"]["count"]) != epochs * iters):
+        raise RuntimeError(f"{tag}: epoch {state['epoch']}, "
                            f"count {state['opt_state']['count']}")
-    if len(train) != 8 or len(val) != 2 or not np.isfinite(train + val).all():
-        raise RuntimeError(f"segmentation-cli: losses {train}, val {val}")
-    missing = [k for k in ("conv3x3x3_ndhwc", "conv3x3x3_upcat_ndhwc",
-                           "blend_scatter", "conv3x3x3_wgrad_ndhwc",
-                           "conv3x3x3_dgrad_ndhwc", "space_to_depth2_ndhwc",
-                           "depth_to_space2_ndhwc") if launched[k] == 0]
+    if (len(train) != epochs * iters or len(val) != epochs
+            or not np.isfinite(train + val).all()):
+        raise RuntimeError(f"{tag}: losses {train}, val {val}")
+    missing = [k for k in expect if launched[k] == 0]
     if missing:
-        raise RuntimeError(f"segmentation-cli: kernels not launched {missing}")
-    log(f"[segmentation-cli] 2 epochs x 4 steps, val every epoch, in "
+        raise RuntimeError(f"{tag}: kernels not launched {missing}")
+    log(f"[{tag}] {epochs} epochs x {iters} steps, val every epoch, in "
         f"{wall:.2f} s (reads and checkpoints included): train losses "
         f"{['%.4f' % v for v in train]}, val Dice loss {val}; checkpoints "
         f"{names}; launches {launched}")
@@ -4252,27 +4526,281 @@ def run_segmentation_cli(torch, dev, wrappers, paths, ckpt, root):
                 checkpoints=names, launches=launched)
 
 
-def run_segmentation_phases(torch, dev, wrappers, paths, kt, plan):
-    """Phase 11 in a temporary directory: the 6M UNet's seeded weights as
-    a `.pth`, the NIfTI dataset, then `[segmentation]`,
-    `[segmentation-gate]` and `[segmentation-cli]`."""
+# the dev backbone's finetuning: the steps on the kernels (the first four
+# also on the plain routes), and the size its validation logits are held
+# to the plain route at
+DEV_SEG_STEPS = 10
+DEV_SEG_GATE_SIZE = 160
+# the dev validation's kernels: K1, the decoder's D2 then D3, the live
+# norms' D1 and the stitch
+DEV_VAL_KERNELS = ("conv3x3x3_ndhwc", "conv3x3x3_cat_ndhwc",
+                   "upsample2x_trilinear_ndhwc", "norm_apply_ndhwc",
+                   "blend_scatter")
+
+
+def dev_seg_model(torch, dev, pth, lr=SEG_LR, plain=False):
+    """The dev backbone through the registry route (`hf_variant=
+    "anatomix-dev"`, its seeded weights from the local `pth`: instance
+    norm eps 1e-2, the published setting) and a fresh head, its Adam and
+    train step on the CLI's schedule."""
+    from anatomix_tpu_torch.segmentation.model import load_seg_model
+    from anatomix_tpu_torch.segmentation.train import (
+        build_seg_train_step,
+        cosine_annealing,
+        make_seg_optimizer,
+    )
+
+    plan, params = load_seg_model(SEG_CLASSES, hf_variant="anatomix-dev",
+                                  cache_path=pth, device=dev)
+    step = build_seg_train_step(
+        plan, make_seg_optimizer(params, lr),
+        cosine_annealing(lr, SEG_EPOCHS, SEG_ITERS), plain=plain)
+    return plan, params, step
+
+
+def run_dev_segmentation(torch, dev, wrappers, paths, pth, root):
+    """`[dev-segmentation]`: few-shot finetuning of the 94M dev backbone at
+    the CLI's defaults (crop 128^3, batch 3, Adam 2e-4, DiceCE) on the
+    seeded 192^3 subjects: `dev_segmentation_val_seconds_256` (one
+    `validate` of the 256^3 volume, 125 windows in 32 chunks of 4: K1, D1,
+    D2, D3, K4), then DEV_SEG_STEPS steps on the kernels (the general
+    train walk), `dev_segmentation_step_seconds_128crop` the median of
+    steps 2+ on the host clock between synchronizes, CUDA events and the
+    wait for the batch beside it, the peak of the first step. Gate: the
+    first four batches stepped from the same state on the f32 plain route
+    and on it with bf16-rounded images: the first loss within 1e-2, each
+    of the four within 2.5x the plain route's spread + 1e-3; the
+    validation logits after the steps at DEV_SEG_GATE_SIZE^3 (the fused
+    forward on the split against the plain route on the same parameters)
+    to the two-part rule."""
+    import numpy as np
+
+    from anatomix_tpu_torch.ops.sliding_window import compute_window_starts
+    from anatomix_tpu_torch.segmentation.data import (
+        VolumeCache,
+        data_handler,
+    )
+    from anatomix_tpu_torch.segmentation.train import load_batch, validate
+    from anatomix_tpu_torch.segmentation.transforms import val_transform
+
+    tri, trs, vai, vas = data_handler(root, 3, DEV_SEG_STEPS, SEG_BATCH)
+    cache = VolumeCache(dev)
+    for p in tri[:3] + trs[:3] + vai + vas:
+        cache.get(p)
+    val_vol = val_transform(cache.get(vai[0]))
+    order = np.random.default_rng(0).permutation(len(tri))
+    gen = torch.Generator().manual_seed(0)
+    field_gen = torch.Generator(device=dev).manual_seed(0)
+    plan, params, step = dev_seg_model(torch, dev, pth)
+    if plan.config.norm_eps != 1e-2:
+        raise RuntimeError(f"dev-segmentation: eps {plan.config.norm_eps}")
+    n_conv = len(plan.conv_indices)
+    want = {k: 0 for k in wrappers}
+    want.update({"conv3x3x3_ndhwc": n_conv, "conv3x3x3_wgrad_ndhwc": n_conv,
+                 "conv3x3x3_dgrad_ndhwc": n_conv - 1,
+                 "reflect_shell_ndhwc": n_conv - 1})
+
+    def val_timed(tag):
+        reset_counts(wrappers)
+        dl, sec = timed(torch, lambda: validate(
+            plan, params, vai, vas, cache, SEG_CROP, SEG_CLASSES,
+            plain=False))
+        c = paths[tag] = counts(wrappers)
+        off = [k for k in wrappers if (c[k] > 0) != (k in DEV_VAL_KERNELS)]
+        if off:
+            raise RuntimeError(f"dev-segmentation: validation launches {c}")
+        return dl, sec
+
+    val_before, val_before_s = val_timed("dev_segmentation_val_256")
+    n_win = len(compute_window_starts((SEG_VAL_SIZE,) * 3, (SEG_CROP,) * 3,
+                                      0.7))
+
+    batches, losses, host_s, dev_ms, data_s, per_step = [], [], [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(wrappers)
+    for i in range(DEV_SEG_STEPS):
+        idxs = order[i * SEG_BATCH:(i + 1) * SEG_BATCH]
+        batch, t_data = timed(torch, lambda: load_batch(
+            cache, tri, trs, idxs, SEG_CROP, gen, field_gen))
+        if i < SEG_GATE_STEPS:
+            batches.append(batch)
+        before = counts(wrappers)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        loss = step(params, *batch)
+        ev1.record()
+        torch.cuda.synchronize()
+        host_s.append(time.perf_counter() - t0)
+        dev_ms.append(ev0.elapsed_time(ev1))
+        data_s.append(t_data)
+        losses.append(float(loss))
+        per_step.append({k: v - before[k] for k, v in counts(wrappers).items()})
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    paths["dev_segmentation_train"] = counts(wrappers)
+    val_after, val_after_s = val_timed("dev_segmentation_val_256_after")
+    bad = [i + 1 for i, c in enumerate(per_step) if c != want]
+    if bad:
+        raise RuntimeError(f"dev-segmentation: launches of step {bad[0]} "
+                           f"{per_step[bad[0] - 1]}, want {want}")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"dev-segmentation: non-finite loss {losses}")
+    res = dict(
+        dev_segmentation_step_seconds_128crop=statistics.median(host_s[1:]),
+        dev_segmentation_val_seconds_256=val_after_s,
+        val_before_training_s=val_before_s, step_device_ms=dev_ms,
+        step_host_s=host_s, data_s=data_s, losses=losses, peak_gib=peak,
+        launches_per_step=per_step[0],
+        val_launches=paths["dev_segmentation_val_256_after"], windows=n_win,
+        val_dice_loss=dict(kernels_before=val_before,
+                           kernels_after=val_after))
+    log(f"[dev-segmentation] 94M dev UNet (hf_variant anatomix-dev, eps "
+        f"{plan.config.norm_eps}), {SEG_CLASSES} classes, crop {SEG_CROP}^3 "
+        f"x batch {SEG_BATCH}, Adam {SEG_LR}, {DEV_SEG_STEPS} steps: "
+        f"dev_segmentation_step_seconds_128crop "
+        f"{res['dev_segmentation_step_seconds_128crop']:.4f} (median of "
+        f"steps 2+, host clock); CUDA events median "
+        f"{statistics.median(dev_ms[1:]):.4f} ms; wait for the batch "
+        f"median {1e3 * statistics.median(data_s[1:]):.4f} ms; peak "
+        f"{peak:.2f} GiB (the first step); launches per step {per_step[0]}; "
+        f"{nvidia_smi()}")
+    log(f"[dev-segmentation] dev_segmentation_val_seconds_256 "
+        f"{val_after_s:.4f} (before training {val_before_s:.4f}; {n_win} "
+        f"windows, roi {SEG_CROP}, overlap 0.7, constant; launches "
+        f"{res['val_launches']}); val Dice loss {val_before:.4f} -> "
+        f"{val_after:.4f}")
+    log(f"[dev-segmentation] losses {['%.4f' % v for v in losses]}")
+
+    # the gate: the plain routes on the first batches, from the same state
+    _, pparams, pstep = dev_seg_model(torch, dev, pth, plain=True)
+    plain = [float(pstep(pparams, *b)) for b in batches]
+    del pparams, pstep
+    _, qparams, qstep = dev_seg_model(torch, dev, pth, plain=True)
+    spread = [float(qstep(qparams, b[0].to(torch.bfloat16).float(), b[1]))
+              for b in batches]
+    del qparams, qstep, batches
+    torch.cuda.empty_cache()
+    rel_k = [abs(k - p) / abs(p) for k, p in zip(losses, plain)]
+    rel_q = [abs(q - p) / abs(p) for q, p in zip(spread, plain)]
+    bound_q = [TOL_VS_BF16_PLAIN * q + TOL_VS_BF16_PLAIN_ABS for q in rel_q]
+    # the validation logits after the steps, on the same parameters, at the
+    # smaller size: the fused forward, the plain f32 route, the plain route
+    # in bf16
+    G = DEV_SEG_GATE_SIZE
+    vol = val_vol[:G, :G, :G].contiguous()
+    routes = {"kernels": seg_val_logits(torch, plan, params, vol),
+              "plain": seg_val_logits(torch, plan, params, vol, True)}
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        routes["plain_bf16"] = seg_val_logits(torch, plan, params, vol, True)
+    e = {r: model_err(routes[r], routes["plain"])
+         for r in ("kernels", "plain_bf16")}
+    del routes
+    log(f"[dev-segmentation] gate: first loss {losses[0]:.6f} vs the plain "
+        f"f32 route {plain[0]:.6f}: rel {rel_k[0]:.3e} (tol "
+        f"{TOL_TRAIN_LOSS}); losses of steps 1-{SEG_GATE_STEPS}: kernels "
+        f"{losses[:SEG_GATE_STEPS]}, plain f32 {plain}, plain f32 on bf16 "
+        f"images {spread}; |kernels - plain| / |plain| "
+        f"{['%.3e' % v for v in rel_k[:SEG_GATE_STEPS]]} vs bound "
+        f"{['%.3e' % v for v in bound_q]}")
+    log(f"[dev-segmentation] gate: validation logits at {G}^3 after "
+        f"{DEV_SEG_STEPS} steps, same parameters, vs the plain f32 route, "
+        f"mean|err|/std (max/max): fused kernels "
+        f"{e['kernels']['mean_err_over_std']:.4e} "
+        f"({e['kernels']['max_err_over_max']:.3e}), the plain route in bf16 "
+        f"{e['plain_bf16']['mean_err_over_std']:.4e} (tol {TOL_MODEL} and "
+        f"{TOL_VS_BF16_PLAIN}x plain bf16 + {TOL_VS_BF16_PLAIN_ABS})")
+    if not rel_k[0] < TOL_TRAIN_LOSS:
+        raise RuntimeError(f"dev-segmentation: first loss {losses[0]} vs "
+                           f"{plain[0]}")
+    bad = [i + 1 for i, (r, b) in enumerate(zip(rel_k, bound_q))
+           if not r <= b]
+    if bad:
+        raise RuntimeError(f"dev-segmentation: steps {bad} outside the "
+                           f"bound: {rel_k[:SEG_GATE_STEPS]} vs {bound_q}")
+    two_part_gate("dev-segmentation validation logits",
+                  e["kernels"]["mean_err_over_std"],
+                  e["plain_bf16"]["mean_err_over_std"])
+    res["gate"] = dict(plain_losses=plain, plain_bf16_losses=spread,
+                       rel_err=rel_k[:SEG_GATE_STEPS], bound=bound_q,
+                       val_logits=e, val_logits_size=G)
+    del params, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def profile_dev_segmentation(torch, dev, out_dir):
+    """`profile_segmentation` of the dev backbone (its seeded weights as a
+    local `anatomix-dev.pth`, the `hf_variant` route) on the seeded NIfTI
+    dataset, in a temporary directory."""
     import tempfile
 
+    from anatomix_tpu_torch.models.registry import ANATOMIX_VARIANTS
+    from anatomix_tpu_torch.models.unet import UnetConfig, build_plan
+
+    dplan = build_plan(UnetConfig(
+        **ANATOMIX_VARIANTS["anatomix-dev"]["unet_kwargs"]))
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = seeded_pth(torch, plan, os.path.join(tmp, "anatomix_seed0.pth"))
+        pth = seeded_pth(torch, dplan, os.path.join(tmp, "anatomix-dev.pth"))
+        return profile_segmentation(
+            torch, dev, out_dir, pth, seg_dataset(os.path.join(tmp, "data")),
+            tag="dev_", model=dev_seg_model)
+
+
+def run_segmentation_phases(torch, dev, wrappers, paths, kt, plan, *,
+                            six_m=True, dev_backbone=True):
+    """Phase 11 in a temporary directory: the NIfTI dataset, then with
+    `six_m` the 6M UNet's seeded weights as a `.pth`, `[segmentation]`,
+    `[segmentation-gate]` and `[segmentation-cli]`; with `dev_backbone`
+    the 94M dev UNet's seeded weights as a local `anatomix-dev` `.pth`,
+    `[dev-segmentation]` and `[dev-segmentation-cli]` (the CLI with
+    `--hf_variant anatomix-dev`). Returns the phases' results by name."""
+    import tempfile
+
+    from anatomix_tpu_torch.models.registry import ANATOMIX_VARIANTS
+    from anatomix_tpu_torch.models.unet import UnetConfig, build_plan
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         root = seg_dataset(os.path.join(tmp, "data"))
         log(f"[segmentation] wrote the NIfTI dataset in "
             f"{time.perf_counter() - t0:.2f} s")
-        res = run_segmentation(torch, dev, wrappers, paths, kt, ckpt, root)
-        cli = run_segmentation_cli(torch, dev, wrappers, paths, ckpt, root)
-    return res, cli
+        if six_m:
+            ckpt = seeded_pth(torch, plan,
+                              os.path.join(tmp, "anatomix_seed0.pth"))
+            out["segmentation"] = run_segmentation(
+                torch, dev, wrappers, paths, kt, ckpt, root)
+            out["segmentation_cli"] = run_segmentation_cli(
+                torch, dev, wrappers, paths, ["--pretrained_ckpt", ckpt],
+                root)
+        if dev_backbone:
+            dplan = build_plan(UnetConfig(
+                **ANATOMIX_VARIANTS["anatomix-dev"]["unet_kwargs"]))
+            pth = seeded_pth(torch, dplan,
+                             os.path.join(tmp, "anatomix-dev.pth"))
+            out["dev_segmentation"] = run_dev_segmentation(
+                torch, dev, wrappers, paths, pth, root)
+            out["dev_segmentation_cli"] = run_segmentation_cli(
+                torch, dev, wrappers, paths,
+                ["--hf_variant", "anatomix-dev", "--cache_path", pth], root,
+                tag="dev-segmentation-cli", epochs=1,
+                expect=("conv3x3x3_ndhwc", "conv3x3x3_wgrad_ndhwc",
+                        "conv3x3x3_dgrad_ndhwc", "reflect_shell_ndhwc")
+                + DEV_VAL_KERNELS)
+    return out
 
 
-def profile_segmentation(torch, dev, out_dir, ckpt, root):
+def profile_segmentation(torch, dev, out_dir, ckpt, root, *, tag="",
+                         model=None):
     """One segmentation step (its batch read and transformed first) and one
     256^3 validation under torch.profiler: each one's device busy share
-    and top device operations, and host time by `seg/*` range."""
+    and top device operations, and host time by `seg/*` range. `model`
+    builds the backbone from `ckpt` (default the 6M UNet's `seg_model`;
+    the dev backbone's `dev_seg_model`), `tag` names its files."""
     import numpy as np
 
     from torch.autograd import DeviceType
@@ -4287,7 +4815,7 @@ def profile_segmentation(torch, dev, out_dir, ckpt, root):
 
     tri, trs, vai, vas = data_handler(root, 3, 4, SEG_BATCH)
     cache = VolumeCache(dev)
-    plan, params, step = seg_model(torch, dev, ckpt)
+    plan, params, step = (model or seg_model)(torch, dev, ckpt)
     gen = torch.Generator().manual_seed(0)
     field_gen = torch.Generator(device=dev).manual_seed(0)
     order = np.random.default_rng(0).permutation(len(tri))
@@ -4309,7 +4837,7 @@ def profile_segmentation(torch, dev, out_dir, ckpt, root):
     torch.cuda.synchronize()
     out = {}
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for tag, fn in (("step", lambda: one_step(1)), ("val", one_val)):
+    for what, fn in (("step", lambda: one_step(1)), ("val", one_val)):
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             fn()
@@ -4326,20 +4854,20 @@ def profile_segmentation(torch, dev, out_dir, ckpt, root):
         ranges = sorted(((ev.cpu_time_total / 1e3, ev.count, ev.key)
                          for ev in events if ev.key.startswith("seg/")
                          and ev.device_type == DeviceType.CPU), reverse=True)
-        with open(os.path.join(out_dir, f"profile_segmentation_{tag}.txt"),
-                  "w") as f:
+        name = f"{tag}segmentation_{what}"
+        with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
             f.write(events.table(sort_by=attr, row_limit=60))
-        log(f"[profile] segmentation {tag}: wall {wall_ms:.2f} ms, device "
+        log(f"[profile] {name}: wall {wall_ms:.2f} ms, device "
             f"busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %)")
         for ms, count, key in rows[:16]:
             log(f"[profile]   {ms:9.3f} ms  {count:5d}x  {key[:90]}")
         for ms, count, key in ranges:
             log(f"[profile]   {ms:9.3f} ms host  {count:3d}x  {key}")
-        out[tag] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                        top=[dict(ms=r[0], count=r[1], name=r[2])
-                             for r in rows[:20]],
-                        ranges=[dict(ms=m, count=c, name=k)
-                                for m, c, k in ranges])
+        out[what] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                         top=[dict(ms=r[0], count=r[1], name=r[2])
+                              for r in rows[:20]],
+                         ranges=[dict(ms=m, count=c, name=k)
+                                 for m, c, k in ranges])
     del params, cache
     torch.cuda.empty_cache()
     return out

@@ -98,6 +98,13 @@ def _check_cover(plan, B, grid, ci, co, taps):
     (2, (130, 130, 130), 16, 48),             # the reflect dgrad's grid
     (1, (12, 9, 17), 1, 16),                  # the Ci = 1 stem, brick
     (2, (32, 32, 32), 64 + 128, 64),
+    # the dev pretraining step's reflect dgrads (dy's Co in, dx's Ci out,
+    # the grid grown by 1): the bottleneck at 4^3, the first decoder conv
+    # after the concat at 8^3 (1536 channels out), the 128^3 concat
+    (2, (6, 6, 6), 1024, 512),
+    (2, (6, 6, 6), 1024, 1024),
+    (2, (10, 10, 10), 512, 1536),
+    (2, (130, 130, 130), 32, 96),
 ])
 def test_conv_plan_covers_every_voxel_and_k_row_once(B, grid, ci, co):
     plan = conv_plan(B, grid, ci, co)
@@ -303,6 +310,16 @@ def test_conv_plan_is_a_pure_function():
     (2, (64, 64, 64), 32, 64, 2),      # the stride-2 gradient's grid
     (1, (8, 8, 9), 5, 12, 2),
     (3, (3, 4, 5), 24, 40, 1),
+    # the dev pretraining step's widest weight gradients
+    (2, (4, 4, 4), 512, 1024, 1),
+    (2, (4, 4, 4), 1024, 1024, 1),
+    (2, (8, 8, 8), 1536, 512, 1),
+    (2, (128, 128, 128), 96, 32, 1),
+    (2, (128, 128, 128), 1, 32, 1),
+    # the 6M segmentation step's 64^3 weight gradients at batch 3
+    (3, (64, 64, 64), 96, 32, 1),
+    (3, (64, 64, 64), 32, 32, 1),
+    (3, (64, 64, 64), 16, 32, 1),
 ])
 def test_wgrad_plan_covers_every_position_and_row_once(B, grid, ci, co,
                                                         stride):
@@ -341,6 +358,31 @@ def test_wgrad_plan_covers_every_position_and_row_once(B, grid, ci, co,
     runs = np.bincount(np.arange(plan.n_bricks) // plan.bricks_per_split)
     assert len(runs) == plan.splits and runs.min() > 0
     assert plan.n_tiles * plan.bn >= co
+
+
+def test_wgrad_plan_caps_the_gather_rings_run():
+    """The gather ring's blocks reduce at most `WGRAD_MAX_RUN` bricks each
+    (the accumulation error grows with the run): the dev step's 128^3
+    convs split further (96 -> 32: 64 runs of 1024 bricks, not 12 of
+    5462); the 6M and ViT shapes keep their plans, the longest of them
+    the 6M segmentation step's 64^3 96 -> 32 at batch 3, whose 12 runs of
+    1024 bricks sit at the cap."""
+    from anatomix_tpu_torch.kernels.conv_train import WGRAD_MAX_RUN
+
+    for ci, co in [(96, 32), (32, 32)]:
+        plan = wgrad_plan(2, (128, 128, 128), ci, co)
+        assert not plan.halo and plan.bricks_per_split <= WGRAD_MAX_RUN
+        assert plan.splits * plan.bricks_per_split >= plan.n_bricks
+    assert wgrad_plan(2, (128, 128, 128), 96, 32).splits == 64
+    for B, grid, ci, co, splits in [(2, (64,) * 3, 96, 32, 12),
+                                    (2, (64,) * 3, 32, 32, 37),
+                                    (2, (64,) * 3, 64, 64, 18),
+                                    (3, (64,) * 3, 96, 32, 12),
+                                    (3, (64,) * 3, 32, 32, 37),
+                                    (3, (128,) * 3, 48, 16, 132)]:
+        assert wgrad_plan(B, grid, ci, co).splits == splits
+    plan = wgrad_plan(3, (64,) * 3, 96, 32)
+    assert plan.bricks_per_split == WGRAD_MAX_RUN
 
 
 def test_wgrad_plan_fills_the_card_at_small_grids():

@@ -1053,3 +1053,79 @@ def test_segmentation_step_on_the_card_matches_the_plain_route(cuda):
     ref = logits[True]
     err = ((logits[False] - ref).abs().mean() / ref.std()).item()
     assert torch.isfinite(logits[False]).all() and err < 3e-2, err
+
+
+@pytest.mark.gpu
+def test_first_dgrad_of_a_process_matches_plain(cuda):
+    """The first input-gradient launch of a fresh process, where the
+    transposed conv's zero bias is allocated for the first time, against
+    its plain version (reflect, split store and shell pass): within 1e-2
+    of the largest value. The flipped weights were once a temporary freed
+    before the launch, whose memory that first allocation zeroed ahead of
+    the kernel (7e-2 here then)."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "from anatomix_tpu_torch.kernels import conv_train as kt\n"
+        "g = torch.Generator(device='cuda').manual_seed(0)\n"
+        "dy = torch.randn((2, 64, 64, 64, 32), generator=g,"
+        " device='cuda').to(torch.bfloat16)\n"
+        "w = (torch.randn((27 * 32, 32), generator=g, device='cuda')"
+        " * 0.05).to(torch.bfloat16)\n"
+        "got = kt.conv3x3x3_dgrad_ndhwc(dy, w).float()\n"
+        "ref = kt.conv3x3x3_dgrad_ndhwc_plain(dy, w).float()\n"
+        "print(((got - ref).abs().max() / ref.abs().max()).item())\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert float(out.stdout.strip().splitlines()[-1]) < 1e-2
+
+
+@pytest.mark.gpu
+def test_dev_train_walk_on_the_card_matches_the_plain_walk(cuda):
+    """The general train walk of a dev-style UNet (instance norm eps 1e-2,
+    Avg pool, trilinear; ngf 8, num_downs 3, a 32^3 batch of 2) in bf16 on
+    the kernels (K1 on the three-term split, T-x, T-w) against the f32
+    plain walk: the output within 1e-3 mean|err|/std, every conv's dW
+    within 5e-2 mean|err|/std; every conv launched K1 and T-w, every conv
+    but the entry T-x, each with its shell pass."""
+    from anatomix_tpu_torch.kernels import conv_train as kt
+    from anatomix_tpu_torch.models.unet import (
+        UnetConfig,
+        build_plan,
+        init_params,
+    )
+    from anatomix_tpu_torch.models.unet_train import unet_apply_train
+
+    plan = build_plan(UnetConfig(
+        output_nc=8, num_downs=3, ngf=8, norm="instance", norm_eps=1e-2,
+        pooling="Avg", interp="trilinear"))
+    params = {k: v.to(cuda) for k, v in init_params(
+        plan, torch.Generator().manual_seed(0)).items()}
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((2, 32, 32, 32, 1), generator=g, device=cuda)
+    cot = torch.randn((2, 32, 32, 32, 8), generator=g, device=cuda)
+    wrappers = (conv3x3x3_ndhwc, kt.conv3x3x3_wgrad_ndhwc,
+                kt.conv3x3x3_dgrad_ndhwc, kt.reflect_shell_ndhwc)
+    n_conv = len(plan.conv_indices)
+    runs = {}
+    for plain in (True, False):
+        leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+        before = [w.launches for w in wrappers]
+        out = unet_apply_train(plan, leaves, x, plain=plain)[0]
+        grads = torch.autograd.grad((out * cot).sum(), [
+            leaves[f"model.{i}.weight"] for i in plan.conv_indices])
+        runs[plain] = (out.detach(), grads)
+        if not plain:
+            assert [w.launches - b for w, b in zip(wrappers, before)] == [
+                n_conv, n_conv, n_conv - 1, n_conv - 1]
+    ref, rgrads = runs[True]
+    out, grads = runs[False]
+    assert out.dtype == torch.float32
+    assert ((out - ref).abs().mean() / ref.std()).item() < 1e-3
+    for g_k, g_p in zip(grads, rgrads):
+        assert ((g_k - g_p).abs().mean() / g_p.std()).item() < 5e-2

@@ -186,19 +186,27 @@ def test_load_seg_model_matches_jax(tmp_path):
 
 
 def test_backbones_the_walk_does_not_train(tmp_path):
-    """An instance-norm backbone (the dev UNet's options) segments in eval
-    mode but raises NotImplementedError naming item 15 when trained; the
-    ViT variant is refused."""
+    """A backbone with residual connections, an option the port does not
+    run, raises NotImplementedError naming item 15 when trained; an
+    instance-norm backbone (the dev UNet's options) now trains through the
+    general walk; the ViT variant is refused."""
+    from anatomix_tpu_torch.models.unet import UnetConfig, build_plan
+
     plan, params = pm.load_seg_model(
         N_CLASSES, ckpt_path="scratch", norm="instance", pooling="Avg",
         interp="trilinear", device="cpu", **TINY)
     x, lab = _batch(B=1)
     assert pm.seg_forward(plan, params, _t(x)).shape == (1, 16, 16, 16, 5)
+    logits, stats = pm.seg_forward(plan, params, _t(x), train=True)
+    assert logits.shape == (1, 16, 16, 16, 5) and stats == {}
+    assert torch.isfinite(logits).all()
+    rplan = build_plan(UnetConfig(input_nc=1, residual_connection=True,
+                                  **TINY))
     with pytest.raises(NotImplementedError, match="item 15"):
-        pm.seg_forward(plan, params, _t(x), train=True)
+        pm.seg_forward(rplan, params, _t(x), train=True)
     opt = ptr.make_seg_optimizer(params)
     with pytest.raises(NotImplementedError, match="item 15"):
-        ptr.build_seg_train_step(plan, opt)
+        ptr.build_seg_train_step(rplan, opt)
     with pytest.raises(ValueError, match="ViT"):
         pm.load_seg_model(N_CLASSES, hf_variant="anatomix-dev-vit",
                           cache_path=str(tmp_path / "vit.npz"), device="cpu")
