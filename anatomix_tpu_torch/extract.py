@@ -7,7 +7,8 @@ goes through the model in one piece (`full`), in one piece with
 instance-norm statistics per roi-sized tile (`full_tiled`), or as the
 reference's Gaussian-blended sliding windows (`sliding`). The ViT
 (`PrimusConfig`, `models/vit3d`) is bound to its 128^3 input and always
-runs the sliding windows.
+runs the sliding windows. On a `parallel.Mesh` of ranks, `sliding` shards
+the windows and `full` the volume (`make_feature_extractor(mesh=...)`).
 """
 
 from __future__ import annotations
@@ -30,11 +31,13 @@ from anatomix_tpu_torch.models.unet_fused import (
     prepack_fused,
     unet_apply_fused,
 )
+from anatomix_tpu_torch.models.unet_sharded import unet_apply_sharded
 from anatomix_tpu_torch.models.vit3d import Primus, PrimusConfig
 from anatomix_tpu_torch.ops.sliding_window import (
     scatter_kernel_eligible,
     sliding_window_inference,
 )
+from anatomix_tpu_torch.parallel.spatial import gather_d
 
 
 def fold_batchnorm(plan: UnetPlan, state_dict: dict[str, torch.Tensor]):
@@ -69,6 +72,40 @@ def fold_batchnorm(plan: UnetPlan, state_dict: dict[str, torch.Tensor]):
     return dataclasses.replace(plan, layers=tuple(new_layers)), sd
 
 
+def spatial_sharded_unet(plan, state_dict, mesh, *, axis: str = "space",
+                         compute_dtype: torch.dtype = torch.bfloat16):
+    """`volume (1, D, H, W, C) -> features (1, D, H, W, out)` with D
+    sharded over the mesh's `axis` (`anatomix_tpu/parallel/spatial.py`'s
+    `spatial_sharded_unet`): every rank passes the whole volume, runs its
+    shard (`models/unet_sharded.unet_apply_sharded`, batch norms folded,
+    the weights on the mesh's device) and returns the gathered f32
+    features. D must be divisible by (the axis size x 2^num_downs), so
+    that every pool stays inside a shard."""
+    n = mesh.axis_size(axis)
+    i = mesh.axis_index(axis)
+    group = mesh.group(axis)
+    stride = 2 ** plan.config.num_downs
+    dev = mesh.device
+    fplan, fsd = fold_batchnorm(
+        plan, {k: v.to(dev) for k, v in state_dict.items()})
+    packed = prepack_fused(fplan, fsd, device=dev,
+                           compute_dtype=compute_dtype)
+
+    @torch.inference_mode()
+    def run(volume):
+        x = torch.as_tensor(volume, dtype=torch.float32, device=dev)
+        D = x.shape[1]
+        if D % (n * stride):
+            raise ValueError(f"D={D} must be divisible by space axis ({n}) "
+                             f"x 2^num_downs ({stride})")
+        dl = D // n
+        y = unet_apply_sharded(fplan, packed, x[:, i * dl:(i + 1) * dl],
+                               group, compute_dtype=compute_dtype)
+        return gather_d(y, group)
+
+    return run
+
+
 def minmax(arr: np.ndarray, minclip=None, maxclip=None) -> np.ndarray:
     """[0, 1] min-max normalization with optional clipping."""
     if not ((minclip is None) and (maxclip is None)):
@@ -92,7 +129,8 @@ def zscore_normalize(feats: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def _make_vit_extractor(cfg: PrimusConfig, state_dict, *, sw_batch_size,
-                        overlap, mode, sigma_scale, compute_dtype, impl, dev):
+                        overlap, mode, sigma_scale, compute_dtype, impl, dev,
+                        mesh):
     """The ViT's sliding-window extractor (`anatomix_tpu/extract.py`
     make_feature_extractor's `PrimusConfig` branch): windows of
     `cfg.input_shape`; `impl='eager'` runs the plain versions in f32. As in
@@ -120,7 +158,7 @@ def _make_vit_extractor(cfg: PrimusConfig, state_dict, *, sw_batch_size,
         return sliding_window_inference(
             x, window_fn, cfg.num_classes, roi_size=cfg.input_shape,
             sw_batch_size=sw_batch_size or 2, overlap=overlap, mode=mode,
-            sigma_scale=sigma_scale,
+            sigma_scale=sigma_scale, mesh=mesh,
         )
 
     return extract
@@ -139,6 +177,7 @@ def make_feature_extractor(
     compute_dtype: torch.dtype = torch.bfloat16,
     impl: str = "fused",
     device: str | torch.device = "cuda",
+    mesh=None,
 ):
     """Build `volume (1, D, H, W, C) -> features (1, D, H, W, out)` (f32
     on `device`).
@@ -160,13 +199,21 @@ def make_feature_extractor(
     windows of `plan.input_shape`, as the JAX package does: `strategy` and
     `roi_size` are ignored; `impl='eager'` runs each kernel's plain version
     in f32.
+
+    With a `parallel.Mesh` (`mesh=`; every rank of it calls the extractor
+    on the same volume and gets the whole result), 'sliding' shards the
+    windows over the mesh's 'data' axis (`ops/sliding_window`), and 'full'
+    on a mesh with a 'space' axis shards the volume's D axis over it with
+    a halo exchange before every conv (`spatial_sharded_unet`; D
+    divisible by the axis size x 2**num_downs). The model runs on the
+    mesh's device.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
     if isinstance(plan, PrimusConfig):
         return _make_vit_extractor(
             plan, state_dict, sw_batch_size=sw_batch_size, overlap=overlap,
             mode=mode, sigma_scale=sigma_scale, compute_dtype=compute_dtype,
-            impl=impl, dev=dev)
+            impl=impl, dev=dev, mesh=mesh)
     check_supported(plan.config)
     if strategy == "auto":
         strategy = (
@@ -174,6 +221,15 @@ def make_feature_extractor(
         )
     if strategy not in ("full", "full_tiled", "sliding"):
         raise ValueError(f"Unknown strategy: {strategy}")
+    if (strategy == "full" and mesh is not None
+            and "space" in mesh.axis_names):
+        if impl != "fused":
+            raise ValueError("the spatially sharded forward runs the "
+                             "kernels (impl='fused')")
+        if dev.type == "cuda" and compute_dtype != torch.bfloat16:
+            raise ValueError("the conv kernels compute in bfloat16 on the card")
+        return spatial_sharded_unet(plan, state_dict, mesh,
+                                    compute_dtype=compute_dtype)
     sd = {k: v.to(dev) for k, v in state_dict.items()}
     if impl == "fused":
         if dev.type == "cuda" and compute_dtype != torch.bfloat16:
@@ -218,7 +274,7 @@ def make_feature_extractor(
         return sliding_window_inference(
             x, model_fn, out_channels, roi_size=roi_size,
             sw_batch_size=sw_batch_size or 2, overlap=overlap, mode=mode,
-            sigma_scale=sigma_scale,
+            sigma_scale=sigma_scale, mesh=mesh,
         )
 
     return extract

@@ -7,7 +7,11 @@ _halo_wide / _valid / _valid_wide, `ops/pallas/conv3x3.py` _conv3x3_valid);
 _halo_wide / _valid): the decoder conv over concat(enc, nearest-2x(small));
 `conv3x3x3_cat_ndhwc` replaces D3 (`conv_block.py`
 conv_block_sparse_cat_halo / _halo_wide): the trilinear decoder's conv over
-concat(enc, up) with both operands at one resolution. All three launch the
+concat(enc, up) with both operands at one resolution;
+`conv3x3x3_dvalid_ndhwc` is K1's D-valid mode, the conv of a spatial shard
+that carries its two D-halo planes (`parallel/spatial.halo_pad_d`; the JAX
+package pads explicitly and runs a VALID conv, `models/unet.py:428-455`).
+All four launch the
 implicit-GEMM wgmma kernels of `csrc/conv3d.cu` (a halo brick and a gather
 ring), whose header says what bounds them on the card and what their
 designs do about it; so does V2, the stride-2 conv of `kernels/conv_down.py`
@@ -29,6 +33,7 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from anatomix_tpu_torch.kernels import build
 from anatomix_tpu_torch.ops.activations import EPILOGUE_ACTS, apply_activation
@@ -44,6 +49,8 @@ _SIGNATURES = {
     # reflect, act; slope; out_f32, stream
     "conv3x3x3_upcat_ndhwc": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
     "conv3x3x3_cat_ndhwc": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
+    # as conv3x3x3_ndhwc, D the input's planes (halo included)
+    "conv3x3x3_dvalid_ndhwc": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
 }
 _fns: dict = {}
 
@@ -240,6 +247,19 @@ def conv3x3x3_ndhwc_plain(
     return apply_activation(y, act, slope=slope).to(out_dtype)
 
 
+def conv3x3x3_dvalid_ndhwc_plain(
+    x, w_packed, bias, *, act="none", slope=0.3, pad_type="reflect",
+    out_dtype=torch.bfloat16,
+):
+    """`x` (B, D + 2, H, W, Ci) with its D-halo planes: `F.pad` of H and W
+    by `pad_type`, then a valid `F.conv3d`; (B, D, H, W, Co)."""
+    w = unpack_conv_weight(w_packed.float(), x.shape[-1])
+    xc = F.pad(x.float().permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 0, 0),
+               mode="reflect" if pad_type == "reflect" else "constant")
+    y = F.conv3d(xc, w, bias.float()).permute(0, 2, 3, 4, 1)
+    return apply_activation(y, act, slope=slope).to(out_dtype)
+
+
 def conv3x3x3_upcat_ndhwc_plain(
     enc, small, w_packed, bias, *, act="none", slope=0.3,
     pad_type="reflect", out_dtype=torch.bfloat16,
@@ -336,6 +356,61 @@ def conv3x3x3_ndhwc(
 
 
 conv3x3x3_ndhwc.launches = 0
+
+
+def conv3x3x3_dvalid_ndhwc(
+    x: torch.Tensor,
+    w_packed: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    act: str = "none",
+    slope: float = 0.3,
+    pad_type: str = "reflect",
+    out_dtype: torch.dtype = torch.bfloat16,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """act(conv3x3x3(x, w) + bias), valid along D and "same" along H and W:
+    `x` (B, D + 2, H, W, Ci) carries its two D-halo planes, the result is
+    (B, D, H, W, Co), written into `out` when given (contiguous, of that
+    shape and `out_dtype`: the interior of the next conv's haloed buffer,
+    `models/unet_sharded.py`)."""
+    if x.device.type == "cpu":
+        y = conv3x3x3_dvalid_ndhwc_plain(
+            x, w_packed, bias, act=act, slope=slope, pad_type=pad_type,
+            out_dtype=out_dtype,
+        )
+        return y if out is None else out.copy_(y)
+    _check_act(x, "x")
+    B, Dh, H, W, ci = x.shape
+    D = Dh - 2
+    if D < 1:
+        raise ValueError(f"x needs its two halo planes and one more, got D "
+                         f"{Dh}")
+    # the padding reaches H and W only
+    co = _check_common(x, w_packed, bias, ci, (H, W), act, pad_type,
+                       out_dtype)
+    shape = (B, D, H, W, co)
+    if out is None:
+        out = torch.empty(shape, dtype=out_dtype, device=x.device)
+    elif (tuple(out.shape) != shape or out.dtype != out_dtype
+          or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {out_dtype} {shape} on "
+                         f"{x.device}, got {out.dtype} {tuple(out.shape)}")
+    plan = conv_plan(B, (D, H, W), ci, co)
+    ws = workspace(plan, B * D * H * W, co, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _fn("conv3x3x3_dvalid_ndhwc")(
+        x.data_ptr(), w_packed.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, plan.as_c(),
+        B, Dh, H, W, ci, co, int(pad_type == "reflect"), EPILOGUE_ACTS[act],
+        float(slope), int(out_dtype == torch.float32), stream,
+    )
+    build.check(rc, "conv3x3x3_dvalid_ndhwc")
+    conv3x3x3_dvalid_ndhwc.launches += 1
+    return out
+
+
+conv3x3x3_dvalid_ndhwc.launches = 0
 
 
 def conv3x3x3_upcat_ndhwc(

@@ -176,6 +176,8 @@ struct ConvArgs {
   float* ws;                   // (splits, B * oD * oH * oW, co) or null
   int B, D, H, W;              // the gathered grid
   int oD, oH, oW, org;         // the output grid; mode 0 reads o + org
+  int dvalid;                  // mode 0, D-valid: z reads o + 1 + org (the
+                               // input carries its two D-halo planes)
   int gD, gH, gW;              // the tiled grid (mode 1: a class's)
   int c1, c2, cp, co;          // cp: c1 + c2 padded to 8 (brick: 16)
   int f_shift, mode;           // mode 0: stride 1; 1: stride-2 dgrad;
@@ -352,7 +354,7 @@ __device__ __forceinline__ void source_voxel(const ConvArgs& a,
          ix < a.W;
     return;
   }
-  iz = o.z + kd - 1 + a.org;
+  iz = o.z + kd - 1 + a.org + a.dvalid;
   iy = o.y + kh - 1 + a.org;
   ix = o.x + kw - 1 + a.org;
   if (a.reflect) {
@@ -653,7 +655,8 @@ conv_brick_kernel(const ConvArgs a) {
       const int hy = (v / hxn) % hyn;
       const int hz = v / (hxn * hyn);
       const int lo = S2 ? 0 : 1 - a.org;
-      int iz = z0 + hz - lo, iy = y0 + hy - lo, ix = x0 + hx - lo;
+      int iz = z0 + hz - lo + a.dvalid, iy = y0 + hy - lo,
+          ix = x0 + hx - lo;
       const int c = c0 + cg * 8;
       bool ok = c < ci;
       if (a.reflect) {
@@ -1071,13 +1074,17 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // mode 2: the stride-2 conv of the (B, D, H, W) grid, zero padding 1.
 // fold_dx: the reflect dgrad's split store (mode 0, grow 1, f32 `out`
 // g_ext, no bias or activation), the shell sources into `out`, the rest
-// straight into fold_dx
+// straight into fold_dx. dvalid (mode 0, one operand, grow 0): D-valid, the
+// input's D planes 0 and D - 1 are the halo the caller brought (a spatial
+// shard's neighbours), so the output has D - 2 planes and only H and W are
+// padded; z reads o + k, never through the padding's index map
 int conv_launch(const void* enc, const void* small, int f_shift,
                 const void* w, const void* bias, void* out, void* ws,
                 const int* plan, int B, int D, int H, int W, int c1, int c2,
                 int co, int reflect, int act, float slope, int out_f32,
                 void* stream, int grow = 0, int mode = 0, int oD = 0,
-                int oH = 0, int oW = 0, void* fold_dx = nullptr) {
+                int oH = 0, int oW = 0, void* fold_dx = nullptr,
+                int dvalid = 0) {
   ConvArgs a;
   a.enc = static_cast<const __nv_bfloat16*>(enc);
   a.small = static_cast<const __nv_bfloat16*>(small);
@@ -1091,8 +1098,9 @@ int conv_launch(const void* enc, const void* small, int f_shift,
   a.H = H;
   a.W = W;
   a.mode = mode;
+  a.dvalid = dvalid;
   if (mode == 0 || mode == 2) {
-    a.oD = mode == 2 ? (D - 1) / 2 + 1 : D + 2 * grow;
+    a.oD = mode == 2 ? (D - 1) / 2 + 1 : D + 2 * grow - 2 * dvalid;
     a.oH = mode == 2 ? (H - 1) / 2 + 1 : H + 2 * grow;
     a.oW = mode == 2 ? (W - 1) / 2 + 1 : W + 2 * grow;
     a.gD = a.oD;
@@ -1148,6 +1156,8 @@ int conv_launch(const void* enc, const void* small, int f_shift,
       n_tiles * bn < co ||
       (mode == 1 && a.splits != 1) || (a.splits > 1 && ws == nullptr) ||
       (mode == 2 && (c2 != 0 || reflect)) ||
+      (dvalid && (dvalid != 1 || mode != 0 || grow != 0 || c2 != 0 ||
+                  fold_dx || a.oD < 1)) ||
       (fold_dx && (mode != 0 || grow != 1 || !out_f32 || act != 0 ||
                    (a.splits > 1 &&
                     (int64_t)B * a.oD * a.oH * a.oW * co >= INT32_MAX)))) {
@@ -1226,6 +1236,19 @@ extern "C" int conv3x3x3_ndhwc(const void* x, const void* w, const void* bias,
                                void* stream) {
   return conv_launch(x, nullptr, 0, w, bias, out, ws, plan, B, D, H, W, ci,
                      0, co, reflect, act, slope, out_f32, stream);
+}
+
+// out (B, D - 2, H, W, co) = act(conv(x) + bias), D-valid: x (B, D, H, W,
+// ci) holds its two D-halo planes, H and W are padded by `reflect`
+extern "C" int conv3x3x3_dvalid_ndhwc(const void* x, const void* w,
+                                      const void* bias, void* out, void* ws,
+                                      const int* plan, int B, int D, int H,
+                                      int W, int ci, int co, int reflect,
+                                      int act, float slope, int out_f32,
+                                      void* stream) {
+  return conv_launch(x, nullptr, 0, w, bias, out, ws, plan, B, D, H, W, ci,
+                     0, co, reflect, act, slope, out_f32, stream, 0, 0, 0, 0,
+                     0, nullptr, 1);
 }
 
 namespace {

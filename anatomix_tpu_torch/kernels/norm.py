@@ -72,15 +72,18 @@ def norm_apply_ndhwc(
     out_dtype: torch.dtype = torch.bfloat16,
     residual: torch.Tensor | None = None,  # x's shape, bf16 on the card
     split: bool = False,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """act(x * a[tile] + s[tile] [+ residual]) per (sample, tile,
     channel), stored in `out_dtype` (bf16 on the card), or with `split` as
     the bf16 (..., 3 C) [hi | lo | hi] of the f32 value, a residual then
-    in that form."""
+    in that form; written into `out` when given (contiguous, of the
+    result's shape and dtype)."""
     if x.device.type == "cpu":
-        return norm_apply_ndhwc_plain(x, a, s, tile_maps, act=act,
-                                      slope=slope, out_dtype=out_dtype,
-                                      residual=residual, split=split)
+        y = norm_apply_ndhwc_plain(x, a, s, tile_maps, act=act,
+                                   slope=slope, out_dtype=out_dtype,
+                                   residual=residual, split=split)
+        return y if out is None else out.copy_(y)
     dev = x.device
     if (x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 5
             or not x.is_contiguous()):
@@ -111,7 +114,12 @@ def norm_apply_ndhwc(
         raise ValueError(f"residual must be contiguous bf16 {out_shape} "
                          f"on {dev}, got {residual.dtype} "
                          f"{tuple(residual.shape)}")
-    out = torch.empty(out_shape, dtype=torch.bfloat16, device=dev)
+    if out is None:
+        out = torch.empty(out_shape, dtype=torch.bfloat16, device=dev)
+    elif (tuple(out.shape) != out_shape or out.dtype != torch.bfloat16
+          or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous bf16 {out_shape} on "
+                         f"{dev}, got {out.dtype} {tuple(out.shape)}")
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _fn()(
         x.data_ptr(), int(x.dtype == torch.float32), a.data_ptr(),

@@ -70,6 +70,7 @@ def unet_apply_train(
     eval_norm_layers: Sequence[int] = (),
     compute_dtype: torch.dtype = torch.bfloat16,
     plain: bool = False,
+    bn_group=None,
 ):
     """Train-mode forward of NDHWC `x` with the reference-keyed parameters
     `params` (`model.<idx>.weight`, `.bias`, ...).
@@ -79,7 +80,9 @@ def unet_apply_train(
     and `new_stats[str(idx)] = (running_mean, running_var)` updated for
     every batch norm not in `eval_norm_layers` (those use their running
     stats). Instance norms have no running stats and ignore
-    `eval_norm_layers`."""
+    `eval_norm_layers`; they stay per sample under data parallelism, where
+    `bn_group` gives the batch norms the statistics of the batch the
+    group's ranks hold together."""
     cfg = plan.config
     check_supported(cfg)
     cd = torch.float32 if plain else compute_dtype
@@ -112,7 +115,8 @@ def unet_apply_train(
                                               * inv)).to(feat.dtype)
             else:
                 feat, m, v = batch_norm_train(
-                    feat, mean, var, scale, bias, eps=cfg.norm_eps)
+                    feat, mean, var, scale, bias, eps=cfg.norm_eps,
+                    group=bn_group)
                 new_stats[str(idx)] = (m, v)
         elif spec.kind == "norm":
             feat = instance_norm(feat, eps=cfg.norm_eps,
@@ -140,7 +144,8 @@ def unet_apply_train(
 
 
 def unet_train_forward(plan, params, x, *, layers=(), eval_norm_layers=(),
-                       compute_dtype=torch.bfloat16, plain=False):
+                       compute_dtype=torch.bfloat16, plain=False,
+                       bn_group=None):
     """The train walk for `plan`, as the JAX package dispatches it: the 6M
     family's block walk where `train_block_eligible` holds, the general
     walk (`unet_apply_train`) for every other UNet. Returns `(out, taps,
@@ -149,4 +154,4 @@ def unet_train_forward(plan, params, x, *, layers=(), eval_norm_layers=(),
             else unet_apply_train)
     return walk(plan, params, x, layers=layers,
                 eval_norm_layers=eval_norm_layers,
-                compute_dtype=compute_dtype, plain=plain)
+                compute_dtype=compute_dtype, plain=plain, bn_group=bn_group)

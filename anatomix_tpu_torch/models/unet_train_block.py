@@ -72,6 +72,7 @@ def unet_apply_train_block(
     eval_norm_layers: Sequence[int] = (),
     compute_dtype: torch.dtype = torch.bfloat16,
     plain: bool = False,
+    bn_group=None,
 ):
     """Train-mode forward of NDHWC `x` (even extents) with the reference-keyed
     parameters `params` (`model.<idx>.weight`, ...).
@@ -80,6 +81,9 @@ def unet_apply_train_block(
     `layers` (channels-last, in `compute_dtype`) and
     `new_stats[str(idx)] = (running_mean, running_var)` updated for every
     batch norm not in `eval_norm_layers` (those use their running stats).
+    With `bn_group` (data parallelism) the batch norms take the statistics
+    of the batch the group's ranks hold together (`ops/norms.
+    batch_norm_train`).
     """
     cfg = plan.config
     if not train_block_eligible(plan):
@@ -111,7 +115,8 @@ def unet_apply_train_block(
                                               * inv)).to(feat.dtype)
             else:
                 feat, m, v = batch_norm_train(
-                    feat, mean, var, scale, bias, eps=cfg.norm_eps)
+                    feat, mean, var, scale, bias, eps=cfg.norm_eps,
+                    group=bn_group)
                 new_stats[str(idx)] = (m, v)
         elif spec.kind == "act":
             feat = apply_activation(feat, cfg.activation,

@@ -25,6 +25,8 @@ import functools
 
 import torch
 
+from anatomix_tpu_torch.parallel.mesh import group_mean, group_size
+
 
 def _even_chunk_sizes(size: int, n: int) -> list[int]:
     """Split `size` into `n` contiguous chunks as evenly as possible,
@@ -89,9 +91,14 @@ def _tile_sums(x: torch.Tensor, sizes: list[list[int]]) -> torch.Tensor:
     return x
 
 
-def instance_norm_stats(x: torch.Tensor, tile_counts=(1, 1, 1)):
+def instance_norm_stats(x: torch.Tensor, tile_counts=(1, 1, 1), *,
+                        group=None):
     """f32 `(mean, var)` of NDHWC `x` per (sample, tile, channel), each
-    (B, t0, t1, t2, C). Reduces over space only, never over the batch."""
+    (B, t0, t1, t2, C). Reduces over space only, never over the batch.
+    With a process `group`, `x` is this rank's shard of a volume whose
+    equal shards the group's ranks hold: the moments are averaged over the
+    group (JAX's `pmean` over the 'space' axis, `anatomix_tpu/ops/
+    norms.py:46-51`), one tile only."""
     sizes = tile_sizes(x.shape[1:4], tile_counts)
     x32 = x.float()
     s1 = _tile_sums(x32, sizes)
@@ -101,7 +108,12 @@ def instance_norm_stats(x: torch.Tensor, tile_counts=(1, 1, 1)):
     else:
         counts = _tile_counts_tensor(tuple(map(tuple, sizes)), x.device)
     mean = s1 / counts
-    var = torch.clamp(s2 / counts - mean.square(), min=0.0)
+    m2 = s2 / counts
+    if group is not None:
+        if tuple(tile_counts) != (1, 1, 1):
+            raise ValueError("sharded statistics take one tile")
+        mean, m2 = group_mean(torch.stack([mean, m2]), group)
+    var = torch.clamp(m2 - mean.square(), min=0.0)
     return mean, var
 
 
@@ -188,6 +200,7 @@ def batch_norm_train(
     *,
     eps: float = 1e-5,
     momentum: float = 0.1,
+    group=None,
 ):
     """BatchNorm3d in train mode on channels-last `x` (`anatomix_tpu/ops/
     norms.py` batch_norm_train): normalize with the batch's statistics over
@@ -195,14 +208,24 @@ def batch_norm_train(
     in f32, the result in `x`'s dtype. Returns `(y, new_running_mean,
     new_running_var)`, the running stats updated with the unbiased variance
     and `momentum`, as torch does; they carry no gradient. The backward is
-    torch autograd."""
+    torch autograd. With a process `group` (data parallelism: each rank
+    holds an equal shard of the batch) the mean and the variance are those
+    of the whole batch, averaged over the group by an autograd-aware
+    all-reduce, so the backward reduces over the group too (JAX's
+    `_bn_train_norm_bwd` psums its two sums), and the unbiased factor uses
+    the whole batch's count."""
     dims = tuple(range(x.dim() - 1))
     x32 = x.float()
+    n = x.numel() // x.shape[-1]
     mean = x32.mean(dim=dims)
+    if group is not None:
+        mean = group_mean(mean, group)
+        n *= group_size(group)
     xc = x32 - mean
     var = xc.square().mean(dim=dims)
+    if group is not None:
+        var = group_mean(var, group)
     y = xc * (torch.rsqrt(var + eps) * scale.float()) + bias.float()
-    n = x.numel() // x.shape[-1]
     with torch.no_grad():
         new_mean = (1 - momentum) * running_mean + momentum * mean
         new_var = ((1 - momentum) * running_var

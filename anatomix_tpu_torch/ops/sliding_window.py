@@ -20,6 +20,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from anatomix_tpu_torch.kernels.scatter import blend_scatter
@@ -116,10 +117,20 @@ def sliding_window_inference(
     overlap: float = 0.8,
     mode: str = "gaussian",
     sigma_scale: float = 0.25,
+    mesh=None,
+    mesh_axis: str = "data",
 ) -> torch.Tensor:
     """`volume` (1, D, H, W, C); `apply_fn` maps windows (B, r0, r1, r2, C)
     to (B, r0, r1, r2, out_channels), or to its folded rows, f32 or bf16.
-    Returns (1, D, H, W, out_channels) f32 on the volume's device."""
+    Returns (1, D, H, W, out_channels) f32 on the volume's device.
+
+    With a `parallel.Mesh` (every rank passing the same volume), the window
+    list, padded to a multiple of `sw_batch_size` x n, is sharded over the
+    mesh's `mesh_axis` group of n ranks in contiguous blocks (JAX's
+    `P(mesh_axis)`); each rank stitches its windows into its own canvas
+    and one all-reduce (SUM) merges the canvases before `acc / weight`
+    (`anatomix_tpu/ops/sliding_window.py:342-439`). A mesh of one axis is
+    sharded over that axis whatever its name."""
     if volume.dim() != 5 or volume.shape[0] != 1:
         raise ValueError("volume must be (1, D, H, W, C)")
     roi_size = tuple(roi_size)
@@ -142,7 +153,19 @@ def sliding_window_inference(
     weight = blend_weight_map(spatial, starts_np, imp_np, device=dev)
 
     n_real = len(starts_np)
-    n_padded = int(math.ceil(n_real / sw_batch_size)) * sw_batch_size
+    group, n_shards, shard = None, 1, 0
+    if mesh is not None:
+        if mesh_axis not in mesh.axis_names:
+            if len(mesh.axis_names) != 1:
+                raise ValueError(
+                    f"mesh has no '{mesh_axis}' axis (axes: "
+                    f"{mesh.axis_names}); pass mesh_axis= explicitly")
+            mesh_axis = mesh.axis_names[0]
+        group = mesh.group(mesh_axis)
+        n_shards = mesh.axis_size(mesh_axis)
+        shard = mesh.axis_index(mesh_axis)
+    n_group = sw_batch_size * n_shards
+    n_padded = int(math.ceil(n_real / n_group)) * n_group
     starts_all = np.zeros((n_padded, 3), np.int32)
     starts_all[:n_real] = starts_np
     mask_all = np.zeros((n_padded,), np.int32)
@@ -157,7 +180,9 @@ def sliding_window_inference(
     vol3d = padded[0]
     canvas = torch.zeros(spatial + (out_channels,), dtype=torch.float32,
                          device=dev)
-    for c0 in range(0, n_padded, sw_batch_size):
+    per_shard = n_padded // n_shards
+    for c0 in range(shard * per_shard, (shard + 1) * per_shard,
+                    sw_batch_size):
         chunk = slice(c0, c0 + sw_batch_size)
         windows = torch.stack([
             vol3d[s0:s0 + r0, s1:s1 + r1, s2:s2 + r2]
@@ -170,6 +195,8 @@ def sliding_window_inference(
         blend_scatter(canvas, out, starts_dev[chunk], mask_dev[chunk],
                       gd, gh, gw, minv)
 
+    if group is not None:
+        dist.all_reduce(canvas, op=dist.ReduceOp.SUM, group=group)
     out = canvas / weight[..., None]
     (c0, c1), (c2, c3), (c4, c5) = crops
     return out[None, c0:c1, c2:c3, c4:c5, :]

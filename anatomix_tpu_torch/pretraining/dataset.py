@@ -219,7 +219,9 @@ class H5TwoViewDataset:
         # (a batch may then repeat a subject, with other views and augments)
         return max(len(self.subjects), self.cfg.batch_size)
 
-    def get(self, item: int, rng: np.random.Generator):
+    def _pick(self, item: int, rng: np.random.Generator):
+        """The item's subject group and its two timepoints, drawn from
+        `rng`."""
         subj = self.subjects[item % len(self.subjects)]
         grp = self.h5[subj]
         n_tps = grp["img"].shape[0]
@@ -230,6 +232,16 @@ class H5TwoViewDataset:
             i, j = rng.choice(n_tps, size=2, replace=False)
         else:
             i = j = 0
+        return grp, i, j
+
+    def draw(self, item: int, rng: np.random.Generator):
+        """The draws `get` takes from `rng` for `item`, without reading its
+        volumes; returns their (D, H, W)."""
+        grp, _, _ = self._pick(item, rng)
+        return tuple(grp["img"].shape[1:])
+
+    def get(self, item: int, rng: np.random.Generator):
+        grp, i, j = self._pick(item, rng)
         img_a = normalize_img(grp["img"][int(i)], self.cfg.percentile,
                               self.cfg.zero_centered)
         img_b = normalize_img(grp["img"][int(j)], self.cfg.percentile,

@@ -18,6 +18,8 @@ from typing import Any, Sequence
 
 import torch
 
+from anatomix_tpu_torch.parallel.mesh import group_mean, group_size
+
 
 def init_patch_mlps(
     generator: torch.Generator,
@@ -56,12 +58,22 @@ def init_patch_mlps(
     return params
 
 
-def _bn1d(x, bn, *, train: bool, eps: float, momentum: float = 0.1):
-    """BatchNorm1d over axis 0; returns (y, new running stats or None)."""
+def _bn1d(x, bn, *, train: bool, eps: float, momentum: float = 0.1,
+          group=None):
+    """BatchNorm1d over axis 0; returns (y, new running stats or None).
+    With a process `group` (data parallelism: each rank holds an equal
+    share of the rows) the statistics are those of every rank's rows,
+    averaged by an autograd-aware all-reduce, and the unbiased factor uses
+    their count."""
     if train:
-        mean = x.mean(dim=0)
-        var = (x - mean).square().mean(dim=0)
         n = x.shape[0]
+        mean = x.mean(dim=0)
+        if group is not None:
+            mean = group_mean(mean, group)
+            n *= group_size(group)
+        var = (x - mean).square().mean(dim=0)
+        if group is not None:
+            var = group_mean(var, group)
         with torch.no_grad():
             new = {
                 "mean": (1 - momentum) * bn["mean"] + momentum * mean,
@@ -83,16 +95,18 @@ def apply_patch_mlp(
     *,
     train: bool = True,
     eps: float = 1e-5,
+    group=None,
 ):
     """Project patch features in f32; returns (y (N, nc), the batch norms
-    with their running stats updated in train mode)."""
+    with their running stats updated in train mode). `group`: the batch
+    norms' statistics over the rows of every rank of it (`_bn1d`)."""
     new_stats = []
     n = len(mlp_params["linears"])
     x = x.float()
     for j, (w, bn) in enumerate(zip(mlp_params["linears"],
                                     mlp_params["bns"])):
         x = x @ w.float()
-        x, upd = _bn1d(x, bn, train=train, eps=eps)
+        x, upd = _bn1d(x, bn, train=train, eps=eps, group=group)
         new_stats.append({**bn, **upd} if upd is not None else bn)
         if j < n - 1:
             x = torch.relu(x)
@@ -120,6 +134,16 @@ def sample_patch_coords(
         score = score + torch.where(mask.reshape(-1) > 0, 0.0, -1e4)
     flat = torch.topk(score, p).indices
     return torch.stack([flat // (h * w), (flat // w) % h, flat % w], dim=-1)
+
+
+def skip_patch_draw(generator: torch.Generator,
+                    spatial: tuple[int, int, int]) -> None:
+    """Advance `generator` as `sample_patch_coords` does for a tap grid of
+    `spatial`, drawing nothing else: under data parallelism a rank takes
+    this for each sample of the global batch that another rank holds, so
+    every rank's generator stays where a single device's would."""
+    d, h, w = spatial
+    torch.rand((d * h * w,), generator=generator, device=generator.device)
 
 
 def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:

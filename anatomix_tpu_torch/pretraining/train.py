@@ -19,8 +19,25 @@ Primus ViT (`netG="primus"`):
     state, metrics = step(state, views, segs, generator)
 
 with `views` (B, 2, D, H, W, 1) f32, `segs` (B, D, H, W, 1) int and a
-`torch.Generator` on the device for the patch sampler. Multi-device data
-parallelism (`multihost`, `data_parallel_devices` > 1) is ROADMAP item 14.
+`torch.Generator` on the device for the patch sampler.
+
+Data parallelism (`anatomix_tpu/pretraining/train.py:173-228`): with
+`data_parallel_devices` n > 1 (or 0, the default, on a machine with more
+than one card and a batch they divide) `train` spawns n local ranks
+(`parallel/launch.spawn`, rank r on `cuda:r`; gloo ranks for
+`device="cpu"`); with `multihost` each process of a `torchrun` launch is
+one rank (`parallel/multihost.initialize_distributed`):
+
+    torchrun --nproc_per_node N -m anatomix_tpu_torch.pretraining.train \
+        --multihost true --batch_size B ...
+
+`batch_size` is the global batch. Every rank draws the whole global
+batch's random parameters (the epoch order, each item's timepoints and
+pair-augment draws) from the same seeded generators, and reads, normalizes
+and augments only its own contiguous items, so any world size gives the
+single-device run's losses. Rank 0 alone writes the run dir; validation
+runs on every rank on the same inputs, so the plateau scale stays the same
+everywhere.
 """
 
 from __future__ import annotations
@@ -46,6 +63,12 @@ from anatomix_tpu_torch.models.unet import (
 from anatomix_tpu_torch.models.vit3d.primus import PrimusConfig
 from anatomix_tpu_torch.models.vit3d.primus_train import \
     check_train_supported as check_primus_supported
+from anatomix_tpu_torch.parallel.launch import spawn
+from anatomix_tpu_torch.parallel.mesh import data_mesh
+from anatomix_tpu_torch.parallel.multihost import (
+    global_data_mesh,
+    initialize_distributed,
+)
 from anatomix_tpu_torch.pretraining.config import PretrainConfig
 from anatomix_tpu_torch.pretraining.dataset import (
     H5TwoViewDataset,
@@ -81,14 +104,17 @@ from anatomix_tpu_torch.utils.visualization import log_panels, save_tensor
 
 
 def build_all(cfg: PretrainConfig, steps_per_epoch: int, *,
-              device: str | torch.device = "cuda", plain: bool = False):
+              device: str | torch.device = "cuda", plain: bool = False,
+              mesh=None):
     """The backbone's plan (a UNet plan, or for `netG="primus"` the
     `PrimusConfig` the JAX package builds), its tap layers, a seeded train
     state (`cfg.seed`) on `device` and the train step, at `cfg`'s settings.
     Runs on the card unless `device="cpu"`; raises without a card. The step
     computes in bf16 on the card (the kernels) and in f32 on the CPU (the
     plain path, as the JAX package's trainer does on the CPU); `plain=True`
-    gives the f32 plain path on the card too."""
+    gives the f32 plain path on the card too. With a `parallel.Mesh` the
+    step is data parallel over its 'data' axis (`build_train_step`), and
+    every rank builds the same seeded state."""
     dev = resolve_device(device)
     if cfg.netG == "unet":
         plan = build_plan(UnetConfig(
@@ -139,6 +165,7 @@ def build_all(cfg: PretrainConfig, steps_per_epoch: int, *,
         compute_dtype=(torch.bfloat16 if dev.type == "cuda" and not plain
                        else torch.float32),
         frozen_layers=frozen, use_fg_mask=cfg.load_mask, plain=plain,
+        mesh=mesh,
     )
     return plan, taps, state, step
 
@@ -188,6 +215,9 @@ class BatchPipeline:
 
     def __init__(self, ds: H5TwoViewDataset, cfg, rng: np.random.Generator,
                  device: torch.device, seeds: tuple[int, int]):
+        if device.type == "cuda" and device.index is None:
+            # the caller's card: a worker thread's current card is card 0
+            device = torch.device("cuda", torch.cuda.current_device())
         self.ds, self.cfg, self.rng, self.device = ds, cfg, rng, device
         self.aug_gen = torch.Generator().manual_seed(seeds[0])
         self.field_gen = torch.Generator(device=device).manual_seed(seeds[1])
@@ -200,13 +230,28 @@ class BatchPipeline:
             t = t.pin_memory()
         return t.to(self.device, non_blocking=True)
 
-    def __call__(self, idxs) -> tuple[torch.Tensor, torch.Tensor]:
-        """views (B, 2, c, c, c, 1) f32 and segs (B, c, c, c, 1) int64."""
+    def __call__(self, idxs, keep: range | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """views (B, 2, c, c, c, 1) f32 and segs (B, c, c, c, 1) int64 of
+        the items at the positions `keep` of `idxs` (all by default). The
+        other items' random draws are taken all the same, without reading
+        them (data parallelism: another rank holds them)."""
+        if self.stream is not None:
+            # the calling thread's card (a rank's worker thread starts on
+            # card 0)
+            torch.cuda.set_device(self.device)
         stream = (torch.cuda.stream(self.stream) if self.stream is not None
                   else contextlib.nullcontext())
+        keep = range(len(idxs)) if keep is None else keep
         views_list, segs_list = [], []
         with stream:
-            for i in idxs:
+            for pos, i in enumerate(idxs):
+                if pos not in keep:
+                    with annotate("data/skip"):
+                        shape = self.ds.draw(int(i), self.rng)
+                        draw_pair_params(self.aug_gen, self.cfg, shape,
+                                         self.field_gen)
+                    continue
                 with annotate("data/read"):
                     img_a, img_b, seg = self.ds.get(int(i), self.rng)
                     if seg.max() >= np.iinfo(np.int16).max:
@@ -245,6 +290,26 @@ def _seeds(seed: int, total_iters: int, n: int) -> list[int]:
             np.random.SeedSequence([seed, total_iters]).generate_state(n)]
 
 
+def local_world(cfg: PretrainConfig, device) -> int:
+    """The local ranks `train` runs: `data_parallel_devices` when set (the
+    global batch must divide over them), else every card when there is
+    more than one and they divide the batch, else 1."""
+    n = cfg.data_parallel_devices
+    if n:
+        if n > 1 and cfg.batch_size % n:
+            raise ValueError(f"batch_size {cfg.batch_size} must divide "
+                             f"evenly over data_parallel_devices {n}")
+        return n
+    if torch.device(device).type == "cuda" and torch.cuda.is_available():
+        cards = torch.cuda.device_count()
+        if cards > 1 and cfg.batch_size % cards == 0:
+            return cards
+        if cards > 1:
+            print(f"batch_size {cfg.batch_size} does not divide over "
+                  f"{cards} cards: training on one")
+    return 1
+
+
 def train(cfg: PretrainConfig, train_h5=None, val_h5=None, *,
           device: str | torch.device = "cuda"):
     """Run the pretraining loop at `cfg` and return the final `TrainState`.
@@ -254,15 +319,58 @@ def train(cfg: PretrainConfig, train_h5=None, val_h5=None, *,
     `cfg.ckpt_dir/cfg.name`: `train_opt.json`, `scalars.jsonl`,
     `loss_log.txt`, `latest_train_state.npz`, `latest_net_{G,F}.npz`,
     `<iter>_net_G.npz`, `best_val_net_G.npz` and `visuals/`. Runs on the
-    card unless `device="cpu"`; raises without a card."""
-    dev = resolve_device(device)
-    if cfg.multihost or cfg.data_parallel_devices > 1:
-        raise NotImplementedError(
-            "multi-device data parallelism is ROADMAP item 14; the port's "
-            "trainer runs on one device")
+    card unless `device="cpu"`; raises without a card.
+
+    Data parallel (see the module docstring): `multihost` joins the
+    process group `torchrun` describes and this process runs its rank;
+    else `local_world` > 1 spawns the local ranks and returns rank 0's
+    final state, on the CPU. A rank that fails ends the run with its
+    error."""
+    if cfg.multihost:
+        if initialize_distributed(device=device):
+            mesh = global_data_mesh(device=device)
+            return _run(cfg, train_h5, val_h5, mesh.device, mesh)
+        # a world of one: the single-device run
+    else:
+        n = local_world(cfg, device)
+        if n > 1:
+            return spawn(_train_rank, n, str(torch.device(device)), cfg,
+                         train_h5, val_h5)[0]
+    return _run(cfg, train_h5, val_h5, resolve_device(device), None)
+
+
+def _train_rank(rank, world, dev, cfg, train_h5, val_h5):
+    """One spawned rank of `train`: its final state (rank 0's on the CPU,
+    the others' None)."""
+    state = _run(cfg, train_h5, val_h5, dev, data_mesh(world, device=dev))
+    if rank:
+        return None
+    to_cpu = lambda v: v.cpu() if torch.is_tensor(v) else v  # noqa: E731
+    return dataclasses.replace(
+        state, params_g=tree_map(to_cpu, state.params_g),
+        params_f=tree_map(to_cpu, state.params_f),
+        opt_state_g=tree_map(to_cpu, state.opt_state_g),
+        opt_state_f=tree_map(to_cpu, state.opt_state_f))
+
+
+def _run(cfg, train_h5, val_h5, dev, mesh):
+    """The loop on `dev`: alone (`mesh` None), or as this process's rank of
+    the mesh's 'data' axis."""
+    rank, world = ((mesh.axis_index("data"), mesh.axis_size("data"))
+                   if mesh is not None else (0, 1))
+    writer = rank == 0
+    if cfg.batch_size % world:
+        raise ValueError(f"global batch_size {cfg.batch_size} must divide "
+                         f"evenly over {world} ranks")
+    local_bs = cfg.batch_size // world
+    mine = range(rank * local_bs, (rank + 1) * local_bs)
     run_dir = os.path.join(cfg.ckpt_dir, cfg.name)
     os.makedirs(run_dir, exist_ok=True)
-    cfg.save(os.path.join(run_dir, "train_opt.json"))
+    if writer:
+        cfg.save(os.path.join(run_dir, "train_opt.json"))
+        if mesh is not None:
+            print(f"Data-parallel over {world} ranks, global batch "
+                  f"{cfg.batch_size}")
 
     if train_h5 is None:
         train_h5 = os.path.join(cfg.dataroot, "train_data.hdf5")
@@ -280,7 +388,8 @@ def train(cfg: PretrainConfig, train_h5=None, val_h5=None, *,
             "another lr_policy")
 
     steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
-    plan, taps, state, step = build_all(cfg, steps_per_epoch, device=dev)
+    plan, taps, state, step = build_all(cfg, steps_per_epoch, device=dev,
+                                        mesh=mesh)
 
     # resume / warm start (continue_train > pretrained_name >
     # pretrained_G_only_ckpt; `base_model.py:119-143` of the reference)
@@ -328,7 +437,8 @@ def train(cfg: PretrainConfig, train_h5=None, val_h5=None, *,
                 plateau = PlateauState(**json.load(f))
             state = dataclasses.replace(state, lr_scale=plateau.lr / cfg.lr)
 
-    logger = ScalarLogger(run_dir, purge_step=total_iters or None)
+    logger = (ScalarLogger(run_dir, purge_step=total_iters or None)
+              if writer else None)
     # numpy draws as in the JAX package (epoch orders, val and view picks);
     # the prefetch worker reads from its own child generator
     rng_np = np.random.default_rng(cfg.seed + total_iters)
@@ -352,7 +462,7 @@ def train(cfg: PretrainConfig, train_h5=None, val_h5=None, *,
             for start in range(0, steps_per_epoch * cfg.batch_size,
                                cfg.batch_size):
                 yield epoch, pool.submit(
-                    pipeline, order[start:start + cfg.batch_size])
+                    pipeline, order[start:start + cfg.batch_size], mine)
 
     try:
         it = batch_futures()
@@ -383,7 +493,7 @@ def train(cfg: PretrainConfig, train_h5=None, val_h5=None, *,
             t_step = 0.9 * t_step + 0.1 * dt_step
             total_iters += 1
 
-            if total_iters % cfg.print_freq == 0:
+            if writer and total_iters % cfg.print_freq == 0:
                 scalars = {f"loss/{k}": float(v) for k, v in metrics.items()
                            if k.startswith("nce_") or k == "loss"}
                 scalars["metrics/grad_norm_G"] = float(metrics["grad_norm_G"])
@@ -398,7 +508,8 @@ def train(cfg: PretrainConfig, train_h5=None, val_h5=None, *,
                     f"data: {t_data:.3f}s, step: {t_step:.3f}s) "
                     f"loss: {float(metrics['loss']):.4f}")
 
-            if cfg.display_freq and total_iters % cfg.display_freq == 0:
+            if (writer and cfg.display_freq
+                    and total_iters % cfg.display_freq == 0):
                 # mid-slice panels of the live batch (`trainers/train.py:
                 # 256-258` of the reference)
                 def _mid(v):
@@ -408,8 +519,9 @@ def train(cfg: PretrainConfig, train_h5=None, val_h5=None, *,
                     "view1": _mid(views[0, 0]), "view2": _mid(views[0, 1]),
                     "seg": _mid(segs[0])}, total_iters)
 
-            if total_iters % cfg.save_latest_freq == 0:
-                # volume dumps of the live batch (`trainers/train.py:302-309`)
+            if writer and total_iters % cfg.save_latest_freq == 0:
+                # volume dumps of the live batch (`trainers/train.py:302-309`;
+                # rank 0 holds the global batch's first items)
                 vis_dir = os.path.join(run_dir, "visuals")
                 save_tensor(views[0, 0].half(),
                             os.path.join(vis_dir, "latest_view1.nii.gz"))
@@ -424,29 +536,37 @@ def train(cfg: PretrainConfig, train_h5=None, val_h5=None, *,
                             state.params_f)
 
             if total_iters % cfg.evaluation_freq == 0:
-                save_pytree(os.path.join(run_dir, f"{total_iters}_net_G.npz"),
-                            state.params_g)
-                save_train_state(state_path, state)
+                if writer:
+                    save_pytree(
+                        os.path.join(run_dir, f"{total_iters}_net_G.npz"),
+                        state.params_g)
+                    save_train_state(state_path, state)
+                # validation, and the plateau scale it drives, on every rank
+                # on the same inputs: the states stay replicas
                 if val_ds is not None:
                     val_loss = compute_val_loss(
                         plan, cfg, taps, state, val_ds, rng_np,
                         cfg.n_val_during_train, device=dev)
-                    logger.log(total_iters, {"loss/val": val_loss})
+                    if writer:
+                        logger.log(total_iters, {"loss/val": val_loss})
                     if plateau is not None:
                         new_lr = plateau.step(val_loss)
                         state = dataclasses.replace(
                             state, lr_scale=new_lr / cfg.lr)
-                        with open(plateau_path, "w") as f:
-                            json.dump(dataclasses.asdict(plateau), f)
-                        logger.log(total_iters, {"lr": new_lr})
+                        if writer:
+                            with open(plateau_path, "w") as f:
+                                json.dump(dataclasses.asdict(plateau), f)
+                            logger.log(total_iters, {"lr": new_lr})
                     if val_loss < best_val:
                         best_val = val_loss
-                        save_pytree(
-                            os.path.join(run_dir, "best_val_net_G.npz"),
-                            state.params_g)
-                        with open(os.path.join(run_dir, "best_val_loss.txt"),
-                                  "w") as f:
-                            f.write(str(best_val))
+                        if writer:
+                            save_pytree(
+                                os.path.join(run_dir, "best_val_net_G.npz"),
+                                state.params_g)
+                            with open(os.path.join(run_dir,
+                                                   "best_val_loss.txt"),
+                                      "w") as f:
+                                f.write(str(best_val))
 
             if cfg.max_iters and total_iters >= cfg.max_iters:
                 break
@@ -454,10 +574,11 @@ def train(cfg: PretrainConfig, train_h5=None, val_h5=None, *,
         # a batch still being prepared finishes before the run returns
         pool.shutdown(wait=True, cancel_futures=True)
 
-    save_train_state(state_path, state)
-    save_pytree(os.path.join(run_dir, "latest_net_G.npz"), state.params_g)
-    save_pytree(os.path.join(run_dir, "latest_net_F.npz"), state.params_f)
-    logger.close()
+    if writer:
+        save_train_state(state_path, state)
+        save_pytree(os.path.join(run_dir, "latest_net_G.npz"), state.params_g)
+        save_pytree(os.path.join(run_dir, "latest_net_F.npz"), state.params_f)
+        logger.close()
     train_ds.close()
     if val_ds is not None:
         val_ds.close()

@@ -36,6 +36,7 @@ import re
 from typing import Any, Callable, Sequence
 
 import torch
+import torch.distributed as dist
 
 from anatomix_tpu_torch.device import resolve_device
 from anatomix_tpu_torch.models.unet import UnetPlan, init_params
@@ -53,6 +54,7 @@ from anatomix_tpu_torch.pretraining.patch_sample import (
     labels_at_coords,
     nearest_downsample,
     sample_patch_coords,
+    skip_patch_draw,
 )
 from anatomix_tpu_torch.utils.profiling import annotate
 
@@ -292,7 +294,7 @@ class NCEOptions:
 
 
 def _backbone_forward(plan, params_g, x, tap_layers, train, compute_dtype,
-                      eval_norm_layers, plain):
+                      eval_norm_layers, plain, bn_group=None):
     """`(taps, new_g_stats)`: the UNet's train walk (the 6M family's block
     walk, or the general walk for every other UNet), or the ViT's output
     volume as its single tap (the JAX package's `_backbone_forward`)."""
@@ -309,7 +311,7 @@ def _backbone_forward(plan, params_g, x, tap_layers, train, compute_dtype,
     _, taps, new_g_stats = unet_train_forward(
         plan, params_g, x, layers=tap_layers,
         eval_norm_layers=eval_norm_layers, compute_dtype=compute_dtype,
-        plain=plain,
+        plain=plain, bn_group=bn_group,
     )
     return taps, new_g_stats
 
@@ -331,19 +333,34 @@ def nce_forward(
     eval_norm_layers: Sequence[int] = (),
     fg_masks: torch.Tensor | None = None,  # (B, D, H, W) > 0 = foreground
     plain: bool = False,
+    mesh=None,
 ):
     """The multi-tap SupPatchNCE loss; returns `(loss, aux)` with aux =
     {new_g_stats, new_f_stats, per_layer}. With `fg_masks`, patches come
     from the foreground, the mask nearest-downsampled to each tap's grid.
     `plain=True` runs the backbone's f32 reference path (`F.conv3d`, and
-    for the ViT einsum/softmax attention)."""
+    for the ViT einsum/softmax attention).
+
+    With a `parallel.Mesh`, `views` and `segs` are this rank's contiguous
+    shard of a global batch split over the mesh's 'data' axis: the batch
+    norms (backbone and projector) take the global batch's statistics, the
+    patch sampler draws for every sample of the global batch in the
+    single-device order (tap, then sample) and keeps its own rows, and the
+    loss and per-tap losses returned are this rank's share of the global
+    mean (local sum / global B): summed over the ranks they are the global
+    batch's."""
     tap_layers = tuple(tap_layers)
     B = views.shape[0]
+    group, B_all, first = None, B, 0
+    if mesh is not None:
+        group = mesh.group("data")
+        B_all = B * mesh.axis_size("data")
+        first = B * mesh.axis_index("data")
     x = torch.cat([views[:, 0], views[:, 1]], dim=0)  # (2B, ...)
     with annotate("step/forward"):
         taps, new_g_stats = _backbone_forward(
             plan, params_g, x, tap_layers, train, compute_dtype,
-            eval_norm_layers, plain)
+            eval_norm_layers, plain, bn_group=group)
     if nce_weights is None:
         nce_weights = [1.0 / len(tap_layers)] * len(tap_layers)
 
@@ -355,13 +372,17 @@ def nce_forward(
             zip(tap_layers, taps, nce_weights)):
         tap_spatial = tuple(feat.shape[1:4])
         with annotate("step/sampler"):
-            coords = torch.stack([
-                sample_patch_coords(
+            drawn = []
+            for b_all in range(B_all):
+                b = b_all - first
+                if not 0 <= b < B:  # another rank's sample
+                    skip_patch_draw(generator, tap_spatial)
+                    continue
+                drawn.append(sample_patch_coords(
                     generator, tap_spatial, num_patches,
                     mask=(None if fg_masks is None
-                          else nearest_downsample(fg_masks[b], tap_spatial)))
-                for b in range(B)
-            ]).to(feat.device)  # (B, P, 3)
+                          else nearest_downsample(fg_masks[b], tap_spatial))))
+            coords = torch.stack(drawn).to(feat.device)  # (B, P, 3)
         with annotate("step/loss"):
             g1 = torch.stack([gather_at_coords(feat[b], coords[b])
                               for b in range(B)])
@@ -371,7 +392,7 @@ def nce_forward(
             P = stacked.shape[2]
             proj, f_stats = apply_patch_mlp(
                 params_f[f"mlp_{t}"], stacked.reshape(B * 2 * P, -1),
-                train=train)
+                train=train, group=group)
             new_f_stats[f"mlp_{t}"] = {
                 "linears": params_f[f"mlp_{t}"]["linears"], "bns": f_stats}
             proj = proj.reshape(B, 2, P, -1)
@@ -386,6 +407,10 @@ def nce_forward(
                 )
                 for b in range(B)
             ]).mean()
+            if group is not None:
+                # this rank's share of the global mean (times 1.0 at a
+                # world of one: the same bits as the mean)
+                loss_t = loss_t * (B / B_all)
             total = total + loss_t * w_t * nce.lambda_nce
             per_layer[str(layer_id)] = loss_t
     aux = {"new_g_stats": new_g_stats, "new_f_stats": new_f_stats,
@@ -414,6 +439,33 @@ def nce_loss_and_grads(plan, params_g, params_f, views, segs, generator,
     grads_f = tree_map(lambda p: by_id[id(p)], leaves_f)
     aux = tree_map(lambda v: v.detach() if torch.is_tensor(v) else v, aux)
     return loss.detach(), aux, grads_g, grads_f
+
+
+# gradients all-reduce in flat buckets of at most this many f32 values
+GRAD_BUCKET_ELEMS = 1 << 24
+
+
+def all_reduce_flat(tensors, group):
+    """Sum each of `tensors` (one dtype) over `group` in place, packed into
+    flat buckets of at most `GRAD_BUCKET_ELEMS` values, one all-reduce
+    each."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) > 1:
+        raise ValueError(f"one dtype per all-reduce, got {dtypes}")
+    i = 0
+    while i < len(tensors):
+        j, n = i, 0
+        while j < len(tensors) and (
+                j == i or n + tensors[j].numel() <= GRAD_BUCKET_ELEMS):
+            n += tensors[j].numel()
+            j += 1
+        flat = torch.cat([t.reshape(-1) for t in tensors[i:j]])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        off = 0
+        for t in tensors[i:j]:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+        i = j
 
 
 def _merge_bn_stats(params_g, new_g_stats):
@@ -447,13 +499,24 @@ def build_train_step(
     frozen_layers: Sequence[int] = (),
     use_fg_mask: bool = False,
     plain: bool = False,
+    mesh=None,
 ):
     """The train step `(state, views, segs, generator) -> (state,
     metrics)`; `views` (B, 2, D, H, W, 1) and `segs` (B, D, H, W, 1) are
     moved to the parameters' device. Metrics (0-d tensors and floats):
     loss, grad_norm_G, grad_norm_F, lr and nce_<layer>. `plain=True` runs
     the backbone's f32 reference path (`nce_forward`'s), the route the
-    kernels' multi-step curve is held against."""
+    kernels' multi-step curve is held against.
+
+    With a `parallel.Mesh` (data parallelism, `anatomix_tpu/pretraining/
+    train_step.py:388-521`): each rank passes its contiguous shard of the
+    global batch (`parallel.shard_batch`), the same state and a generator
+    in the same state; `nce_forward` gives each rank its share of the
+    global loss, every G and F gradient is summed over the 'data' group in
+    flat buckets (`all_reduce_flat`) before AdamW, and the metrics (loss,
+    per-tap losses, the gradient norms after the reduce) are the global
+    batch's. The batch norms' running statistics come out the same on
+    every rank, so the states stay replicas."""
     nce = NCEOptions(
         temperature=nce_temperature, lambda_nce=lambda_nce,
         weigh_rarity=weigh_rarity, balance_denominator=balance_denominator,
@@ -480,8 +543,19 @@ def build_train_step(
             compute_dtype=compute_dtype, eval_norm_layers=eval_norms,
             # label > 0 is the foreground mask
             fg_masks=(segs[..., 0] > 0) if use_fg_mask else None,
-            plain=plain,
+            plain=plain, mesh=mesh,
         )
+        if mesh is not None:
+            with annotate("step/all_reduce"):
+                group = mesh.group("data")
+                all_reduce_flat([g for _, g in tree_items(grads_g)]
+                                + [g for _, g in tree_items(grads_f)], group)
+                per = aux["per_layer"]
+                summed = torch.stack([loss] + [per[k] for k in per])
+                dist.all_reduce(summed, op=dist.ReduceOp.SUM, group=group)
+                loss = summed[0]
+                aux["per_layer"] = {k: summed[1 + i]
+                                    for i, k in enumerate(per)}
         tx_g = make_optimizer(
             lr, grad_clip=grad_clip, schedule=scaled_schedule,
             mask=_trainable_mask(state.params_g, frozen_layers),

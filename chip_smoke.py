@@ -122,7 +122,23 @@ Phases, each printed on its own lines; any failure exits non-zero:
      against the f32 plain route's bf16-image spread, the validation
      logits at 160^3 to the two-part rule; `[dev-segmentation-cli]`, the
      CLI with `--hf_variant anatomix-dev` for one epoch of 4 steps;
- 12. the `kernels` JSON line (launches on each path, errors, times and
+ 12. the parallel paths on a process group of this process alone (NCCL,
+     a world of one): `[parallel-full]`, the 6M UNet's 256^3 `full`
+     through the 'space' route (`make_feature_extractor(mesh=...)`: a halo
+     exchange and K1 in its D-valid mode for every conv), bit for bit
+     against `full` and to the two-part rule against the f32 plain path,
+     its wall time beside `full`'s in turns; `[parallel-dev-full]`, the dev
+     UNet's 128^3 `full` through it (the sharded instance norm, the
+     trilinear halo) against its unsharded `full`; `[parallel-step]`, the
+     6M and the dev pretraining steps: three unsharded steps from the
+     seeded state on `[train-step128]`'s batch, and from the state before
+     each one step through `build_train_step(mesh=...)`, each pair's loss
+     bit for bit, the first against `[train-step128]` /
+     `[dev-train-step128]`'s, the launches equal; then `[parallel]`, the
+     dry run (`anatomix_tpu_torch.parallel.dryrun`) on min(4, cards) ranks
+     of its own, one card each, on NCCL, with its trainer phase (`train`
+     with `device="cuda"` on one card and over the ranks);
+ 13. the `kernels` JSON line (launches on each path, errors, times and
      bounds), then the device's JSON line last.
 
 Each path runs with every launch count set to 0 just before it and read
@@ -143,6 +159,9 @@ range) and one segmentation step and one 256^3 validation (the same, by
 `seg/*` range) with torch.profiler, and one dev pretraining step, one
 dev finetuning step and one dev 256^3 validation;
 `--segmentation` runs phase 1 and then phase 11's 6M part alone;
+`--parallel` runs phase 1, K1's D-valid rows, then phase 12 alone (the
+unsharded steps it compares with run there; `chiprun_out/
+chip_parallel.json`);
 `--dev-train`
 runs phase 1, the backward kernels at the dev widths, then phase 7b and
 phase 11's dev part alone (with `--profile`: the dev profiles alone);
@@ -376,6 +395,56 @@ def check_conv(kc, torch, F, dev, gen, B, S, ci, co, out_f32=False,
         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
         plan=conv_plan_desc(kc.conv_plan(B, (S, S, S), ci, co)),
     )
+
+
+def check_conv_dvalid(kc, torch, F, dev, gen, B, S, ci, co, out_f32=False):
+    """conv3x3x3_dvalid_ndhwc, K1's D-valid mode: x (B, S + 2, S, S, ci)
+    with its two D-halo planes -> (B, S^3, co), reflect along H and W
+    (relu, bf16 out; or the dev split conv's f32 store with no act),
+    against its plain version, and F.conv3d on the fully pre-padded
+    input."""
+    x = torch.randn((B, S + 2, S, S, ci), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = (torch.randn((27 * ci, co), generator=gen, device=dev)
+         * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+    b = torch.randn((co,), generator=gen, device=dev) * 0.1
+    kw = dict(act="none" if out_f32 else "relu", pad_type="reflect",
+              out_dtype=torch.float32 if out_f32 else torch.bfloat16)
+    got = kc.conv3x3x3_dvalid_ndhwc(x, w, b, **kw)
+    ref = kc.conv3x3x3_dvalid_ndhwc_plain(x, w, b, **kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    tol = tol_conv_f32(27 * ci) if out_f32 else TOL_CONV_BF16
+    ms = cuda_ms(lambda: kc.conv3x3x3_dvalid_ndhwc(x, w, b, **kw))
+    plain_ms = cuda_ms(lambda: kc.conv3x3x3_dvalid_ndhwc_plain(x, w, b, **kw))
+    # yardstick: one cuDNN call (bf16, channels-last) on the input already
+    # padded along H and W; the pad is not timed
+    xc = F.pad(x.permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 0, 0),
+               mode="reflect").contiguous(
+        memory_format=torch.channels_last_3d)
+    wt = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    lib_ms = cuda_ms(lambda: F.conv3d(xc, wt, b.to(torch.bfloat16)))
+    vox = B * S ** 3
+    flops = 2.0 * vox * 27 * ci * co
+    nbytes = (B * (S + 2) * S * S * ci * 2 + 27 * ci * co * 2 + co * 4
+              + vox * co * (4 if out_f32 else 2))
+    b_ms, b_by = bound(flops, nbytes)
+    return dict(
+        shape=f"B{B} {S + 2}x{S}^2 -> {S}^3 {ci}->{co}"
+        + (" f32-out" if out_f32 else ""),
+        max_abs_err=err, rel_err=rel, tol=tol, ok=rel < tol, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        plan=conv_plan_desc(kc.conv_plan(B, (S, S, S), ci, co)),
+    )
+
+
+def dvalid_checks(kc, torch, F, dev, gen) -> list:
+    """K1's D-valid rows at the sharded paths' shapes: the 6M `full`'s
+    16-channel 256^3 conv (B1), the dev UNet's full-resolution split conv
+    (B2 128^3, 3 x 32 -> 32, f32 store)."""
+    return [check_conv_dvalid(kc, torch, F, dev, gen, 1, 256, 16, 16),
+            check_conv_dvalid(kc, torch, F, dev, gen, 2, 128, 96, 32, True)]
 
 
 def check_determinism(kc, torch, dev, gen):
@@ -1576,7 +1645,36 @@ def main(argv) -> int:
             kr8.depth_to_space_interleave_ndhwc,
         "space_to_depth_c1_ndhwc": kr8.space_to_depth_c1_ndhwc,
         "reflect_shell_ndhwc": kt.reflect_shell_ndhwc,
+        "conv3x3x3_dvalid_ndhwc": kc.conv3x3x3_dvalid_ndhwc,
     }
+
+    if "--parallel" in argv:
+        # phase 1, K1's D-valid rows, then the parallel phases alone
+        gen = torch.Generator(device=dev).manual_seed(0)
+        checks = {"conv3x3x3_dvalid_ndhwc": dvalid_checks(kc, torch, F, dev,
+                                                          gen)}
+        failed = log_kernel_rows(checks)
+        if failed:
+            raise RuntimeError(f"kernel disagrees with its plain version: "
+                               f"{failed}")
+        kwargs = ANATOMIX_VARIANTS["anatomix"]["unet_kwargs"]
+        plan, sd = load_model(
+            "scratch", allow_scratch=True, seed=0, device=dev,
+            num_downs=kwargs["num_downs"], ngf=kwargs["ngf"],
+            output_nc=kwargs["output_nc"])
+        paths = {}
+        report["checks"] = checks
+        report["parallel"] = run_parallel(
+            torch, dev, make_feature_extractor, wrappers, paths, plan, sd,
+            synthetic_volume(torch, dev, 256, seed=1), report, init_params,
+            build_plan(UnetConfig(**ANATOMIX_VARIANTS["anatomix-dev"]
+                                  ["unet_kwargs"])))
+        report["paths"] = paths
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_parallel.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        return 0
 
     if "--segmentation" in argv:
         # phase 1, then phase 11's 6M part alone (`--dev-train` runs the
@@ -1766,6 +1864,8 @@ def main(argv) -> int:
     # the dev pretraining step's and dev finetuning's backward widths
     for name, rows in dev_backward_checks(kt, torch, F, dev, gen).items():
         checks[name] += rows
+    # K1's D-valid mode at the spatially sharded paths' shapes
+    checks["conv3x3x3_dvalid_ndhwc"] += dvalid_checks(kc, torch, F, dev, gen)
     failed = log_kernel_rows(checks)
     report["checks"] = checks
     failed += check_attention_ragged(ka, torch, dev, gen)
@@ -1990,11 +2090,18 @@ def main(argv) -> int:
     # CLI)
     report.update(run_segmentation_phases(torch, dev, wrappers, paths, kt,
                                           plan))
+
+    # phase 12: the parallel paths (world 1 on one card) and the dry run
+    report["parallel"] = run_parallel(
+        torch, dev, make_feature_extractor, wrappers, paths, plan, sd, vol256,
+        report, init_params,
+        build_plan(UnetConfig(**ANATOMIX_VARIANTS["anatomix-dev"]
+                              ["unet_kwargs"])))
     for name in wrappers:
         log(f"[launches] {name}: " + ", ".join(
             f"{p} {v[name]}" for p, v in paths.items()))
 
-    # phase 12: the kernels line
+    # phase 13: the kernels line
     replaces = {
         "conv3x3x3_ndhwc": (
             "anatomix_tpu/ops/pallas/conv_block.py:248 "
@@ -2048,6 +2155,10 @@ def main(argv) -> int:
             "anatomix_tpu/ops/pallas/conv_block.py:691 conv_block_sparse_dx "
             "(the reflect pad adjoint its caller takes, "
             "anatomix_tpu/ops/pallas/conv_block_train.py:678-683)"),
+        "conv3x3x3_dvalid_ndhwc": (
+            "anatomix_tpu/ops/pallas/conv_block.py:248 conv_block_sparse_halo "
+            "(K1), in the JAX package's spatially sharded conv: the halo "
+            "pad, then a VALID conv (anatomix_tpu/models/unet.py:428-455)"),
     }
     csrc = "anatomix_tpu_torch/kernels/csrc/"
     sources = {
@@ -2070,6 +2181,7 @@ def main(argv) -> int:
         "depth_to_space_interleave_ndhwc": csrc + "reshuffle.cu",
         "space_to_depth_c1_ndhwc": csrc + "reshuffle.cu",
         "reflect_shell_ndhwc": csrc + "conv3d.cu",
+        "conv3x3x3_dvalid_ndhwc": csrc + "conv3d.cu",
     }
     # the line reports each kernel at its dominant main-path shape: the
     # 16-channel 128^3 conv, the 48->16 decoder conv, the ViT's bf16 stitch
@@ -2080,7 +2192,8 @@ def main(argv) -> int:
     # conv, the first pool's space-to-depth and the last upsample's
     # depth-to-space, the ViT step's attention backward, the ViT window's
     # fold and interleave exits, the f32 v1 entry, the reflect shell pass
-    # of the 16-channel 128^3 dgrad
+    # of the 16-channel 128^3 dgrad, K1's D-valid mode at the 6M `full`'s
+    # 16-channel 256^3 conv
     headline = {"conv3x3x3_ndhwc": 1, "conv3x3x3_upcat_ndhwc": 3,
                 "blend_scatter": 2, "conv3x3x3_cat_ndhwc": 0,
                 "upsample2x_trilinear_ndhwc": 0, "norm_apply_ndhwc": 0,
@@ -2090,7 +2203,8 @@ def main(argv) -> int:
                 "depth_to_space2_ndhwc": 0, "flash_attention_bwd_dkv": 0,
                 "flash_attention_bwd_dq": 0, "depth_to_space_fold_ndhwc": 0,
                 "depth_to_space_interleave_ndhwc": 0,
-                "space_to_depth_c1_ndhwc": 0, "reflect_shell_ndhwc": 0}
+                "space_to_depth_c1_ndhwc": 0, "reflect_shell_ndhwc": 0,
+                "conv3x3x3_dvalid_ndhwc": 0}
     kernels = []
     for name, rows in checks.items():
         row = rows[headline[name]]
@@ -4870,6 +4984,189 @@ def profile_segmentation(torch, dev, out_dir, ckpt, root, *, tag="",
                                  for m, c, k in ranges])
     del params, cache
     torch.cuda.empty_cache()
+    return out
+
+
+# -----------------------------------------------------------------------------
+# the parallel paths (one process group of the cards this machine has; one
+# card here gives a world of one, NCCL all the same)
+
+# [parallel-dev-full] against the unsharded forward: the same kernels on
+# the same planes (the halo planes are the planes the unsharded conv reads
+# through its padding), so any difference is of summation order
+TOL_SHARDED_VS_FULL = 1e-3
+
+
+def step_pair(torch, dev, wrappers, cfg, mesh, n_steps=3) -> dict:
+    """`[parallel-step]` for one config: `n_steps` unsharded steps of
+    `build_all(cfg)`'s step from its seeded state on `[train-step128]`'s
+    batch (the sampler at seed 7 each step), keeping the state before
+    each; then from each of those states one step through
+    `build_train_step(mesh=...)`. A step's loss is computed before its
+    update, so each pair reads the same state and must agree bit for bit;
+    the updates themselves differ from run to run on either route (T-w
+    adds its split partials with f32 atomics), which is why the pairs
+    start from one state instead of running free."""
+    from anatomix_tpu_torch.parallel.mesh import shard_batch
+    from anatomix_tpu_torch.pretraining.train import build_all
+
+    _, _, state, step = build_all(cfg, 1000, device=dev)
+    _, _, _, mstep = build_all(cfg, 1000, device=dev, mesh=mesh)
+    views, segs = train_batch(torch, dev, cfg.crop_size)
+    mviews, msegs = shard_batch(mesh, views), shard_batch(mesh, segs)
+    out = {k: [] for k in ("losses", "mesh_losses", "ms", "mesh_ms")}
+    for _ in range(n_steps):
+        for key, fn, v, s in (("", step, views, segs),
+                              ("mesh_", mstep, mviews, msegs)):
+            reset_counts(wrappers)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            new, metrics = fn(state, v, s,
+                              torch.Generator(device=dev).manual_seed(7))
+            end.record()
+            torch.cuda.synchronize()
+            out[f"{key}launches"] = counts(wrappers)
+            out[f"{key}ms"].append(start.elapsed_time(end))
+            out[f"{key}losses"].append(float(metrics["loss"]))
+            if key == "":
+                unsharded_next = new
+            del new
+        state = unsharded_next
+    del state, unsharded_next
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_parallel(torch, dev, mfe, wrappers, paths, plan, sd, vol256,
+                 report, init_params, dplan):
+    """The parallel phases: `[parallel-full]` (the 6M UNet's 256^3 `full`
+    through the 'space' route: a halo exchange and K1 in its D-valid mode
+    for every conv, against `full` on the same volume and the f32 plain
+    path), `[parallel-dev-full]` (the dev UNet's 128^3 `full` through it:
+    the sharded instance norm and the trilinear halo, against the
+    unsharded `full`), `[parallel-step]` (the 6M and the dev pretraining
+    steps through `build_train_step(mesh=...)`, their first three losses
+    against the unsharded steps'), then `[parallel]`: the dry run on
+    min(4, cards) ranks, one card each, on NCCL, and its trainer phase."""
+    import torch.distributed as dist
+
+    from anatomix_tpu_torch.parallel import dryrun
+    from anatomix_tpu_torch.parallel.launch import free_port, init_local_group
+    from anatomix_tpu_torch.parallel.mesh import data_mesh, space_mesh
+
+    out = {}
+    init_local_group(0, 1, "cuda", free_port())
+    try:
+        smesh = space_mesh(1, 1, device=dev)
+        n_conv = len(plan.conv_indices)
+
+        # [parallel-full]: the 6M `full` on 256^3 through the space route
+        full = mfe(plan, sd, strategy="full", device=dev)
+        sharded = mfe(plan, sd, strategy="full", device=dev, mesh=smesh)
+        sharded(vol256[:, :32, :32, :32])
+        reset_counts(wrappers)
+        feats, _ = timed(torch, lambda: sharded(vol256))
+        c = paths["parallel_full_256"] = counts(wrappers)
+        check_path("parallel-full", feats, (1, 256, 256, 256, 16), c,
+                   ["conv3x3x3_dvalid_ndhwc"])
+        if (c["conv3x3x3_dvalid_ndhwc"] != n_conv
+                or c["conv3x3x3_ndhwc"] or c["conv3x3x3_upcat_ndhwc"]):
+            raise RuntimeError(f"parallel-full: launches {c}, want "
+                               f"{n_conv} D-valid convs and no other")
+        # the two routes in turns: full, sharded, sharded, full, ...
+        t_full, t_sp = [], []
+        for _ in range(3):
+            t_full.append(timed(torch, lambda: full(vol256))[1])
+            t_sp.append(timed(torch, lambda: sharded(vol256))[1])
+        ref_full = full(vol256)
+        eager = mfe(plan, sd, strategy="full", impl="eager", device=dev)
+        ref = eager(vol256)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            e_plain_bf16 = mean_rel(eager(vol256), ref)
+        e = model_err(feats, ref)
+        d = model_err(feats, ref_full)
+        log(f"[parallel-full] 256^3 space route (world 1): median "
+            f"{statistics.median(t_sp):.4f} s {t_sp} beside `full` "
+            f"{statistics.median(t_full):.4f} s {t_full}; launches {c}")
+        log(f"[parallel-full] vs `full`: max_abs_err {d['max_abs_err']:.3e}"
+            f", mean|err|/std {d['mean_err_over_std']:.3e}; vs the f32 "
+            f"plain path {e['mean_err_over_std']:.3e} (`full` "
+            f"{mean_rel(ref_full, ref):.3e}, the plain path in bf16 "
+            f"{e_plain_bf16:.3e})")
+        two_part_gate("parallel-full", e["mean_err_over_std"], e_plain_bf16)
+        out["full"] = dict(seconds=t_sp, full_seconds=t_full, launches=c,
+                           vs_full=d, vs_plain=e, plain_bf16=e_plain_bf16)
+        del feats, ref_full, ref, full, sharded, eager
+        torch.cuda.empty_cache()
+
+        # [parallel-dev-full]: the dev UNet at 128^3 through the space route
+        dsd = {k: v.to(dev) for k, v in
+               init_params(dplan, torch.Generator().manual_seed(0)).items()}
+        vol128 = vol256[:, :128, :128, :128].contiguous()
+        dfull = mfe(dplan, dsd, strategy="full", device=dev)
+        dsharded = mfe(dplan, dsd, strategy="full", device=dev, mesh=smesh)
+        ref = dfull(vol128)
+        dsharded(vol128)
+        torch.cuda.synchronize()
+        reset_counts(wrappers)
+        y = dsharded(vol128)
+        torch.cuda.synchronize()
+        c = paths["parallel_dev_full_128"] = counts(wrappers)
+        check_path("parallel-dev-full", y, (1, 128, 128, 128, 32), c,
+                   ["conv3x3x3_dvalid_ndhwc", "norm_apply_ndhwc",
+                    "upsample2x_trilinear_ndhwc"])
+        if c["conv3x3x3_ndhwc"] or c["conv3x3x3_cat_ndhwc"]:
+            raise RuntimeError(f"parallel-dev-full: launches {c}")
+        ms = cuda_ms(lambda: dsharded(vol128))
+        full_ms = cuda_ms(lambda: dfull(vol128))
+        d = model_err(y, ref)
+        log(f"[parallel-dev-full] 94M 128^3 space route (world 1): "
+            f"{ms:.4f} ms beside `full` {full_ms:.4f} ms; vs `full` "
+            f"max_abs_err {d['max_abs_err']:.3e}, mean|err|/std "
+            f"{d['mean_err_over_std']:.3e} (tol {TOL_SHARDED_VS_FULL}); "
+            f"launches {c}")
+        if not d["mean_err_over_std"] < TOL_SHARDED_VS_FULL:
+            raise RuntimeError(f"parallel-dev-full: {d}")
+        out["dev_full"] = dict(ms=ms, full_ms=full_ms, launches=c,
+                               vs_full=d)
+        del y, ref, dfull, dsharded, dsd
+        torch.cuda.empty_cache()
+
+        # [parallel-step]: the steps through build_train_step(mesh=...)
+        from anatomix_tpu_torch.pretraining.config import PretrainConfig
+
+        dmesh = data_mesh(1, device=dev)
+        for name, cfg, key in (("6M", PretrainConfig(), "train"),
+                               ("dev", dev_pretrain_config(), "dev_train")):
+            r = step_pair(torch, dev, wrappers, cfg, dmesh)
+            c = paths[f"parallel_step_{name}"] = r["mesh_launches"]
+            bit = [a == b for a, b in zip(r["mesh_losses"], r["losses"])]
+            log(f"[parallel-step] {name}: losses through the mesh "
+                f"{r['mesh_losses']}, unsharded from the same states "
+                f"{r['losses']}: bit-equal {bit}; step ms {r['mesh_ms']} "
+                f"beside {r['ms']}; launches per step {c}")
+            if key in report:  # the earlier phase, free-running
+                ref = report[key]["losses"][:3]
+                log(f"[parallel-step] {name}: `[{key.replace('_', '-')}"
+                    f"-step128]` read {ref} (rel "
+                    f"{[abs(a - b) / abs(b) for a, b in zip(r['losses'], ref)]}"
+                    f" from the unsharded steps here)")
+                if r["losses"][0] != ref[0]:
+                    raise RuntimeError(f"parallel-step {name}: first loss "
+                                       f"{r['losses'][0]} vs {ref[0]}")
+            if not all(bit) or c != r["launches"]:
+                raise RuntimeError(f"parallel-step {name}: {r}")
+            out[f"step_{name}"] = dict(r, bit_equal=bit)
+    finally:
+        dist.destroy_process_group()
+
+    # [parallel]: the dry run, one rank per card (not this process's group)
+    n = min(4, torch.cuda.device_count())
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun.dryrun(n, "cuda", with_train=True)
+    out["dryrun"]["seconds"] = time.perf_counter() - t0
+    log(f"[parallel] dryrun over {n} ranks on NCCL: {out['dryrun']}")
     return out
 
 

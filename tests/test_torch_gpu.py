@@ -1129,3 +1129,130 @@ def test_dev_train_walk_on_the_card_matches_the_plain_walk(cuda):
     assert ((out - ref).abs().mean() / ref.std()).item() < 1e-3
     for g_k, g_p in zip(grads, rgrads):
         assert ((g_k - g_p).abs().mean() / g_p.std()).item() < 5e-2
+
+
+# -----------------------------------------------------------------------------
+# the parallel paths: K1's D-valid mode, a one-rank NCCL group
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ci,co,pad,act,B,dl", [
+    (16, 16, "reflect", "relu", 1, 16),    # the brick
+    (96, 32, "reflect", "none", 2, 8),     # a split conv's width, f32 store
+    (5, 7, "zeros", "elu", 2, 1),          # one plane, scalar loads
+    (256, 256, "reflect", "relu", 2, 4),   # the gather ring, split K
+])
+def test_dvalid_conv_kernel_matches_plain(cuda, ci, co, pad, act, B, dl):
+    """K1's D-valid mode: x (B, Dl + 2, H, W, ci) with its halo planes;
+    against its plain version, and against the "same" conv of the volume
+    the planes were cut from (rows 1..Dl of it), the same kernel arithmetic
+    on the same planes."""
+    from anatomix_tpu_torch.kernels.conv import (
+        conv3x3x3_dvalid_ndhwc,
+        conv3x3x3_dvalid_ndhwc_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    S = 12
+    w = (torch.randn((27 * ci, co), generator=g, device=cuda) * 0.1).bfloat16()
+    b = torch.randn((co,), generator=g, device=cuda)
+    x = torch.randn((B, dl + 2, S, S + 2, ci), generator=g,
+                    device=cuda).bfloat16()
+    # f32 out: the two sums of 27 ci products in another order, each up to
+    # k ulps (chip_smoke.tol_conv_f32)
+    for out_dtype, tol in ((torch.bfloat16, 1e-2),
+                           (torch.float32, max(1e-4, 27 * ci * 2.0 ** -24))):
+        kw = dict(act=act, slope=0.3, pad_type=pad, out_dtype=out_dtype)
+        before = conv3x3x3_dvalid_ndhwc.launches
+        got = conv3x3x3_dvalid_ndhwc(x, w, b, **kw)
+        ref = conv3x3x3_dvalid_ndhwc_plain(x, w, b, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (B, dl, S, S + 2, co)
+        assert conv3x3x3_dvalid_ndhwc.launches == before + 1
+        assert _maxrel(got.float().cpu(), ref.float().cpu()) < tol
+        # into the interior of a haloed buffer
+        if B == 1:
+            buf = torch.zeros((1, dl + 2, S, S + 2, co), dtype=out_dtype,
+                              device=cuda)
+            conv3x3x3_dvalid_ndhwc(x, w, b, out=buf[:, 1:-1], **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(buf[:, 1:-1], got)
+            assert not buf[:, 0].any() and not buf[:, -1].any()
+    if pad == "reflect" and dl >= 2:
+        # the whole volume: its reflect halo planes make the D-valid conv
+        # the "same" conv
+        vol = x[:, 1:-1].contiguous()
+        halo = torch.cat([vol[:, 1:2], vol, vol[:, -2:-1]], dim=1)
+        kw = dict(act=act, slope=0.3, pad_type=pad, out_dtype=torch.float32)
+        same = conv3x3x3_ndhwc(vol, w, b, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(conv3x3x3_dvalid_ndhwc(halo, w, b, **kw), same)
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_group_and_halo_exchange(cuda):
+    """A world of one on NCCL: the halo exchange of CUDA tensors is the
+    padding alone (reflect, replicate, zeros), the autograd all-reduce is
+    the identity forward and backward, and the sharded forward equals
+    `full` bit for bit."""
+    import torch.distributed as dist
+
+    from anatomix_tpu_torch.extract import make_feature_extractor
+    from anatomix_tpu_torch.models.unet import (
+        UnetConfig,
+        build_plan,
+        init_params,
+    )
+    from anatomix_tpu_torch.parallel.launch import (
+        free_port,
+        init_local_group,
+    )
+    from anatomix_tpu_torch.parallel.mesh import all_reduce_sum, space_mesh
+    from anatomix_tpu_torch.parallel.spatial import halo_pad_d
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized")
+    dev = init_local_group(0, 1, "cuda", free_port())
+    try:
+        mesh = space_mesh(1, 1, device=dev)
+        group = mesh.group("space")
+        x = torch.randn((1, 6, 4, 5, 3), device=dev).bfloat16()
+        want = {"reflect": (x[:, 1:2], x[:, -2:-1]),
+                "replicate": (x[:, :1], x[:, -1:]),
+                "zeros": (torch.zeros_like(x[:, :1]),) * 2}
+        for pad, (lo, hi) in want.items():
+            got = halo_pad_d(x, group, pad)
+            assert got.device.type == "cuda"
+            assert torch.equal(got, torch.cat([lo, x, hi], dim=1)), pad
+        t = torch.randn(5, device=dev, requires_grad=True)
+        y = all_reduce_sum(t * 2.0, group)
+        y.sum().backward()
+        assert torch.equal(y, t.detach() * 2.0)
+        assert torch.equal(t.grad, torch.full_like(t, 2.0))
+        plan = build_plan(UnetConfig(input_nc=1, output_nc=4, num_downs=2,
+                                     ngf=4, norm="instance", pooling="Avg",
+                                     interp="trilinear", norm_eps=1e-2))
+        sd = init_params(plan, torch.Generator().manual_seed(0))
+        vol = torch.rand((1, 16, 16, 16, 1), device=dev)
+        full = make_feature_extractor(plan, sd, strategy="full", device=dev)
+        sharded = make_feature_extractor(plan, sd, strategy="full",
+                                         device=dev, mesh=mesh)
+        assert torch.equal(sharded(vol), full(vol))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_trainer_on_the_card_named_without_an_index(cuda):
+    """`train(cfg)` with `device="cuda"` (its default, no index): the batch
+    pipeline's worker thread binds to the caller's card. Two runs of the
+    dry run's trainer phase at world 1 log the same first loss, and the
+    later ones within `TOL_TRAIN` (T-w's f32 atomics make each update
+    differ run to run)."""
+    from anatomix_tpu_torch.parallel.dryrun import TOL_TRAIN, trainer_losses
+
+    t = trainer_losses(1, "cuda")
+    assert len(t["one"]) == 2 and len(t["one_val"]) == 1
+    assert np.isfinite(t["one"] + t["one_val"]).all()
+    assert t["dp"][0] == t["one"][0]
+    np.testing.assert_allclose(t["dp"] + t["dp_val"], t["one"] + t["one_val"],
+                               rtol=TOL_TRAIN[torch.bfloat16])

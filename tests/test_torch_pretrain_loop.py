@@ -346,11 +346,27 @@ def test_trainer_cli(tmp_path, monkeypatch):
         "nce_layers"] == [11, 33]
 
 
-def test_trainer_is_single_device(tmp_path):
-    """Multi-device data parallelism is ROADMAP item 14."""
-    for kw in (dict(multihost=True), dict(data_parallel_devices=2)):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            ptrain.train(_tiny_cfg(tmp_path, **kw), device="cpu")
+def test_trainer_is_single_device(tmp_path, monkeypatch):
+    """The two configs the single-device trainer once refused now train:
+    `multihost=True` with no launcher's variables is a world of one (the
+    single-device run), `data_parallel_devices=2` two gloo ranks on a
+    global batch of 2 (`tests/test_torch_parallel_train.py` holds their
+    losses to the single-device run's)."""
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT", "JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+              "JAX_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    _make_h5(str(tmp_path / "train_data.hdf5"), n_subjects=4)
+    for name, kw in (("mh", dict(multihost=True)),
+                     ("dp", dict(data_parallel_devices=2, batch_size=2))):
+        state = ptrain.train(_tiny_cfg(tmp_path, name=name, max_iters=2,
+                                       **kw), device="cpu")
+        assert state.step == 2
+        run_dir = tmp_path / "ckpt" / name
+        assert (run_dir / "latest_train_state.npz").exists()
+        recs = [json.loads(line) for line in
+                (run_dir / "scalars.jsonl").read_text().splitlines()]
+        assert [r["step"] for r in recs if "loss/loss" in r] == [2]
 
 
 def test_batch_pipeline_transfer(tmp_path):
