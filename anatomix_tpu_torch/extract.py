@@ -26,6 +26,8 @@ from anatomix_tpu_torch.models.unet import (
     Unet,
     UnetPlan,
     check_supported,
+    deflate,
+    lift_input,
 )
 from anatomix_tpu_torch.models.unet_fused import (
     prepack_fused,
@@ -44,16 +46,22 @@ def fold_batchnorm(plan: UnetPlan, state_dict: dict[str, torch.Tensor]):
     """Fold eval-mode batch norms into their preceding convs.
 
     Returns `(folded_plan, folded_state_dict)`; norm layers become
-    'identity' so indices, and tap semantics, are preserved."""
+    'identity' so indices, and tap semantics, are preserved. A batch norm
+    whose conv is a residual source stays live: the residual adds the
+    conv's raw output, which a fold would replace by the normalized value
+    (the JAX package's `fold_batchnorm` folds it all the same, ROADMAP
+    F10)."""
     if plan.config.norm != "batch":
         return plan, dict(state_dict)
     new_layers = list(plan.layers)
     sd = dict(state_dict)
     prev_conv = None
+    live = (set(plan.res_source) if plan.config.residual_connection
+            else set())
     for idx, spec in enumerate(plan.layers):
         if spec.kind == "conv":
             prev_conv = idx
-        elif spec.kind == "norm":
+        elif spec.kind == "norm" and prev_conv not in live:
             base = f"model.{idx}"
             scale = sd.pop(f"{base}.weight").float()
             bias = sd.pop(f"{base}.bias").float()
@@ -63,9 +71,9 @@ def fold_batchnorm(plan: UnetPlan, state_dict: dict[str, torch.Tensor]):
             inv = scale / torch.sqrt(var + plan.config.norm_eps)
             shift = bias - mean * inv
             cbase = f"model.{prev_conv}"
-            sd[f"{cbase}.weight"] = (
-                sd[f"{cbase}.weight"].float() * inv[:, None, None, None, None]
-            )
+            w = sd[f"{cbase}.weight"].float()
+            sd[f"{cbase}.weight"] = w * inv.reshape((-1,) + (1,) * (w.dim()
+                                                                  - 1))
             old_b = sd.get(f"{cbase}.bias")
             sd[f"{cbase}.bias"] = shift if old_b is None else old_b + shift
             new_layers[idx] = LayerSpec("identity")
@@ -182,6 +190,10 @@ def make_feature_extractor(
     """Build `volume (1, D, H, W, C) -> features (1, D, H, W, out)` (f32
     on `device`).
 
+    A 1-D or 2-D UNet takes `(B, L, C)` or `(B, H, W, C)` and returns its
+    features at that rank; its windows and tiles cut the real axes
+    (`roi_size`'s last `dimension` extents).
+
     Strategies: 'sliding' (the reference's Gaussian-blended windows),
     'full' (one whole-volume forward, padded to a multiple of
     2**num_downs and cropped; for an instance-norm model the statistics
@@ -249,33 +261,46 @@ def make_feature_extractor(
             return net(x.float(), in_tile_counts=tile_counts)
     else:
         raise ValueError(f"unknown impl {impl!r}")
-    out_channels = plan.config.output_nc
-    stride = 2 ** plan.config.num_downs
+    cfg = plan.config
+    out_channels = cfg.output_nc
+    stride = 2 ** cfg.num_downs
+    dim, off = cfg.dimension, 3 - cfg.dimension
 
     @torch.inference_mode()
     def extract(volume):
         x = torch.as_tensor(volume, dtype=torch.float32, device=dev)
         if strategy in ("full", "full_tiled"):
             pads, crops = [], []
-            for s in x.shape[1:4]:
+            for s in x.shape[1:1 + dim]:
                 pad = (-s) % stride
                 pads.append((pad // 2, pad - pad // 2))
-                crops.append((pad // 2, pad // 2 + s))
+                crops.append(slice(pad // 2, pad // 2 + s))
             if any(p != (0, 0) for p in pads):
                 x = F.pad(x, (0, 0) + tuple(
                     v for p in reversed(pads) for v in p))
             tile_counts = None
             if strategy == "full_tiled":
-                tile_counts = tuple(max(1, round(s / r))
-                                    for s, r in zip(x.shape[1:4], roi_size))
+                tile_counts = (1,) * off + tuple(
+                    max(1, round(s / r)) for s, r in
+                    zip(x.shape[1:1 + dim], tuple(roi_size)[-dim:]))
             y = model_fn(x, tile_counts)
-            (c0, c1), (c2, c3), (c4, c5) = crops
-            return y[:, c0:c1, c2:c3, c4:c5, :]
-        return sliding_window_inference(
-            x, model_fn, out_channels, roi_size=roi_size,
+            return y[(slice(None), *crops)]
+        if not off:
+            return sliding_window_inference(
+                x, model_fn, out_channels, roi_size=roi_size,
+                sw_batch_size=sw_batch_size or 2, overlap=overlap,
+                mode=mode, sigma_scale=sigma_scale, mesh=mesh,
+            )
+        # a 1-D or 2-D net's windows: the lifted volume with the batch on
+        # its first axis, windows of extent 1 on the lifted axes
+        y = sliding_window_inference(
+            x.reshape((1, x.shape[0]) + (1,) * (off - 1) + x.shape[1:]),
+            lambda w: lift_input(cfg, model_fn(deflate(cfg, w))),
+            out_channels, roi_size=(1,) * off + tuple(roi_size)[-dim:],
             sw_batch_size=sw_batch_size or 2, overlap=overlap, mode=mode,
             sigma_scale=sigma_scale, mesh=mesh,
         )
+        return y.reshape(x.shape[:1] + y.shape[1 + off:])
 
     return extract
 

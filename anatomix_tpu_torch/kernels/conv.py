@@ -25,6 +25,9 @@ counts its kernel launches in `.launches`.
 
 Weights are packed `(27 * Ci, Co)` bf16 (`ops/conv.pack_conv_weight`), the
 bias is f32, the input bf16, accumulation f32, and the output bf16 or f32.
+`pad_type` is zeros, reflect, replicate or circular, one mode for the three
+axes or a mode per axis (D, H, W): a lifted 1-D or 2-D UNet pads its
+extent-1 axes with zeros (`pad_code`, the C side's `pad_index`).
 """
 
 from __future__ import annotations
@@ -37,22 +40,38 @@ import torch.nn.functional as F
 
 from anatomix_tpu_torch.kernels import build
 from anatomix_tpu_torch.ops.activations import EPILOGUE_ACTS, apply_activation
-from anatomix_tpu_torch.ops.conv import conv3d_same, unpack_conv_weight
+from anatomix_tpu_torch.ops.conv import (
+    conv3d_same,
+    pad_axes,
+    pad_modes,
+    unpack_conv_weight,
+)
 from anatomix_tpu_torch.ops.resize import upsample2x
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, w, bias, out, ws, plan; B, D, H, W, ci, co, reflect, act; slope;
+    # x, w, bias, out, ws, plan; B, D, H, W, ci, co, pad, act; slope;
     # out_f32, stream
     "conv3x3x3_ndhwc": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
     # enc, small/up, w, bias, out, ws, plan; B, D, H, W, c1, c2, co,
-    # reflect, act; slope; out_f32, stream
+    # pad, act; slope; out_f32, stream
     "conv3x3x3_upcat_ndhwc": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
     "conv3x3x3_cat_ndhwc": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
     # as conv3x3x3_ndhwc, D the input's planes (halo included)
     "conv3x3x3_dvalid_ndhwc": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
 }
 _fns: dict = {}
+
+
+# each axis's padding in `pad_code` (the C side's `pad_index`)
+PAD_CODES = {"zeros": 0, "reflect": 1, "replicate": 2, "circular": 3}
+
+
+def pad_code(pad_type) -> int:
+    """The C side's pad argument: two bits per axis, D in bits 0-1, H in
+    2-3, W in 4-5 (`PAD_CODES`)."""
+    return sum(PAD_CODES[m] << (2 * a) for a, m in enumerate(
+        pad_modes(pad_type)))
 
 
 def _fn(name: str):
@@ -254,8 +273,8 @@ def conv3x3x3_dvalid_ndhwc_plain(
     """`x` (B, D + 2, H, W, Ci) with its D-halo planes: `F.pad` of H and W
     by `pad_type`, then a valid `F.conv3d`; (B, D, H, W, Co)."""
     w = unpack_conv_weight(w_packed.float(), x.shape[-1])
-    xc = F.pad(x.float().permute(0, 4, 1, 2, 3), (1, 1, 1, 1, 0, 0),
-               mode="reflect" if pad_type == "reflect" else "constant")
+    xc = pad_axes(x.float().permute(0, 4, 1, 2, 3),
+                  ((0, 0), (1, 1), (1, 1)), pad_type)
     y = F.conv3d(xc, w, bias.float()).permute(0, 2, 3, 4, 1)
     return apply_activation(y, act, slope=slope).to(out_dtype)
 
@@ -301,15 +320,23 @@ def _check_common(ref, w_packed, bias, ci, spatial, act, pad_type, out_dtype):
             raise ValueError(f"weights and bias must be contiguous on {dev}")
     if act not in EPILOGUE_ACTS:
         raise ValueError(f"unsupported epilogue activation {act!r}")
-    if pad_type not in ("reflect", "zeros"):
-        raise ValueError(f"unsupported pad_type {pad_type!r}")
-    if pad_type == "reflect" and min(spatial) < 2:
-        raise ValueError(f"reflect padding needs extents >= 2, got {spatial}")
-    if min(spatial) < 1:
-        raise ValueError(f"empty volume {spatial}")
+    check_pad_extents(spatial, pad_type)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bf16 or f32, got {out_dtype}")
     return co
+
+
+def check_pad_extents(spatial, pad_type) -> None:
+    """Raise unless every axis of `spatial` (D, H, W; or the padded
+    trailing axes it lists) takes its mode of `pad_type`: reflect needs an
+    extent of 2, the others 1."""
+    modes = pad_modes(pad_type)[3 - len(spatial):]
+    if min(spatial) < 1:
+        raise ValueError(f"empty volume {spatial}")
+    for n, m in zip(spatial, modes):
+        if m == "reflect" and n < 2:
+            raise ValueError(f"reflect padding needs extents >= 2, got "
+                             f"{spatial}")
 
 
 def _check_act(t, name):
@@ -347,7 +374,7 @@ def conv3x3x3_ndhwc(
     rc = _fn("conv3x3x3_ndhwc")(
         x.data_ptr(), w_packed.data_ptr(), bias.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None, plan.as_c(),
-        B, D, H, W, ci, co, int(pad_type == "reflect"), EPILOGUE_ACTS[act],
+        B, D, H, W, ci, co, pad_code(pad_type), EPILOGUE_ACTS[act],
         float(slope), int(out_dtype == torch.float32), stream,
     )
     build.check(rc, "conv3x3x3_ndhwc")
@@ -402,7 +429,7 @@ def conv3x3x3_dvalid_ndhwc(
     rc = _fn("conv3x3x3_dvalid_ndhwc")(
         x.data_ptr(), w_packed.data_ptr(), bias.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None, plan.as_c(),
-        B, Dh, H, W, ci, co, int(pad_type == "reflect"), EPILOGUE_ACTS[act],
+        B, Dh, H, W, ci, co, pad_code(pad_type), EPILOGUE_ACTS[act],
         float(slope), int(out_dtype == torch.float32), stream,
     )
     build.check(rc, "conv3x3x3_dvalid_ndhwc")
@@ -455,7 +482,7 @@ def conv3x3x3_upcat_ndhwc(
         enc.data_ptr() if enc is not None else None, small.data_ptr(),
         w_packed.data_ptr(), bias.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None, plan.as_c(),
-        B, D, H, W, c1, c2, co, int(pad_type == "reflect"),
+        B, D, H, W, c1, c2, co, pad_code(pad_type),
         EPILOGUE_ACTS[act], float(slope), int(out_dtype == torch.float32),
         stream,
     )
@@ -504,7 +531,7 @@ def conv3x3x3_cat_ndhwc(
     rc = _fn("conv3x3x3_cat_ndhwc")(
         enc.data_ptr(), up.data_ptr(), w_packed.data_ptr(), bias.data_ptr(),
         out.data_ptr(), ws.data_ptr() if ws is not None else None,
-        plan.as_c(), B, D, H, W, c1, c2, co, int(pad_type == "reflect"),
+        plan.as_c(), B, D, H, W, c1, c2, co, pad_code(pad_type),
         EPILOGUE_ACTS[act], float(slope), int(out_dtype == torch.float32),
         stream,
     )

@@ -8,11 +8,11 @@ _wgrad_halo, _wgrad) with the kernel of `csrc/conv3d_wgrad.cu`;
 `conv3x3x3_dgrad_ndhwc` replaces T-x (`anatomix_tpu/ops/pallas/
 conv_block.py` conv_block_sparse_dx, with the pad adjoint its caller takes
 in `conv_block_train.py`) with the transposed conv of `csrc/conv3d.cu`;
-under reflect padding its store is split (`reflect_dgrad_store`: every
-voxel off the shell straight into dx, the shell's sources into a scratch)
-and the shell pass `reflect_shell_ndhwc` sums the rest. The sources'
-headers say what bounds each on the card and what its design does about
-it. With `stride=2` both run the stride-2
+under reflect, replicate or circular padding its store is split
+(`pad_dgrad_store`: every voxel off the shell straight into dx, the shell's
+sources into a scratch) and the shell pass `pad_shell_ndhwc` sums the rest.
+The sources' headers say what bounds each on the card and what its design
+does about it. With `stride=2` both run the stride-2
 pad-1 conv's gradients (the ViT tokenizer's down convs) from its output
 gradient on its own grid, with no zeros inserted; their plain versions,
 `conv3x3x3_wgrad_s2_ndhwc_plain` and `conv3x3x3_dgrad_s2_ndhwc_plain`,
@@ -51,13 +51,17 @@ from anatomix_tpu_torch.kernels.conv import (
     TILE_M,
     _cdiv,
     brick_bits,
+    check_pad_extents,
     conv3x3x3_ndhwc,
     conv_plan,
     n_tile,
+    pad_code,
     workspace,
 )
 from anatomix_tpu_torch.ops.conv import (
     pack_conv_weight,
+    pad_axes,
+    pad_modes,
     split3,
     split3_weight,
     unpack_conv_weight,
@@ -65,15 +69,15 @@ from anatomix_tpu_torch.ops.conv import (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, dy, dw, plan; B, D, H, W, ci, co, reflect, stride; stream
-    "conv3x3x3_wgrad_ndhwc": ("conv3d_wgrad", [_P] * 4 + [_I] * 8 + [_P]),
-    # dy, w_t, zero_bias, g_ext, dx, ws, plan; B, D, H, W, co, ci, reflect;
+    # x, dy, dw, ws, plan; B, D, H, W, ci, co, pad, stride; stream
+    "conv3x3x3_wgrad_ndhwc": ("conv3d_wgrad", [_P] * 5 + [_I] * 8 + [_P]),
+    # dy, w_t, zero_bias, g_ext, dx, ws, plan; B, D, H, W, co, ci, pad;
     # stream
     "conv3x3x3_dgrad_ndhwc": ("conv3d", [_P] * 7 + [_I] * 7 + [_P]),
     # dy, w_t, zero_bias, dx, plan; B, d, h, w, D, H, W, co, ci; stream
     "conv3x3x3_dgrad_s2_ndhwc": ("conv3d", [_P] * 5 + [_I] * 9 + [_P]),
-    # g_ext, dx; B, D, H, W, C; stream
-    "reflect_shell_ndhwc": ("conv3d", [_P] * 2 + [_I] * 5 + [_P]),
+    # g_ext, dx; B, D, H, W, C, pad; stream
+    "pad_shell_ndhwc": ("conv3d", [_P] * 2 + [_I] * 6 + [_P]),
 }
 _fns: dict = {}
 
@@ -87,12 +91,6 @@ def _fn(name: str):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
-
-
-def _pad_mode(pad_type: str) -> str:
-    if pad_type not in ("reflect", "zeros"):
-        raise ValueError(f"unsupported pad_type {pad_type!r}")
-    return "reflect" if pad_type == "reflect" else "constant"
 
 
 def flip_transpose_packed(w_packed: torch.Tensor, ci: int) -> torch.Tensor:
@@ -162,8 +160,8 @@ class WgradPlan(NamedTuple):
 # bricks read 1.6e-3 and 6e-4 of max |dW| from the plain version (NVIDIA
 # H100); the 6M and ViT paths' runs, up to 1024 bricks (the 6M
 # segmentation step's 64^3 96 -> 32 at batch 3), stay under 5.5e-4.
-# Longer grids take more splits, added in by the f32 atomics; no plan of
-# the 6M and ViT paths reaches the cap.
+# Longer grids take more splits, summed in split order by the reduce
+# kernel; no plan of the 6M and ViT paths reaches the cap.
 WGRAD_MAX_RUN = 1024
 
 
@@ -205,6 +203,16 @@ def wgrad_plan(B: int, grid, ci: int, co: int, stride: int = 1
                      _cdiv(n_bricks, per_split), per_split)
 
 
+def wgrad_workspace(plan: WgradPlan, ci: int, co: int, device):
+    """The f32 per-split partials (splits, 27 * Ci, Co) of a plan of more
+    than one split, which the reduce kernel sums in split order, or None
+    (one split stores straight into dW)."""
+    if plan.splits == 1:
+        return None
+    return torch.empty((plan.splits, 27 * ci, co), dtype=torch.float32,
+                       device=device)
+
+
 # -----------------------------------------------------------------------------
 # plain versions (f32 arithmetic on the same inputs)
 
@@ -217,8 +225,8 @@ def conv3x3x3_wgrad_ndhwc_plain(x, dy, *, pad_type="reflect", stride=1):
         return conv3x3x3_wgrad_s2_ndhwc_plain(x, dy)
     B, D, H, W, ci = x.shape
     co = dy.shape[-1]
-    xp = F.pad(x.float().permute(0, 4, 1, 2, 3), (1,) * 6,
-               mode=_pad_mode(pad_type)).permute(0, 2, 3, 4, 1)
+    xp = pad_axes(x.float().permute(0, 4, 1, 2, 3), ((1, 1),) * 3,
+                  pad_type).permute(0, 2, 3, 4, 1)
     g = dy.float().reshape(-1, co)
     rows = []
     for kd in range(3):
@@ -275,49 +283,67 @@ def conv3x3x3_dgrad_s2_ndhwc_plain(dy, w_packed, spatial, *, out_dtype=None):
         out_dtype or dy.dtype)
 
 
-def _reflect_pad_adjoint(g: torch.Tensor) -> torch.Tensor:
-    """Adjoint of a reflect pad of 1 on axes 1-3 of (B, S+2, ..., C): the
-    interior, plus each halo face added onto the voxel it mirrors."""
-    for ax in (1, 2, 3):
+def face_targets(n: int, mode: str) -> tuple[int, int] | None:
+    """The indices of an n-extent axis that its halo faces 0 and n + 1 are
+    added onto by the adjoint of a pad of 1 (`csrc/conv3d.cu` face_lo,
+    face_hi): reflect (1, n - 2), replicate (0, n - 1), circular (n - 1,
+    0); None for zeros, whose faces drop."""
+    return {"reflect": (1, n - 2), "replicate": (0, n - 1),
+            "circular": (n - 1, 0)}.get(mode)
+
+
+def _pad_adjoint(g: torch.Tensor, pad_type) -> torch.Tensor:
+    """Adjoint of a pad of 1 on axes 1-3 of (B, S+2, ..., C) by each
+    axis's mode: the interior, plus face 0 and then face S + 1 added onto
+    the voxels they were read from (`face_targets`), axis D first."""
+    for ax, mode in zip((1, 2, 3), pad_modes(pad_type)):
         n = g.shape[ax] - 2
         out = g.narrow(ax, 1, n).clone()
-        out.narrow(ax, 1, 1).add_(g.narrow(ax, 0, 1))
-        out.narrow(ax, n - 2, 1).add_(g.narrow(ax, n + 1, 1))
+        faces = face_targets(n, mode)
+        if faces is not None:
+            out.narrow(ax, faces[0], 1).add_(g.narrow(ax, 0, 1))
+            out.narrow(ax, faces[1], 1).add_(g.narrow(ax, n + 1, 1))
         g = out
     return g
 
 
-# The reflect adjoint as the kernels split it. Along an axis of extent S,
-# dx[i] = g[i + 1] (+ g[0] if i == 1) (+ g[S + 1] if i == S - 2): only dx
-# voxels with some axis index in {1, S - 2} (the shell) sum more than one
-# extended-grid voxel, and those sources (some axis coordinate in {0, 2,
-# S - 1, S + 1}: the shell sources) reach no other dx voxel. The split store
-# writes every other extended voxel e straight into dx[e - 1] and the shell
-# sources into the scratch g_ext; the shell pass sums each shell voxel's
-# sources in `_reflect_pad_adjoint`'s order, so the route gives its bits.
+# The pad adjoint as the kernels split it. Along an axis of extent S,
+# dx[i] = g[i + 1] (+ g[0] if i == lo) (+ g[S + 1] if i == hi), (lo, hi)
+# the face targets of the axis's mode: only dx voxels with some axis index
+# in {lo, hi} (the shell) sum more than one extended-grid voxel, and those
+# sources (some axis coordinate a face, or one past a shell index: the
+# shell sources) reach no other dx voxel. The split store writes every
+# other extended voxel e straight into dx[e - 1] and the shell sources into
+# the scratch g_ext; the shell pass sums each shell voxel's sources in
+# `_pad_adjoint`'s order, so the route gives its bits. A zeros axis (a
+# lifted 1-D or 2-D net's) has no shell, and its faces go to g_ext unread.
 
-def reflect_sources(i: int, n: int) -> list[int]:
+def pad_sources(i: int, n: int, mode: str) -> list[int]:
     """The extended-grid indices whose gradient lands on index i of an
-    n-extent reflect-padded axis, in the order `_reflect_pad_adjoint` adds
-    them (`csrc/conv3d.cu` reflect_sources): i + 1, then 0 if i == 1, then
-    n + 1 if i == n - 2."""
-    return [i + 1] + [0] * (i == 1) + [n + 1] * (i == n - 2)
+    n-extent axis padded by `mode`, in the order `_pad_adjoint` adds them
+    (`csrc/conv3d.cu` pad_sources): i + 1, then 0 if face 0 lands on i,
+    then n + 1 if face n + 1 does."""
+    faces = face_targets(n, mode) or (None, None)
+    return [i + 1] + [0] * (i == faces[0]) + [n + 1] * (i == faces[1])
 
 
-def _axis_shell(n: int) -> tuple[list[int], list[int]]:
-    """The shell indices {1, n - 2} of an axis, sorted, and the others."""
-    shell = sorted({1, n - 2})
+def _axis_shell(n: int, mode: str) -> tuple[list[int], list[int]]:
+    """The shell indices of an axis (where its faces land), sorted, and
+    the others."""
+    shell = sorted(set(face_targets(n, mode) or ()))
     return shell, [i for i in range(n) if i not in shell]
 
 
 @functools.lru_cache(maxsize=64)
-def reflect_shell_voxels(D: int, H: int, W: int) -> torch.Tensor:
+def pad_shell_voxels(D: int, H: int, W: int, pad_type="reflect"
+                     ) -> torch.Tensor:
     """(N, 3) long: the (z, y, x) of every dx voxel with some axis index in
-    {1, n - 2}, in the shell kernel's item order: the (z, y) rows that lie
-    in the shell whole (z in the z shell, then y in the y shell), x
-    fastest, then the x shell's voxels of the other rows."""
-    (zs, zo), (ys, yo), (xs, _) = _axis_shell(D), _axis_shell(H), \
-        _axis_shell(W)
+    its axis's shell, in the shell kernel's item order: the (z, y) rows
+    that lie in the shell whole (z in the z shell, then y in the y shell),
+    x fastest, then the x shell's voxels of the other rows."""
+    mz, my, mx = pad_modes(pad_type)
+    (zs, zo), (ys, yo), (xs, _) = (_axis_shell(D, mz), _axis_shell(H, my),
+                                   _axis_shell(W, mx))
     rows = [(z, y) for z in zs for y in range(H)]
     rows += [(z, y) for z in zo for y in ys]
     vox = [(z, y, x) for z, y in rows for x in range(W)]
@@ -325,25 +351,27 @@ def reflect_shell_voxels(D: int, H: int, W: int) -> torch.Tensor:
     return torch.tensor(vox, dtype=torch.long).reshape(-1, 3)
 
 
-def shell_source_mask(D: int, H: int, W: int, device=None) -> torch.Tensor:
+def shell_source_mask(D: int, H: int, W: int, pad_type="reflect",
+                      device=None) -> torch.Tensor:
     """(D+2, H+2, W+2) bool: the extended-grid voxels with some axis
-    coordinate in {0, 2, S - 1, S + 1}, the shell's sources."""
-    def axis(n):
+    coordinate a face or one past a shell index, the shell's sources."""
+    def axis(n, mode):
         m = torch.zeros(n + 2, dtype=torch.bool, device=device)
-        m[[0, 2, n - 1, n + 1]] = True
+        m[[0, n + 1] + [i + 1 for i in _axis_shell(n, mode)[0]]] = True
         return m
-    mz, my, mx = axis(D), axis(H), axis(W)
+    mz, my, mx = (axis(n, m) for n, m in zip((D, H, W), pad_modes(pad_type)))
     return mz[:, None, None] | my[None, :, None] | mx[None, None, :]
 
 
-def reflect_split_store_plain(g: torch.Tensor):
+def pad_split_store_plain(g: torch.Tensor, pad_type="reflect"):
     """The split store of the extended-grid result `g` (B, S+2, ..., C):
     (dx, g_ext) f32, dx (B, D, H, W, C) holding g[e] at e - 1 for every
     extended voxel e that is no shell source, g_ext holding g at the shell
     sources. What the kernel does not write is NaN here, so a read of it
     shows."""
     B, D2, H2, W2, C = g.shape
-    src = shell_source_mask(D2 - 2, H2 - 2, W2 - 2, g.device)[..., None]
+    src = shell_source_mask(D2 - 2, H2 - 2, W2 - 2, pad_type,
+                            g.device)[..., None]
     nan = torch.tensor(float("nan"), device=g.device)
     g = g.float()
     g_ext = torch.where(src, g, nan)
@@ -351,26 +379,31 @@ def reflect_split_store_plain(g: torch.Tensor):
     return dx, g_ext
 
 
-def _shell_sources(idx: torch.Tensor, n: int):
+def _shell_sources(idx: torch.Tensor, n: int, mode: str):
     """Per voxel index on an n-extent axis, its 3 source slots as
-    `csrc/conv3d.cu` reflect_sources fills them, and which are in use."""
-    s = torch.stack([idx + 1, torch.where(idx == 1, 0, n + 1),
+    `csrc/conv3d.cu` pad_sources fills them, and which are in use."""
+    lo, hi = face_targets(n, mode) or (-1, -1)
+    first = idx == lo
+    s = torch.stack([idx + 1, torch.where(first, 0, n + 1),
                      torch.full_like(idx, n + 1)], dim=1)
-    count = 1 + (idx == 1).long() + (idx == n - 2).long()
+    count = 1 + first.long() + (idx == hi).long()
     return s, torch.arange(3, device=idx.device) < count[:, None]
 
 
-def reflect_shell_plain(g_ext: torch.Tensor, dx: torch.Tensor
-                        ) -> torch.Tensor:
+def pad_shell_plain(g_ext: torch.Tensor, dx: torch.Tensor,
+                    pad_type="reflect") -> torch.Tensor:
     """The shell pass on (B, D+2, H+2, W+2, C) `g_ext`: every dx (B, D, H,
-    W, C) voxel with some axis index in {1, n - 2} becomes the f32 sum of
-    its sources (z innermost, then y, then x, as `_reflect_pad_adjoint`
-    adds them), in dx's dtype; in place, no other voxel written. Reads
-    g_ext at the shell sources only."""
+    W, C) voxel with some axis index in its shell becomes the f32 sum of
+    its sources (z innermost, then y, then x, as `_pad_adjoint` adds
+    them), in dx's dtype; in place, no other voxel written. Reads g_ext at
+    the shell sources only."""
     B, D, H, W, C = dx.shape
-    v = reflect_shell_voxels(D, H, W).to(g_ext.device)
+    v = pad_shell_voxels(D, H, W, pad_type).to(g_ext.device)
+    if not len(v):
+        return dx
     (sz, vz), (sy, vy), (sx, vx) = (
-        _shell_sources(v[:, a], n) for a, n in enumerate((D, H, W)))
+        _shell_sources(v[:, a], n, m) for a, (n, m) in enumerate(
+            zip((D, H, W), pad_modes(pad_type))))
     g = g_ext.float()
     acc = None
     for k in range(3):
@@ -389,11 +422,11 @@ def reflect_shell_plain(g_ext: torch.Tensor, dx: torch.Tensor
     return dx
 
 
-def reflect_pad_adjoint_split(g: torch.Tensor) -> torch.Tensor:
-    """`_reflect_pad_adjoint` as the kernels run it: the split store, then
-    the shell pass (f32, the same bits)."""
-    dx, g_ext = reflect_split_store_plain(g)
-    return reflect_shell_plain(g_ext, dx)
+def pad_adjoint_split(g: torch.Tensor, pad_type="reflect") -> torch.Tensor:
+    """`_pad_adjoint` as the kernels run it: the split store, then the
+    shell pass (f32, the same bits)."""
+    dx, g_ext = pad_split_store_plain(g, pad_type)
+    return pad_shell_plain(g_ext, dx, pad_type)
 
 
 def _transposed_conv_ext(dy, w_packed):
@@ -424,14 +457,8 @@ def conv3x3x3_dgrad_ndhwc_plain(dy, w_packed, *, pad_type="reflect",
         _check_s2_pad(pad_type)
         return conv3x3x3_dgrad_s2_ndhwc_plain(dy, w_packed, spatial,
                                               out_dtype=out_dtype)
-    _pad_mode(pad_type)
-    D, H, W = dy.shape[1:4]
     g = _transposed_conv_ext(dy, w_packed)
-    if pad_type == "reflect":
-        dx = _reflect_pad_adjoint(g)
-    else:
-        dx = g[:, 1:D + 1, 1:H + 1, 1:W + 1]
-    return dx.contiguous().to(out_dtype or dy.dtype)
+    return _pad_adjoint(g, pad_type).contiguous().to(out_dtype or dy.dtype)
 
 
 # -----------------------------------------------------------------------------
@@ -443,13 +470,6 @@ def _check_bf16_cuda(t, name):
                          f"{t.dtype} on {t.device}")
     if t.dim() != 5 or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous (B, D, H, W, C) tensor")
-
-
-def _check_extents(spatial, pad_type):
-    _pad_mode(pad_type)
-    if min(spatial) < (2 if pad_type == "reflect" else 1):
-        raise ValueError(f"extents {spatial} too small for {pad_type} "
-                         "padding")
 
 
 def conv3x3x3_wgrad_ndhwc(
@@ -478,13 +498,15 @@ def conv3x3x3_wgrad_ndhwc(
         raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)} must "
                          f"share a device, dy's grid (B, D, H, W) {grid}")
     co = dy.shape[4]
-    _check_extents((D, H, W), pad_type)
-    dw = torch.zeros((27 * ci, co), dtype=torch.float32, device=x.device)
+    check_pad_extents((D, H, W), pad_type)
+    dw = torch.empty((27 * ci, co), dtype=torch.float32, device=x.device)
     plan = wgrad_plan(B, grid, ci, co, stride)
+    ws = wgrad_workspace(plan, ci, co, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _fn("conv3x3x3_wgrad_ndhwc")(
-        x.data_ptr(), dy.data_ptr(), dw.data_ptr(), plan.as_c(), B, D, H, W,
-        ci, co, int(pad_type == "reflect"), stride, stream,
+        x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+        ws.data_ptr() if ws is not None else None, plan.as_c(), B, D, H, W,
+        ci, co, pad_code(pad_type), stride, stream,
     )
     build.check(rc, "conv3x3x3_wgrad_ndhwc")
     conv3x3x3_wgrad_ndhwc.launches += 1
@@ -530,11 +552,12 @@ def conv3x3x3_dgrad_ndhwc(
         return dx
     if stride != 1:
         raise ValueError(f"stride must be 1 or 2, got {stride}")
-    _check_extents((d, h, w), pad_type)
-    if pad_type == "reflect":
-        dx, g_ext = _reflect_store(dy, w_packed, ci)
-        return _shell_launch(g_ext, dx)
-    return _dgrad_launch(dy, w_packed, ci, None)
+    check_pad_extents((d, h, w), pad_type)
+    pad = pad_code(pad_type)
+    if pad:
+        dx, g_ext = _pad_store(dy, w_packed, ci, pad)
+        return _shell_launch(g_ext, dx, pad)
+    return _dgrad_launch(dy, w_packed, ci, None, 0)
 
 
 conv3x3x3_dgrad_ndhwc.launches = 0
@@ -559,14 +582,14 @@ def _zero_bias(ci, device):
     return torch.zeros((ci,), dtype=torch.float32, device=device)
 
 
-def _dgrad_launch(dy, w_packed, ci, g_ext):
+def _dgrad_launch(dy, w_packed, ci, g_ext, pad):
     """The stride-1 transposed conv into a new bf16 dx: over the volume
-    (zeros), or with `g_ext` over the grid grown by 1 in the split store
-    (reflect)."""
+    (zeros), or with `g_ext` over the grid grown by 1 in the split store of
+    the adjoint of `pad` (a `pad_code`)."""
     B, D, H, W, co = dy.shape
     dx = torch.empty((B, D, H, W, ci), dtype=torch.bfloat16, device=dy.device)
-    reflect = g_ext is not None
-    grid = (D + 2, H + 2, W + 2) if reflect else (D, H, W)
+    fold = g_ext is not None
+    grid = (D + 2, H + 2, W + 2) if fold else (D, H, W)
     plan = conv_plan(B, grid, co, ci)
     ws = workspace(plan, B * grid[0] * grid[1] * grid[2], ci, dy.device)
     # the flipped weights are held until the launch is enqueued: a tensor
@@ -577,48 +600,53 @@ def _dgrad_launch(dy, w_packed, ci, g_ext):
     bias = _zero_bias(ci, dy.device)
     rc = _fn("conv3x3x3_dgrad_ndhwc")(
         dy.data_ptr(), w_t.data_ptr(), bias.data_ptr(),
-        g_ext.data_ptr() if reflect else None, dx.data_ptr(),
+        g_ext.data_ptr() if fold else None, dx.data_ptr(),
         ws.data_ptr() if ws is not None else None, plan.as_c(), B, D, H, W,
-        co, ci, int(reflect), torch.cuda.current_stream(dy.device).cuda_stream,
+        co, ci, pad, torch.cuda.current_stream(dy.device).cuda_stream,
     )
     build.check(rc, "conv3x3x3_dgrad_ndhwc")
     conv3x3x3_dgrad_ndhwc.launches += 1
     return dx
 
 
-def reflect_dgrad_store(dy: torch.Tensor, w_packed: torch.Tensor):
-    """The first launch of the reflect-padded conv's input gradient: the
-    transposed conv over the (S+2)^3 grid grown by 1, with the split store.
-    Returns (dx, g_ext): dx (B, D, H, W, Ci) bf16 written at every voxel
-    off the shell, g_ext (B, D+2, H+2, W+2, Ci) f32 at the shell's sources
-    only; `reflect_shell_ndhwc(g_ext, dx)` completes dx. Counted in
+def pad_dgrad_store(dy: torch.Tensor, w_packed: torch.Tensor,
+                    pad_type="reflect"):
+    """The first launch of the padded conv's input gradient: the transposed
+    conv over the (S+2)^3 grid grown by 1, with the split store of the
+    adjoint of `pad_type` (not zeros on every axis). Returns (dx, g_ext):
+    dx (B, D, H, W, Ci) bf16 written at every voxel off the shell, g_ext
+    (B, D+2, H+2, W+2, Ci) f32 at the shell's sources only;
+    `pad_shell_ndhwc(g_ext, dx, pad_type)` completes dx. Counted in
     `conv3x3x3_dgrad_ndhwc.launches`. On the CPU: the plain transposed conv
-    and `reflect_split_store_plain` (NaN where the kernel writes nothing)."""
+    and `pad_split_store_plain` (NaN where the kernel writes nothing)."""
     if dy.device.type == "cpu":
-        dx, g_ext = reflect_split_store_plain(
-            _transposed_conv_ext(dy, w_packed))
+        dx, g_ext = pad_split_store_plain(
+            _transposed_conv_ext(dy, w_packed), pad_type)
         return dx.to(dy.dtype), g_ext
     ci = _check_dgrad_operands(dy, w_packed)
-    _check_extents(dy.shape[1:4], "reflect")
-    return _reflect_store(dy, w_packed, ci)
+    check_pad_extents(dy.shape[1:4], pad_type)
+    pad = pad_code(pad_type)
+    if not pad:
+        raise ValueError("zero padding has no split store")
+    return _pad_store(dy, w_packed, ci, pad)
 
 
-def _reflect_store(dy, w_packed, ci):
+def _pad_store(dy, w_packed, ci, pad):
     B, D, H, W, _ = dy.shape
     g_ext = torch.empty((B, D + 2, H + 2, W + 2, ci), dtype=torch.float32,
                         device=dy.device)
-    return _dgrad_launch(dy, w_packed, ci, g_ext), g_ext
+    return _dgrad_launch(dy, w_packed, ci, g_ext, pad), g_ext
 
 
-def reflect_shell_ndhwc(g_ext: torch.Tensor, dx: torch.Tensor
-                        ) -> torch.Tensor:
-    """The reflect input gradient's shell pass, in place: every voxel of dx
-    (B, D, H, W, C) bf16 with some axis index in {1, n - 2} becomes the f32
+def pad_shell_ndhwc(g_ext: torch.Tensor, dx: torch.Tensor,
+                    pad_type="reflect") -> torch.Tensor:
+    """The padded input gradient's shell pass, in place: every voxel of dx
+    (B, D, H, W, C) bf16 with some axis index in its shell becomes the f32
     sum of its sources in g_ext (B, D+2, H+2, W+2, C) f32
-    (`reflect_shell_plain`), rounded once; no other voxel is written.
+    (`pad_shell_plain`), rounded once; no other voxel is written.
     Returns dx."""
     if g_ext.device.type == "cpu":
-        return reflect_shell_plain(g_ext, dx)
+        return pad_shell_plain(g_ext, dx, pad_type)
     _check_bf16_cuda(dx, "dx")
     B, D, H, W, C = dx.shape
     if (g_ext.device != dx.device or g_ext.dtype != torch.float32
@@ -628,19 +656,22 @@ def reflect_shell_ndhwc(g_ext: torch.Tensor, dx: torch.Tensor
         raise ValueError(f"g_ext must be a contiguous f32 {want} tensor on "
                          f"{dx.device}, got {tuple(g_ext.shape)} "
                          f"{g_ext.dtype}")
-    _check_extents((D, H, W), "reflect")
-    return _shell_launch(g_ext, dx)
+    check_pad_extents((D, H, W), pad_type)
+    pad = pad_code(pad_type)
+    if not pad:
+        raise ValueError("zero padding has no shell")
+    return _shell_launch(g_ext, dx, pad)
 
 
-reflect_shell_ndhwc.launches = 0
+pad_shell_ndhwc.launches = 0
 
 
-def _shell_launch(g_ext, dx):
-    rc = _fn("reflect_shell_ndhwc")(
-        g_ext.data_ptr(), dx.data_ptr(), *dx.shape,
+def _shell_launch(g_ext, dx, pad):
+    rc = _fn("pad_shell_ndhwc")(
+        g_ext.data_ptr(), dx.data_ptr(), *dx.shape, pad,
         torch.cuda.current_stream(dx.device).cuda_stream)
-    build.check(rc, "reflect_shell_ndhwc")
-    reflect_shell_ndhwc.launches += 1
+    build.check(rc, "pad_shell_ndhwc")
+    pad_shell_ndhwc.launches += 1
     return dx
 
 

@@ -46,8 +46,9 @@
 // 1. The halo brick (`conv_brick_kernel`), for N tiles up to 64 where the
 //    output grid has enough 8 x 8 x 4 tiles (every full-resolution conv of
 //    the 6M, dev and ViT paths). The tile's 10 x 10 x 6 input halo comes in
-//    by cp.async through the padding's index map (reflect -1 -> 1,
-//    n -> n-2, or zeros by src-size 0; channels [c1, c1+c2) from the second
+//    by cp.async through the padding's index map (`pad_index`, a mode per
+//    axis: reflect -1 -> 1, n -> n-2; replicate clamps; circular wraps; or
+//    zeros by src-size 0; channels [c1, c1+c2) from the second
 //    operand: at half resolution for K3, f_shift 1, at full resolution for
 //    D3, f_shift 0), stored [8-channel group][halo voxel] in the no-swizzle
 //    core-matrix layout (8 rows of 16 bytes). The A operand of tap
@@ -101,10 +102,13 @@
 // the caller, 27 * Co x Ci), zero padding, over the output grid grown by 1
 // on each side (origin -1), so it reads the unpadded dy and treats the halo
 // of 2 as zeros by index. For zero padding only the interior is computed,
-// straight into dx. For reflect padding the (S+2)^3 f32 result g has to be
-// folded, dx[i] = g[i+1] (+ g[0] if i == 1) (+ g[S+1] if i == S-2) on each
-// axis, the exact adjoint of torch's reflect pad (replaces the XLA VJP of
-// the pad that the JAX package's caller takes, conv_block_train.py:678).
+// straight into dx. For the other paddings the (S+2)^3 f32 result g has to
+// be folded, dx[i] = g[i+1] (+ g[0] if i == lo) (+ g[S+1] if i == hi) on
+// each axis, the exact adjoint of torch's pad (replaces the XLA VJP of the
+// pad that the JAX package's caller takes, conv_block_train.py:678): reflect
+// lo 1, hi S-2; replicate lo 0, hi S-1; circular lo S-1, hi 0 (a zeros axis
+// of a mixed padding, a lifted 1-D or 2-D net's, adds no face). The text
+// below counts reflect's shell; the others' is the same size.
 // What bounds the fold is bytes: stored whole in f32 and read back whole,
 // g is 4.2x the bf16 dx at 128^3 x 16 (281 MB at B2), though only the shell
 // (dx voxels with some axis index in {1, S-2}, 4.6 % of them at 128^3) sums
@@ -117,7 +121,7 @@
 // f32 scratch g_ext. The scratch keeps g's full (S+2)^3 extent, written
 // sparsely: the caching allocator hands it out without a copy, the
 // epilogues and the shell pass index it as they index g, and a compact
-// face buffer would save only address space. Then `reflect_shell_kernel`
+// face buffer would save only address space. Then `pad_shell_kernel`
 // visits the shell alone: 32-bit items over (voxel, 8 channels) and the
 // batch on the grid's y, two 16-byte f32 loads per source (each shell
 // source is read by exactly one thread), the 2-8 sources summed in the
@@ -143,6 +147,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "pad.cuh"
 
 namespace {
 
@@ -171,7 +176,7 @@ struct ConvArgs {
   const __nv_bfloat16* w;      // (taps * (c1 + c2), co), row tap * Ci + c
   const float* bias;           // (co)
   void* out;                   // (B, oD, oH, oW, co) bf16 or f32
-  __nv_bfloat16* dx;           // the reflect dgrad's split store (FOLD):
+  __nv_bfloat16* dx;           // the padded dgrad's split store (FOLD):
                                // (B, D, H, W, co), or null
   float* ws;                   // (splits, B * oD * oH * oW, co) or null
   int B, D, H, W;              // the gathered grid
@@ -185,25 +190,26 @@ struct ConvArgs {
   int bx, by, bz;              // log2 of the tile's x, y, z extents
   int tiles_x, tiles_y, tiles_z;
   int splits, steps_per_split;
-  int reflect, act, out_f32;
+  int pad;                     // 2 bits an axis (D, H, W from bit 0): 0
+                               // zeros, 1 reflect, 2 replicate, 3 circular
+  int fold_pad;                // FOLD: the padding whose adjoint is stored
+  int act, out_f32;
   int xvec, wvec, fast;        // 16-byte loads; one tap per 32 channels
   int chunk;                   // halo-brick mode: channels a K chunk
   float slope;
 };
 
-__device__ __forceinline__ int reflect_index(int i, int n) {
-  if (i < 0) i = -i;
-  if (i >= n) i = 2 * n - 2 - i;
-  // the tile overhang past the volume is never stored; keep it in bounds
-  return min(max(i, 0), n - 1);
-}
 
+// 1 relu, 2 lrelu (PReLU: its weight as the slope), 3 elu, 4 tanh, 5 selu
 __device__ __forceinline__ float activate(float v, int act, float slope) {
   switch (act) {
     case 1: return fmaxf(v, 0.f);
     case 2: return v >= 0.f ? v : slope * v;
     case 3: return v >= 0.f ? v : expm1f(v);
     case 4: return tanhf(v);
+    case 5:
+      return 1.0507009873554805f * (v > 0.f ? v
+                                            : 1.6732632423543772f * expm1f(v));
     default: return v;
   }
 }
@@ -237,15 +243,18 @@ __device__ __forceinline__ void store_pair(void* out, int out_f32, int co,
   }
 }
 
-// whether coordinate e of an extended-grid axis of n = S + 2 is a shell
-// source: one that the reflect adjoint adds onto a dx index in {1, S - 2}
-// (e - 1 there, or the mirrored halo face 0 or S + 1)
-__device__ __forceinline__ bool shell_coord(int e, int n) {
-  return e == 0 || e == 2 || e == n - 3 || e == n - 1;
+// whether coordinate e of an extended-grid axis of n = S + 2 under pad mode
+// m is a shell source: a halo face (0 or S + 1, which a zeros axis drops),
+// or e - 1 a dx index that a face is added onto (reflect {1, S - 2},
+// replicate and circular {0, S - 1})
+__device__ __forceinline__ bool shell_coord(int e, int n, int m) {
+  if (e == 0 || e == n - 1) return true;
+  if (m == 1) return e == 2 || e == n - 3;
+  return m != 0 && (e == 1 || e == n - 2);
 }
 
 // where output voxel (b, z, y, x) is stored: element vox * co of `out`, as
-// the launch says; or, in the reflect dgrad's split store (FOLD), when no
+// the launch says; or, in the padded dgrad's split store (FOLD), when no
 // axis coordinate of the extended-grid voxel is a shell source, straight
 // into dx[z - 1, y - 1, x - 1] in bf16, the only dx voxel it reaches
 struct Dst {
@@ -258,8 +267,12 @@ template <bool FOLD>
 __device__ __forceinline__ Dst out_voxel(const ConvArgs& a, int b, int z,
                                          int y, int x) {
   Dst d{a.out, (((int64_t)b * a.oD + z) * a.oH + y) * a.oW + x, a.out_f32};
-  if (FOLD && !(shell_coord(z, a.oD) || shell_coord(y, a.oH) ||
-                shell_coord(x, a.oW))) {
+  if (FOLD && !(a.fold_pad == PAD_REFLECT3
+                    ? shell_coord(z, a.oD, 1) || shell_coord(y, a.oH, 1) ||
+                          shell_coord(x, a.oW, 1)
+                    : shell_coord(z, a.oD, a.fold_pad & 3) ||
+                          shell_coord(y, a.oH, (a.fold_pad >> 2) & 3) ||
+                          shell_coord(x, a.oW, (a.fold_pad >> 4) & 3))) {
     d.p = a.dx;
     d.f32 = 0;
     d.vox = (((int64_t)b * a.D + z - 1) * a.H + y - 1) * a.W + x - 1;
@@ -331,7 +344,7 @@ __device__ __forceinline__ int tap_of(const ConvArgs& a, int ti, int cls) {
 // the gradient at (o + 1 - k) / 2, where that is whole and in range; mode
 // 2 (the stride-2 conv; DOWN, a separate instantiation so that the other
 // modes compile without it) reads 2 o - 1 + k, zeros outside the volume
-template <bool DOWN>
+template <bool DOWN, bool GP>
 __device__ __forceinline__ void source_voxel(const ConvArgs& a,
                                              const Voxel& o, int tap,
                                              int& iz, int& iy, int& ix,
@@ -357,14 +370,7 @@ __device__ __forceinline__ void source_voxel(const ConvArgs& a,
   iz = o.z + kd - 1 + a.org + a.dvalid;
   iy = o.y + kh - 1 + a.org;
   ix = o.x + kw - 1 + a.org;
-  if (a.reflect) {
-    iz = reflect_index(iz, a.D);
-    iy = reflect_index(iy, a.H);
-    ix = reflect_index(ix, a.W);
-  } else {
-    ok = ok && iz >= 0 && iz < a.D && iy >= 0 && iy < a.H && ix >= 0 &&
-         ix < a.W;
-  }
+  pad_voxel<GP>(a.pad, a.D, a.H, a.W, iz, iy, ix, ok);
 }
 
 // channel c of a gathered voxel, in the source that holds it
@@ -404,8 +410,8 @@ __device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
 }
 
 // STAGES: the ring's depth; loads run STAGES - 2 steps ahead; DOWN: mode 2;
-// FOLD: the reflect dgrad's split store (`out_voxel`)
-template <int BN, int STAGES, bool DOWN, bool FOLD>
+// FOLD: the padded dgrad's split store (`out_voxel`); GP: per-axis pad modes
+template <int BN, int STAGES, bool DOWN, bool FOLD, bool GP>
 __global__ void __launch_bounds__(NTHREADS) conv_kernel(const ConvArgs a) {
   constexpr int NB8 = BN / 8;
   constexpr int STAGE = A_BYTES + BK * BN * 2;
@@ -439,7 +445,8 @@ __global__ void __launch_bounds__(NTHREADS) conv_kernel(const ConvArgs a) {
       const int c = kb - ti * a.cp;
       bool ok = row.valid && kb < k_total;
       int iz = 0, iy = 0, ix = 0;
-      source_voxel<DOWN>(a, row, tap_of<DOWN>(a, ti, cls), iz, iy, ix, ok);
+      source_voxel<DOWN, GP>(a, row, tap_of<DOWN>(a, ti, cls), iz, iy, ix,
+                             ok);
       const __nv_bfloat16* src =
           ok ? chunk_src(a, row.b, iz, iy, ix, c) : a.w;
 #pragma unroll
@@ -455,8 +462,8 @@ __global__ void __launch_bounds__(NTHREADS) conv_kernel(const ConvArgs a) {
         bool ok = row.valid && kb < k_total;
         int iz = 0, iy = 0, ix = 0;
         if (ok) {
-          source_voxel<DOWN>(a, row, tap_of<DOWN>(a, ti, cls), iz, iy, ix,
-                             ok);
+          source_voxel<DOWN, GP>(a, row, tap_of<DOWN>(a, ti, cls), iz, iy,
+                                 ix, ok);
         }
         const uint32_t dst = sa + a_row + jj * 128;
         if (a.xvec) {
@@ -613,10 +620,10 @@ __device__ __forceinline__ void store_tile(const ConvArgs& a,
 }
 
 // The halo brick (design 1 above); mode 1 (S2) is the stride-2 input
-// gradient; FOLD the reflect dgrad's split store. Registers are capped so
-// that as many blocks as the shared memory admits fit on an SM: 4 at N 16,
-// 3 at 32, 2 at 64.
-template <int BN, bool S2, bool CHUNKED, bool FOLD>
+// gradient; FOLD the padded dgrad's split store; GP per-axis pad modes.
+// Registers are capped so that as many blocks as the shared memory admits
+// fit on an SM: 4 at N 16, 3 at 32, 2 at 64.
+template <int BN, bool S2, bool CHUNKED, bool FOLD, bool GP>
 __global__ void __launch_bounds__(NTHREADS, BN == 16 ? 4 : BN == 32 ? 3 : 2)
 conv_brick_kernel(const ConvArgs a) {
   constexpr int NB8 = BN / 8;
@@ -659,14 +666,7 @@ conv_brick_kernel(const ConvArgs a) {
           ix = x0 + hx - lo;
       const int c = c0 + cg * 8;
       bool ok = c < ci;
-      if (a.reflect) {
-        iz = reflect_index(iz, a.D);
-        iy = reflect_index(iy, a.H);
-        ix = reflect_index(ix, a.W);
-      } else {
-        ok = ok && iz >= 0 && iz < a.D && iy >= 0 && iy < a.H && ix >= 0 &&
-             ix < a.W;
-      }
+      pad_voxel<GP>(a.pad, a.D, a.H, a.W, iz, iy, ix, ok);
       const uint32_t dst = sx + cg * cg_stride + v * 16;
       if (a.xvec) {
         cp_async16_ca(dst, ok ? chunk_src(a, b, iz, iy, ix, c) : a.w, ok);
@@ -963,7 +963,7 @@ conv_down_brick_kernel(const ConvArgs a) {
 }
 
 // sums the split-K partials in split order, then bias, activation, store
-// (FOLD: the reflect dgrad's split store, `out_voxel`; n < 2^31 there, so
+// (FOLD: the padded dgrad's split store, `out_voxel`; n < 2^31 there, so
 // the voxel is decoded in 32 bits)
 template <bool FOLD>
 __global__ void splitk_reduce_kernel(const ConvArgs a, int64_t n) {
@@ -985,19 +985,22 @@ __global__ void splitk_reduce_kernel(const ConvArgs a, int64_t n) {
   }
 }
 
-template <int BN, int STAGES, bool DOWN, bool FOLD>
+template <int BN, int STAGES, bool DOWN, bool FOLD, bool GP = false>
 cudaError_t launch_ring(const ConvArgs& a, int m_tiles, int n_tiles, int gz,
                         cudaStream_t stream) {
   const int smem = STAGES * (A_BYTES + BK * BN * 2);
   cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<BN, STAGES, DOWN, FOLD>,
+      conv_kernel<BN, STAGES, DOWN, FOLD, GP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  conv_kernel<BN, STAGES, DOWN, FOLD><<<dim3(m_tiles, n_tiles, gz), NTHREADS,
-                                        smem, stream>>>(a);
+  conv_kernel<BN, STAGES, DOWN, FOLD, GP><<<dim3(m_tiles, n_tiles, gz),
+                                            NTHREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// the gradients read with zero padding (dy, the stride-2 modes) and take
+// the default instantiation; a forward conv under another padding than
+// reflect or zeros on every axis takes the per-axis decode
 template <int BN, int STAGES>
 cudaError_t launch(const ConvArgs& a, int m_tiles, int n_tiles, int gz,
                    cudaStream_t stream) {
@@ -1005,24 +1008,29 @@ cudaError_t launch(const ConvArgs& a, int m_tiles, int n_tiles, int gz,
     return launch_ring<BN, STAGES, true, false>(a, m_tiles, n_tiles, gz,
                                                 stream);
   }
-  return a.dx ? launch_ring<BN, STAGES, false, true>(a, m_tiles, n_tiles, gz,
-                                                     stream)
-              : launch_ring<BN, STAGES, false, false>(a, m_tiles, n_tiles,
-                                                      gz, stream);
+  if (a.dx) {
+    return launch_ring<BN, STAGES, false, true>(a, m_tiles, n_tiles, gz,
+                                                stream);
+  }
+  return generic_pad(a.pad)
+             ? launch_ring<BN, STAGES, false, false, true>(a, m_tiles,
+                                                           n_tiles, gz, stream)
+             : launch_ring<BN, STAGES, false, false>(a, m_tiles, n_tiles, gz,
+                                                     stream);
 }
 
-template <int BN, bool S2, bool CHUNKED, bool FOLD>
+template <int BN, bool S2, bool CHUNKED, bool FOLD, bool GP = false>
 cudaError_t launch_brick_mode(const ConvArgs& a, int m_tiles, int n_tiles,
                               cudaStream_t stream) {
   const int halo =
       S2 ? (BRICK_X + 1) * (BRICK_Y + 1) * (BRICK_Z + 1) : HALO_VOX;
   const int smem = halo * a.chunk * 2 + 27 * a.chunk * BN * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_brick_kernel<BN, S2, CHUNKED, FOLD>,
+      conv_brick_kernel<BN, S2, CHUNKED, FOLD, GP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  conv_brick_kernel<BN, S2, CHUNKED, FOLD><<<dim3(m_tiles, n_tiles),
-                                             NTHREADS, smem, stream>>>(a);
+  conv_brick_kernel<BN, S2, CHUNKED, FOLD, GP><<<dim3(m_tiles, n_tiles),
+                                                 NTHREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1056,6 +1064,12 @@ cudaError_t launch_brick(const ConvArgs& a, int m_tiles, int n_tiles,
                : launch_brick_mode<BN, false, true, true>(a, m_tiles,
                                                           n_tiles, stream);
   }
+  if (generic_pad(a.pad)) {
+    return one ? launch_brick_mode<BN, false, false, false, true>(
+                     a, m_tiles, n_tiles, stream)
+               : launch_brick_mode<BN, false, true, false, true>(
+                     a, m_tiles, n_tiles, stream);
+  }
   return one ? launch_brick_mode<BN, false, false, false>(a, m_tiles, n_tiles,
                                                           stream)
              : launch_brick_mode<BN, false, true, false>(a, m_tiles, n_tiles,
@@ -1072,19 +1086,19 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // grown by `grow` on each side; mode 1: the stride-2 conv's input gradient
 // from the (B, D, H, W) gradient grid onto the (oD, oH, oW) input grid;
 // mode 2: the stride-2 conv of the (B, D, H, W) grid, zero padding 1.
-// fold_dx: the reflect dgrad's split store (mode 0, grow 1, f32 `out`
-// g_ext, no bias or activation), the shell sources into `out`, the rest
-// straight into fold_dx. dvalid (mode 0, one operand, grow 0): D-valid, the
+// fold_dx: the padded dgrad's split store of the adjoint of `fold_pad`
+// (mode 0, grow 1, f32 `out` g_ext, no bias or activation), the shell
+// sources into `out`, the rest straight into fold_dx. dvalid (mode 0, one operand, grow 0): D-valid, the
 // input's D planes 0 and D - 1 are the halo the caller brought (a spatial
 // shard's neighbours), so the output has D - 2 planes and only H and W are
 // padded; z reads o + k, never through the padding's index map
 int conv_launch(const void* enc, const void* small, int f_shift,
                 const void* w, const void* bias, void* out, void* ws,
                 const int* plan, int B, int D, int H, int W, int c1, int c2,
-                int co, int reflect, int act, float slope, int out_f32,
+                int co, int pad, int act, float slope, int out_f32,
                 void* stream, int grow = 0, int mode = 0, int oD = 0,
                 int oH = 0, int oW = 0, void* fold_dx = nullptr,
-                int dvalid = 0) {
+                int dvalid = 0, int fold_pad = 0) {
   ConvArgs a;
   a.enc = static_cast<const __nv_bfloat16*>(enc);
   a.small = static_cast<const __nv_bfloat16*>(small);
@@ -1155,15 +1169,18 @@ int conv_launch(const void* enc, const void* small, int f_shift,
       (a.tiles_z << a.bz) < a.gD || (tiles_b << bb) < B ||
       n_tiles * bn < co ||
       (mode == 1 && a.splits != 1) || (a.splits > 1 && ws == nullptr) ||
-      (mode == 2 && (c2 != 0 || reflect)) ||
+      pad < 0 || pad > 63 || fold_pad < 0 || fold_pad > 63 ||
+      (mode == 2 && (c2 != 0 || pad)) ||
       (dvalid && (dvalid != 1 || mode != 0 || grow != 0 || c2 != 0 ||
                   fold_dx || a.oD < 1)) ||
       (fold_dx && (mode != 0 || grow != 1 || !out_f32 || act != 0 ||
+                   pad != 0 || fold_pad == 0 ||
                    (a.splits > 1 &&
                     (int64_t)B * a.oD * a.oH * a.oW * co >= INT32_MAX)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  a.reflect = reflect;
+  a.pad = pad;
+  a.fold_pad = fold_pad;
   a.act = act;
   a.out_f32 = out_f32;
   a.slope = slope;
@@ -1212,79 +1229,93 @@ int conv_launch(const void* enc, const void* small, int f_shift,
 extern "C" int conv3x3x3_upcat_ndhwc(
     const void* enc, const void* small, const void* w, const void* bias,
     void* out, void* ws, const int* plan, int B, int D, int H, int W, int c1,
-    int c2, int co, int reflect, int act, float slope, int out_f32,
+    int c2, int co, int pad, int act, float slope, int out_f32,
     void* stream) {
   return conv_launch(enc, small, 1, w, bias, out, ws, plan, B, D, H, W, c1,
-                     c2, co, reflect, act, slope, out_f32, stream);
+                     c2, co, pad, act, slope, out_f32, stream);
 }
 
 // out (B, D, H, W, co) = act(conv(cat(enc, up)) + bias)
 extern "C" int conv3x3x3_cat_ndhwc(
     const void* enc, const void* up, const void* w, const void* bias,
     void* out, void* ws, const int* plan, int B, int D, int H, int W, int c1,
-    int c2, int co, int reflect, int act, float slope, int out_f32,
+    int c2, int co, int pad, int act, float slope, int out_f32,
     void* stream) {
   return conv_launch(enc, up, 0, w, bias, out, ws, plan, B, D, H, W, c1, c2,
-                     co, reflect, act, slope, out_f32, stream);
+                     co, pad, act, slope, out_f32, stream);
 }
 
 // out (B, D, H, W, co) = act(conv(x) + bias)
 extern "C" int conv3x3x3_ndhwc(const void* x, const void* w, const void* bias,
                                void* out, void* ws, const int* plan, int B,
                                int D, int H, int W, int ci, int co,
-                               int reflect, int act, float slope, int out_f32,
+                               int pad, int act, float slope, int out_f32,
                                void* stream) {
   return conv_launch(x, nullptr, 0, w, bias, out, ws, plan, B, D, H, W, ci,
-                     0, co, reflect, act, slope, out_f32, stream);
+                     0, co, pad, act, slope, out_f32, stream);
 }
 
 // out (B, D - 2, H, W, co) = act(conv(x) + bias), D-valid: x (B, D, H, W,
-// ci) holds its two D-halo planes, H and W are padded by `reflect`
+// ci) holds its two D-halo planes, H and W are padded by `pad`
 extern "C" int conv3x3x3_dvalid_ndhwc(const void* x, const void* w,
                                       const void* bias, void* out, void* ws,
                                       const int* plan, int B, int D, int H,
-                                      int W, int ci, int co, int reflect,
+                                      int W, int ci, int co, int pad,
                                       int act, float slope, int out_f32,
                                       void* stream) {
   return conv_launch(x, nullptr, 0, w, bias, out, ws, plan, B, D, H, W, ci,
-                     0, co, reflect, act, slope, out_f32, stream, 0, 0, 0, 0,
+                     0, co, pad, act, slope, out_f32, stream, 0, 0, 0, 0,
                      0, nullptr, 1);
 }
 
 namespace {
 
-// the extended-grid indices whose gradient lands on voxel i of an n-extent
-// axis under reflect padding, in the order the plain adjoint adds them: the
-// interior i + 1, then the halo face that mirrors onto i (-1 -> 1, n -> n - 2)
-__device__ __forceinline__ int reflect_sources(int i, int n, int (&s)[3]) {
-  s[0] = i + 1;
-  s[1] = i == 1 ? 0 : n + 1;
-  s[2] = n + 1;
-  return 1 + (i == 1) + (i == n - 2);
+// the dx indices that the halo faces 0 and n + 1 of an n-extent axis land
+// on under pad mode m (1 reflect: 1, n - 2; 2 replicate: 0, n - 1; 3
+// circular: n - 1, 0)
+__device__ __forceinline__ int face_lo(int n, int m) {
+  return m == 1 ? 1 : m == 2 ? 0 : n - 1;
 }
 
-// the shell indices {1, n - 2} of an axis of extent n >= 2, sorted, and
-// their count (1 where they coincide, n = 3)
+__device__ __forceinline__ int face_hi(int n, int m) {
+  return m == 1 ? n - 2 : m == 2 ? n - 1 : 0;
+}
+
+// the extended-grid indices whose gradient lands on voxel i of an n-extent
+// axis under pad mode m, in the order the plain adjoint adds them: the
+// interior i + 1, then face 0 if it lands on i, then face n + 1 if it does
+// (a zeros axis adds none)
+__device__ __forceinline__ int pad_sources(int i, int n, int m,
+                                           int (&s)[3]) {
+  s[0] = i + 1;
+  int k = 1;
+  if (m != 0 && i == face_lo(n, m)) s[k++] = 0;
+  if (m != 0 && i == face_hi(n, m)) s[k++] = n + 1;
+  return k;
+}
+
+// the shell indices of an n-extent axis under pad mode m (where a face
+// lands), sorted, and their count (1 where they coincide, 0 for zeros)
 struct AxisShell {
   int lo, hi, n;
 };
 
-__device__ __forceinline__ AxisShell axis_shell(int n) {
+__device__ __forceinline__ AxisShell axis_shell(int n, int m) {
   AxisShell s;
-  s.lo = min(1, n - 2);
-  s.hi = max(1, n - 2);
-  s.n = s.lo == s.hi ? 1 : 2;
+  s.lo = min(face_lo(n, m), face_hi(n, m));
+  s.hi = max(face_lo(n, m), face_hi(n, m));
+  s.n = m == 0 ? 0 : s.lo == s.hi ? 1 : 2;
   return s;
 }
 
 // the k-th index of the axis outside its shell
 __device__ __forceinline__ int off_shell(int k, const AxisShell& s) {
-  if (k >= s.lo) ++k;
+  if (s.n >= 1 && k >= s.lo) ++k;
   if (s.n == 2 && k >= s.hi) ++k;
   return k;
 }
 
-// The reflect dgrad's shell pass (design above). Thread `item` of batch
+// The padded dgrad's shell pass (design above). Thread `item` of batch
 // item blockIdx.y owns V channels [c, c + V) of one shell voxel. The
 // shell's voxels in order: the (z, y) rows that lie in it whole (z in the
 // z shell: sz.n * H rows; else y in the y shell: (D - sz.n) * sy.n rows),
@@ -1294,16 +1325,18 @@ __device__ __forceinline__ int off_shell(int k, const AxisShell& s) {
 // and rounds once to bf16.
 template <int V>
 __global__ void __launch_bounds__(256)
-reflect_shell_kernel(const float* __restrict__ g,
-                     __nv_bfloat16* __restrict__ dx, int D, int H, int W,
-                     int C, int items) {
+pad_shell_kernel(const float* __restrict__ g,
+                 __nv_bfloat16* __restrict__ dx, int D, int H, int W, int C,
+                 int pad, int items) {
   const int item = blockIdx.x * blockDim.x + threadIdx.x;
   if (item >= items) return;
   const int b = blockIdx.y;
   const int groups = C / V;
   const int v = item / groups;
   const int c = (item - v * groups) * V;
-  const AxisShell sz = axis_shell(D), sy = axis_shell(H), sx = axis_shell(W);
+  const int mz = pad & 3, my = (pad >> 2) & 3, mx = (pad >> 4) & 3;
+  const AxisShell sz = axis_shell(D, mz), sy = axis_shell(H, my),
+                  sx = axis_shell(W, mx);
   const int rows = sz.n * H + (D - sz.n) * sy.n;
   int z, y, x;
   if (v < rows * W) {
@@ -1328,9 +1361,9 @@ reflect_shell_kernel(const float* __restrict__ g,
     z = off_shell(ty, sz);
   }
   int ez[3], ey[3], ex[3];
-  const int nz = reflect_sources(z, D, ez);
-  const int ny = reflect_sources(y, H, ey);
-  const int nx = reflect_sources(x, W, ex);
+  const int nz = pad_sources(z, D, mz, ez);
+  const int ny = pad_sources(y, H, my, ey);
+  const int nx = pad_sources(x, W, mx, ex);
   float acc[V];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -1402,34 +1435,41 @@ extern "C" int conv3x3x3_down2_ndhwc(const void* x, const void* w,
 
 // dx (B, D, H, W, ci) bf16 of a 3x3x3 "same" conv from dy (B, D, H, W, co)
 // and the flipped, transposed packed weights w_t (27 * co, ci); zero_bias is
-// (ci,) f32 zeros. reflect: the split store, g_ext (B, D+2, H+2, W+2, ci)
-// f32 scratch, written at the shell sources only; dx is whole only after
-// the shell pass (`reflect_shell_ndhwc`) on the same stream.
+// (ci,) f32 zeros; pad the forward conv's padding. Other than zeros on
+// every axis: the split store, g_ext (B, D+2, H+2, W+2, ci) f32 scratch,
+// written at the shell sources only; dx is whole only after the shell pass
+// (`pad_shell_ndhwc`) on the same stream.
 extern "C" int conv3x3x3_dgrad_ndhwc(const void* dy, const void* w_t,
                                      const void* zero_bias, void* g_ext,
                                      void* dx, void* ws, const int* plan,
                                      int B, int D, int H, int W, int co,
-                                     int ci, int reflect, void* stream) {
-  if (!reflect) {
+                                     int ci, int pad, void* stream) {
+  if (!pad) {
     return conv_launch(dy, nullptr, 0, w_t, zero_bias, dx, ws, plan, B, D, H,
                        W, co, 0, ci, 0, 0, 0.f, 0, stream);
   }
   return conv_launch(dy, nullptr, 0, w_t, zero_bias, g_ext, ws, plan, B, D, H,
                      W, co, 0, ci, 0, 0, 0.f, 1, stream, /*grow=*/1,
-                     /*mode=*/0, 0, 0, 0, dx);
+                     /*mode=*/0, 0, 0, 0, dx, 0, pad);
 }
 
-// the reflect dgrad's shell pass: each dx (B, D, H, W, C) bf16 voxel with
-// some axis index in {1, n - 2} becomes the f32 sum of its sources in g_ext
-// (B, D+2, H+2, W+2, C), rounded once; no other voxel is written
-extern "C" int reflect_shell_ndhwc(const void* g_ext, void* dx, int B, int D,
-                                   int H, int W, int C, void* stream) {
-  if (B < 1 || B > 65535 || D < 2 || H < 2 || W < 2 || C < 1) {
+// the padded dgrad's shell pass: each dx (B, D, H, W, C) bf16 voxel with
+// some axis index where a halo face of that axis's mode of `pad` lands
+// becomes the f32 sum of its sources in g_ext (B, D+2, H+2, W+2, C),
+// rounded once; no other voxel is written
+extern "C" int pad_shell_ndhwc(const void* g_ext, void* dx, int B, int D,
+                               int H, int W, int C, int pad, void* stream) {
+  const int mz = pad & 3, my = (pad >> 2) & 3, mx = (pad >> 4) & 3;
+  auto too_small = [](int n, int m) { return n < (m == 1 ? 2 : 1); };
+  if (B < 1 || B > 65535 || C < 1 || pad < 1 || pad > 63 ||
+      too_small(D, mz) || too_small(H, my) || too_small(W, mx)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool vec = C % 8 == 0 && aligned16(g_ext) && aligned16(dx);
-  auto count = [](int n) { return n == 3 ? 1 : 2; };
-  const int nz = count(D), ny = count(H), nx = count(W);
+  auto count = [](int n, int m) {
+    return m == 0 ? 0 : (m == 1 ? n == 3 : n == 1) ? 1 : 2;
+  };
+  const int nz = count(D, mz), ny = count(H, my), nx = count(W, mx);
   const int64_t voxels = ((int64_t)nz * H + (int64_t)(D - nz) * ny) * W +
                          (int64_t)(D - nz) * (H - ny) * nx;
   const int64_t items = voxels * (vec ? C / 8 : C);
@@ -1437,13 +1477,13 @@ extern "C" int reflect_shell_ndhwc(const void* g_ext, void* dx, int B, int D,
   const dim3 grid((unsigned)((items + 255) / 256), (unsigned)B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec) {
-    reflect_shell_kernel<8><<<grid, 256, 0, s>>>(
+    pad_shell_kernel<8><<<grid, 256, 0, s>>>(
         static_cast<const float*>(g_ext), static_cast<__nv_bfloat16*>(dx), D,
-        H, W, C, (int)items);
+        H, W, C, pad, (int)items);
   } else {
-    reflect_shell_kernel<1><<<grid, 256, 0, s>>>(
+    pad_shell_kernel<1><<<grid, 256, 0, s>>>(
         static_cast<const float*>(g_ext), static_cast<__nv_bfloat16*>(dx), D,
-        H, W, C, (int)items);
+        H, W, C, pad, (int)items);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 // Weight gradient of the 3x3x3 convolution on channels-last (NDHWC) bf16
-// volumes, stride 1 ("same", reflect or zero padding) or stride 2 (zero
+// volumes, stride 1 ("same"; zero, reflect, replicate or circular padding,
+// a mode per axis) or stride 2 (zero
 // padding 1), as one implicit GEMM on Hopper's warpgroup MMA (sm_90a), with
 // a plain C interface for ctypes.
 //
@@ -15,7 +16,7 @@
 // grid: B * D * H * W at stride 1, B * ceil(D/2) * ceil(H/2) * ceil(W/2) at
 // stride 2, so the stride-2 gradient is read on its own grid, with no
 // zeros inserted. The result is the packed (27 * Ci, Co) f32 layout of
-// `kernels/conv.py`, added into a zeroed dw.
+// `kernels/conv.py`.
 //
 // What bounds it on an H100: the same work as the forward conv, reading x
 // and dy once (the 16-channel 128^3 convs move ~64 bytes per voxel for
@@ -55,19 +56,24 @@
 //    layout (each 16-byte row 8 channels of one position), so wgmma takes
 //    them with both transpose bits set and nothing is transposed on the way.
 // The plans split the positions over enough blocks to fill the 132 SMs
-// once (at 8^3 and 16^3 as at 128^3); each block adds its partial tile
-// into dW with f32 atomicAdd. The order of those few hundred additions per
-// element varies from run to run by a few f32 ulps. The result is held to
-// 1e-3 of max |dW| against the f32 plain version: the step's dW are sums of
-// millions of products that largely cancel (batch norm's backward leaves
-// dy with zero sum per channel), so both sides' rounding shows at ~1e-4 of
-// the result.
+// once (at 8^3 and 16^3 as at 128^3). Each block stores its partial tile
+// into its split's slice of an f32 workspace (splits, 27 * Ci, Co) that the
+// wrapper allocates, and `wgrad_reduce_kernel` sums the slices in a fixed
+// order into dW (a plan of one split stores straight into dW): no atomics,
+// so two launches on the same tensors give the same bits, and training on
+// the card repeats from a state. The workspace is at most a few tens of MB
+// (the dev UNet's 128^3 96 -> 32 conv: 64 splits x 332 KB), written and
+// read once. The result is held to 1e-3 of max |dW| against the f32 plain
+// version: the step's dW are sums of millions of products that largely
+// cancel (batch norm's backward leaves dy with zero sum per channel), so
+// both sides' rounding shows at ~1e-4 of the result.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "pad.cuh"
 
 namespace {
 
@@ -94,20 +100,25 @@ constexpr int HH_VOX = HH_X * HH_Y * HH_Z;
 struct WgradArgs {
   const __nv_bfloat16* x;   // (B, D, H, W, ci)
   const __nv_bfloat16* dy;  // (B, oD, oH, oW, co)
-  float* dw;                // (27 * ci, co), zeroed by the caller
+  float* dw;                // (27 * ci, co)
+  float* ws;                // (splits, 27 * ci, co) partials, or null: the
+                            // blocks store into dw
   int B, D, H, W, ci, cp, co;
   int oD, oH, oW, stride;
   int bx, by, bz;           // log2 of the brick's x, y, z extents
   int tiles_x, tiles_y, tiles_z;
   int n_bricks, bricks_per_split;
-  int reflect, xvec, dyvec;
+  int pad;                  // 2 bits an axis (D, H, W from bit 0): 0
+                            // zeros, 1 reflect, 2 replicate, 3 circular
+  int xvec, dyvec;
 };
 
-__device__ __forceinline__ int reflect_index(int i, int n) {
-  if (i < 0) i = -i;
-  if (i >= n) i = 2 * n - 2 - i;
-  // the brick overhang past the volume carries a zero dy; keep it in bounds
-  return min(max(i, 0), n - 1);
+
+// where split `split`'s partial of dW row `row` goes
+__device__ __forceinline__ float* partial_row(const WgradArgs& a, int split,
+                                              int64_t row) {
+  float* base = a.ws ? a.ws + (int64_t)split * 27 * a.ci * a.co : a.dw;
+  return base + row * a.co;
 }
 
 union Pack8 {  // eight bf16 values as raw 16-bit patterns
@@ -121,7 +132,7 @@ __device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
                : "memory");
 }
 
-template <int BN>
+template <int BN, bool GP>
 __global__ void __launch_bounds__(NTHREADS) wgrad_kernel(const WgradArgs a) {
   constexpr int NB8 = BN / 8;
   constexpr int STAGE = A_BYTES + BK * BN * 2;
@@ -176,14 +187,7 @@ __global__ void __launch_bounds__(NTHREADS) wgrad_kernel(const WgradArgs a) {
         const int kd = tap / 9, kh = (tap / 3) % 3, kw = tap % 3;
         int iz = a.stride * oz + kd - 1, iy = a.stride * oy + kh - 1,
             ix = a.stride * ox + kw - 1;
-        if (a.reflect) {
-          iz = reflect_index(iz, a.D);
-          iy = reflect_index(iy, a.H);
-          ix = reflect_index(ix, a.W);
-        } else {
-          ok = ok && iz >= 0 && iz < a.D && iy >= 0 && iy < a.H && ix >= 0 &&
-               ix < a.W;
-        }
+        pad_voxel<GP>(a.pad, a.D, a.H, a.W, iz, iy, ix, ok);
         const int64_t off =
             ok ? ((((int64_t)b * a.D + iz) * a.H + iy) * a.W + ix) * a.ci + c
                : 0;
@@ -278,10 +282,10 @@ __global__ void __launch_bounds__(NTHREADS) wgrad_kernel(const WgradArgs a) {
   wgmma_wait<0>();
   cp_async_wait<0>();
   fence_regs(acc);
-  if (nsteps == 0) return;
 
   // epilogue: thread holds rows 16 w + l / 4 (+ 8) of its warpgroup's 64,
-  // columns 8 j + 2 (l % 4) (+ 1); add them into dW
+  // columns 8 j + 2 (l % 4) (+ 1); store them into this split's partial
+  // (zeros for a split past the bricks)
   const int w = (tid >> 5) & 3, l = tid & 31;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -289,12 +293,12 @@ __global__ void __launch_bounds__(NTHREADS) wgrad_kernel(const WgradArgs a) {
     const int tap = m / a.cp;
     const int c = m - tap * a.cp;
     if (tap >= 27 || c >= a.ci) continue;
-    float* row = a.dw + ((int64_t)tap * a.ci + c) * a.co;
+    float* row = partial_row(a, blockIdx.z, (int64_t)tap * a.ci + c);
 #pragma unroll
     for (int j = 0; j < NB8; ++j) {
       const int col = n0 + 8 * j + 2 * (l & 3);
-      if (col < a.co) atomicAdd(row + col, acc[4 * j + 2 * h]);
-      if (col + 1 < a.co) atomicAdd(row + col + 1, acc[4 * j + 2 * h + 1]);
+      if (col < a.co) row[col] = acc[4 * j + 2 * h];
+      if (col + 1 < a.co) row[col + 1] = acc[4 * j + 2 * h + 1];
     }
   }
 }
@@ -302,8 +306,10 @@ __global__ void __launch_bounds__(NTHREADS) wgrad_kernel(const WgradArgs a) {
 // The halo brick (design 1 above): each warpgroup holds up to MTW m64
 // tiles of f32 accumulators and runs one register-A wgmma m64nBNk16 per
 // tile and 16 positions.
-template <int BN, int MTW>
-__global__ void __launch_bounds__(NTHREADS)
+// the narrow brick fits three blocks on an SM by shared memory; its
+// registers are capped to keep them (at 82-86 a thread it would hold two)
+template <int BN, int MTW, bool GP>
+__global__ void __launch_bounds__(NTHREADS, BN == 16 && MTW <= 4 ? 3 : 1)
 wgrad_brick_kernel(const WgradArgs a) {
   constexpr int NB8 = BN / 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -351,14 +357,7 @@ wgrad_brick_kernel(const WgradArgs a) {
       int iz = oz0 + hz - 1, iy = oy0 + hy - 1, ix = ox0 + hx - 1;
       const int c = cg * 8;
       bool ok = c < a.ci;
-      if (a.reflect) {
-        iz = reflect_index(iz, a.D);
-        iy = reflect_index(iy, a.H);
-        ix = reflect_index(ix, a.W);
-      } else {
-        ok = ok && iz >= 0 && iz < a.D && iy >= 0 && iy < a.H && ix >= 0 &&
-             ix < a.W;
-      }
+      pad_voxel<GP>(a.pad, a.D, a.H, a.W, iz, iy, ix, ok);
       const int64_t off =
           ok ? ((((int64_t)b * a.D + iz) * a.H + iy) * a.W + ix) * a.ci + c
              : 0;
@@ -457,10 +456,9 @@ wgrad_brick_kernel(const WgradArgs a) {
     }
   }
   cp_async_wait<0>();
-  if (nsteps == 0) return;
 
   // epilogue: tile wg + 2 t, rows 16 warp + lane / 4 (+ 8), columns
-  // 8 j + 2 (lane % 4) (+ 1); add them into dW
+  // 8 j + 2 (lane % 4) (+ 1); store them into this split's partial
 #pragma unroll
   for (int t = 0; t < MTW; ++t) {
     const int gm = wg + 2 * t;
@@ -472,40 +470,87 @@ wgrad_brick_kernel(const WgradArgs a) {
       const int tap = grp / cgs;
       const int c = (grp - tap * cgs) * 8 + (m & 7);
       if (tap >= 27 || c >= a.ci) continue;
-      float* dst = a.dw + ((int64_t)tap * a.ci + c) * a.co;
+      float* dst = partial_row(a, blockIdx.y, (int64_t)tap * a.ci + c);
 #pragma unroll
       for (int j = 0; j < NB8; ++j) {
         const int col = n0 + 8 * j + 2 * (lane & 3);
-        if (col < a.co) atomicAdd(dst + col, acc[t][4 * j + 2 * h]);
-        if (col + 1 < a.co) atomicAdd(dst + col + 1, acc[t][4 * j + 2 * h + 1]);
+        if (col < a.co) dst[col] = acc[t][4 * j + 2 * h];
+        if (col + 1 < a.co) dst[col + 1] = acc[t][4 * j + 2 * h + 1];
       }
     }
   }
 }
 
+template <int BN, int MTW, bool GP>
+cudaError_t launch_brick_gp(const WgradArgs& a, int n_tiles, int splits,
+                            cudaStream_t stream) {
+  const int smem = STAGES * (a.cp / 8 * HH_VOX * 16 + HB_POS * BN * 2);
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad_brick_kernel<BN, MTW, GP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  wgrad_brick_kernel<BN, MTW, GP><<<dim3(n_tiles, splits), NTHREADS, smem,
+                                    stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <int BN, int MTW>
 cudaError_t launch_brick(const WgradArgs& a, int n_tiles, int splits,
                          cudaStream_t stream) {
-  const int smem = STAGES * (a.cp / 8 * HH_VOX * 16 + HB_POS * BN * 2);
+  return generic_pad(a.pad)
+             ? launch_brick_gp<BN, MTW, true>(a, n_tiles, splits, stream)
+             : launch_brick_gp<BN, MTW, false>(a, n_tiles, splits, stream);
+}
+
+template <int BN, bool GP>
+cudaError_t launch_ring(const WgradArgs& a, int m_tiles, int n_tiles,
+                        int splits, cudaStream_t stream) {
+  const int smem = STAGES * (A_BYTES + BK * BN * 2);
   cudaError_t err = cudaFuncSetAttribute(
-      wgrad_brick_kernel<BN, MTW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      wgrad_kernel<BN, GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  wgrad_brick_kernel<BN, MTW><<<dim3(n_tiles, splits), NTHREADS, smem,
-                                stream>>>(a);
+  wgrad_kernel<BN, GP><<<dim3(m_tiles, n_tiles, splits), NTHREADS, smem,
+                         stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int BN>
 cudaError_t launch(const WgradArgs& a, int m_tiles, int n_tiles, int splits,
                    cudaStream_t stream) {
-  const int smem = STAGES * (A_BYTES + BK * BN * 2);
-  cudaError_t err = cudaFuncSetAttribute(
-      wgrad_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  wgrad_kernel<BN><<<dim3(m_tiles, n_tiles, splits), NTHREADS, smem,
-                     stream>>>(a);
-  return cudaGetLastError();
+  return generic_pad(a.pad)
+             ? launch_ring<BN, true>(a, m_tiles, n_tiles, splits, stream)
+             : launch_ring<BN, false>(a, m_tiles, n_tiles, splits, stream);
+}
+
+// dW = the splits' partials summed in a fixed order: a block takes 32
+// consecutive elements (one a lane, so each split row is one 128-byte
+// load), its warp g sums the splits g, g + 32, ... in turn, then lane's
+// thread of warp 0 adds the 32 warps' sums in warp order. A serial loop
+// over hundreds of splits a thread would wait on each load in turn.
+constexpr int RED_WARPS = 32;
+
+__global__ void __launch_bounds__(RED_WARPS * 32)
+wgrad_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dw,
+                    int splits, int64_t n) {
+  __shared__ float part[RED_WARPS][33];
+  const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
+  for (int64_t e0 = blockIdx.x * 32LL; e0 < n; e0 += gridDim.x * 32LL) {
+    const int64_t e = e0 + lane;
+    float s = 0.f;
+    if (e < n) {
+#pragma unroll 4
+      for (int k = grp; k < splits; k += RED_WARPS) s += ws[k * n + e];
+    }
+    part[grp][lane] = s;
+    __syncthreads();
+    if (grp == 0 && e < n) {
+      float t = part[0][lane];
+      for (int g = 1; g < RED_WARPS; ++g) t += part[g][lane];
+      dw[e] = t;
+    }
+    __syncthreads();
+  }
 }
 
 bool aligned16(const void* p) {
@@ -516,18 +561,20 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace
 
-// dw (27 * ci, co) f32, zeroed by the caller, += the weight gradient of the
-// 3x3x3 conv of x (B, D, H, W, ci) at `stride` 1 (reflect or zero padding;
-// dy (B, D, H, W, co)) or 2 (zero padding 1; dy (B, (D+1)/2, (H+1)/2,
-// (W+1)/2, co)), both bf16, under the launch plan `plan`
+// dw (27 * ci, co) f32 = the weight gradient of the 3x3x3 conv of x (B, D,
+// H, W, ci) at `stride` 1 (padding `pad`, 2 bits an axis; dy (B, D, H, W,
+// co)) or 2 (zero padding 1; dy (B, (D+1)/2, (H+1)/2, (W+1)/2, co)), both
+// bf16, under the launch plan `plan`; ws the (splits, 27 * ci, co) f32
+// workspace of a plan of more than one split, else null
 extern "C" int conv3x3x3_wgrad_ndhwc(const void* x, const void* dy, void* dw,
-                                     const int* plan, int B, int D, int H,
-                                     int W, int ci, int co, int reflect,
+                                     void* ws, const int* plan, int B, int D,
+                                     int H, int W, int ci, int co, int pad,
                                      int stride, void* stream) {
   WgradArgs a;
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.dy = static_cast<const __nv_bfloat16*>(dy);
   a.dw = static_cast<float*>(dw);
+  a.ws = static_cast<float*>(ws);
   a.B = B;
   a.D = D;
   a.H = H;
@@ -562,7 +609,8 @@ extern "C" int conv3x3x3_wgrad_ndhwc(const void* x, const void* dy, void* dw,
       halo && (stride != 1 || a.bx != 3 || a.by != 2 || a.bz != 2 ||
                bb != 0 || m_tiles * 64 < 27 * a.cp ||
                !((bn == 16 && mtw <= 11) || (bn == 32 && mtw <= 4)));
-  if ((stride != 1 && stride != 2) || (stride == 2 && reflect) || bad_halo ||
+  if ((stride != 1 && stride != 2) || pad < 0 || pad > 63 ||
+      (stride == 2 && pad) || bad_halo || (splits > 1) != (ws != nullptr) ||
       (!halo && (a.bx + a.by + a.bz + bb != 6 || m_tiles * BM < 27 * a.cp)) ||
       a.bx < 0 || a.by < 0 || a.bz < 0 ||
       bb < 0 || (a.tiles_x << a.bx) < a.oW || (a.tiles_y << a.by) < a.oH ||
@@ -571,22 +619,33 @@ extern "C" int conv3x3x3_wgrad_ndhwc(const void* x, const void* dy, void* dw,
       (int64_t)splits * a.bricks_per_split < a.n_bricks) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  a.reflect = reflect;
+  a.pad = pad;
   a.xvec = (ci % 8 == 0) && aligned16(x);
   a.dyvec = (co % 8 == 0) && aligned16(dy);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (halo) {
-    if (bn == 32) return static_cast<int>(launch_brick<32, 4>(a, n_tiles, splits, s));
-    if (mtw <= 4) return static_cast<int>(launch_brick<16, 4>(a, n_tiles, splits, s));
-    return static_cast<int>(launch_brick<16, 11>(a, n_tiles, splits, s));
+    if (bn == 32) {
+      err = launch_brick<32, 4>(a, n_tiles, splits, s);
+    } else if (mtw <= 4) {
+      err = launch_brick<16, 4>(a, n_tiles, splits, s);
+    } else {
+      err = launch_brick<16, 11>(a, n_tiles, splits, s);
+    }
+  } else {
+    switch (bn) {
+      case 16: err = launch<16>(a, m_tiles, n_tiles, splits, s); break;
+      case 32: err = launch<32>(a, m_tiles, n_tiles, splits, s); break;
+      case 64: err = launch<64>(a, m_tiles, n_tiles, splits, s); break;
+      case 128: err = launch<128>(a, m_tiles, n_tiles, splits, s); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  switch (bn) {
-    case 16: err = launch<16>(a, m_tiles, n_tiles, splits, s); break;
-    case 32: err = launch<32>(a, m_tiles, n_tiles, splits, s); break;
-    case 64: err = launch<64>(a, m_tiles, n_tiles, splits, s); break;
-    case 128: err = launch<128>(a, m_tiles, n_tiles, splits, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const int64_t n = (int64_t)27 * ci * co;
+  int64_t blocks = (n + 31) / 32;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  wgrad_reduce_kernel<<<(unsigned)blocks, RED_WARPS * 32, 0, s>>>(
+      a.ws, a.dw, splits, n);
+  return static_cast<int>(cudaGetLastError());
 }

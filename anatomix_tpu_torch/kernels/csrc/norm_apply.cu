@@ -7,6 +7,7 @@
 // computing
 //   out[b, z, y, x, c] = act(x[b, z, y, x, c] * a[b, tz, ty, tx, c]
 //                            + s[b, tz, ty, tx, c] [+ r[b, z, y, x, c]])
+//                        [+ 0.1 x[b, z, y, x, c]]
 // with (tz, ty, tx) = (zmap[z], ymap[y], xmap[x]): three int32 maps from
 // voxel index to tile index, so even and uneven tiles (and the global norm,
 // one tile) take the same kernel. The input is bf16 or f32 (the fused
@@ -21,6 +22,10 @@
 // which then reads v * w as x_hi w_hi + x_lo w_hi + x_hi w_lo, to about
 // 2^-16 of it (the port's ViT tokenizer, whose instance norms amplify a bf16
 // rounding on a smooth volume); a residual in that form is read as hi + lo.
+// With `post_res` it adds 0.1 x after the activation: a residual UNet's
+// block end, `act(norm(conv)) + 0.1 conv` (`anatomix_tpu/models/unet.py:
+// 530-532`), with (a, s) the batch norm's running affine, the instance
+// norm's, or 1 and 0 where the block has no norm.
 //
 // What bounds it on an H100: bytes. It reads each input element once and
 // writes each output element once (4 or 6 bytes per element) for two
@@ -41,12 +46,16 @@ namespace {
 
 constexpr int NTHREADS = 256;
 
+// 1 relu, 2 lrelu (PReLU: its weight as the slope), 3 elu, 4 tanh, 5 selu
 __device__ __forceinline__ float activate(float v, int act, float slope) {
   switch (act) {
     case 1: return fmaxf(v, 0.f);
     case 2: return v >= 0.f ? v : slope * v;
     case 3: return v >= 0.f ? v : expm1f(v);
     case 4: return tanhf(v);
+    case 5:
+      return 1.0507009873554805f * (v > 0.f ? v
+                                            : 1.6732632423543772f * expm1f(v));
     default: return v;
   }
 }
@@ -84,7 +93,7 @@ norm_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
                   const __nv_bfloat16* __restrict__ res,
                   __nv_bfloat16* __restrict__ out, int64_t n_items, int D,
                   int H, int W, int C, int t0, int t1, int t2, int act,
-                  float slope, int split) {
+                  float slope, int split, int post_res) {
   const int G = C / V;  // items per voxel
   const int64_t first = (int64_t)blockIdx.x * NTHREADS;
   const int64_t e = first + threadIdx.x;
@@ -129,7 +138,8 @@ norm_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
     Pack8 hi, lo;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float val = activate(xv[j] * av[j] + sv[j] + rv[j], act, slope);
+      float val = activate(xv[j] * av[j] + sv[j] + rv[j], act, slope);
+      if (post_res) val += 0.1f * xv[j];
       hi.h[j] = __float2bfloat16(val);
       lo.h[j] = __float2bfloat16(val - __bfloat162float(hi.h[j]));
     }
@@ -139,12 +149,14 @@ norm_apply_kernel(const T* __restrict__ x, const float* __restrict__ a,
       *reinterpret_cast<uint4*>(out + o + 2 * C) = hi.u;
     }
   } else {
-    float val = to_float(x[e]) * ar[0] + sr[0];
+    const float xe = to_float(x[e]);
+    float val = xe * ar[0] + sr[0];
     if (res != nullptr) {
       val += __bfloat162float(res[o]);
       if (split) val += __bfloat162float(res[o + C]);
     }
     val = activate(val, act, slope);
+    if (post_res) val += 0.1f * xe;
     const __nv_bfloat16 hi = __float2bfloat16(val);
     out[o] = hi;
     if (split) {
@@ -164,16 +176,16 @@ void launch(bool vec, int64_t blocks, cudaStream_t st, const void* x,
             const int* xmap, const __nv_bfloat16* res, __nv_bfloat16* out,
             int64_t n_items, int D,
             int H, int W, int C, int t0, int t1, int t2, int act,
-            float slope, int split) {
+            float slope, int split, int post_res) {
   const T* xp = static_cast<const T*>(x);
   if (vec) {
     norm_apply_kernel<T, 8><<<(unsigned)blocks, NTHREADS, 0, st>>>(
         xp, a, s, zmap, ymap, xmap, res, out, n_items, D, H, W, C, t0, t1,
-        t2, act, slope, split);
+        t2, act, slope, split, post_res);
   } else {
     norm_apply_kernel<T, 1><<<(unsigned)blocks, NTHREADS, 0, st>>>(
         xp, a, s, zmap, ymap, xmap, res, out, n_items, D, H, W, C, t0, t1,
-        t2, act, slope, split);
+        t2, act, slope, split, post_res);
   }
 }
 
@@ -185,7 +197,7 @@ extern "C" int norm_apply_ndhwc(const void* x, int x_f32, const void* a,
                                 const void* res, void* out, int B, int D,
                                 int H, int W, int C,
                                 int t0, int t1, int t2, int act, float slope,
-                                int split, void* stream) {
+                                int split, int post_res, void* stream) {
   const int64_t voxels = (int64_t)B * D * H * W;
   if (voxels >= 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t elems = voxels * C;
@@ -206,11 +218,11 @@ extern "C" int norm_apply_ndhwc(const void* x, int x_f32, const void* a,
   auto* op = static_cast<__nv_bfloat16*>(out);
   if (x_f32) {
     launch<float>(vec, blocks, st, x, ap, sp, zp, yp, wp, rp, op, n_items,
-                  D, H, W, C, t0, t1, t2, act, slope, split);
+                  D, H, W, C, t0, t1, t2, act, slope, split, post_res);
   } else {
     launch<__nv_bfloat16>(vec, blocks, st, x, ap, sp, zp, yp, wp, rp, op,
                           n_items, D, H, W, C, t0, t1, t2, act, slope,
-                          split);
+                          split, post_res);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,7 @@ of `csrc/norm_apply.cu`, whose header says what bounds it on the card and
 what its design does about it. It computes
 
     y[b, z, y, x, c] = act(x * a[b, tz, ty, tx, c] + s[b, tz, ty, tx, c]
-                           [+ r[b, z, y, x, c]])
+                           [+ r[b, z, y, x, c]]) [+ 0.1 x]
 
 with the tile of each voxel given by three int32 maps (`ops/norms.tile_maps`),
 so even and uneven tiles and the global norm (one tile) are one kernel.
@@ -17,7 +17,10 @@ bf16 or f32, the optional residual `r` bf16 (the ViT tokenizer's
 `lrelu(IN(conv2(...)) + r)`) and the output bf16. With `split=True` the
 output is the three-term split `(..., 3 C)` [hi | lo | hi] of the f32
 value (`ops/conv.split3`), the operand form of a conv that reads it as f32,
-and a residual is taken in that form too (read as hi + lo).
+and a residual is taken in that form too (read as hi + lo). With
+`post_res=True` it adds `0.1 x` after the activation: the end of a residual
+UNet's block, `act(norm(conv)) + 0.1 conv`, (a, s) the batch norm's running
+affine (one tile), the instance norm's, or ones and zeros without a norm.
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version. `.launches` counts kernel launches.
@@ -43,8 +46,8 @@ def _fn():
     if fn is None:
         fn = build.load("norm_apply").norm_apply_ndhwc
         # x, x_f32, a, s, zmap, ymap, xmap, residual, out; B, D, H, W, C,
-        # t0, t1, t2; act, slope, split, stream
-        fn.argtypes = [_P, _I] + [_P] * 7 + [_I] * 8 + [_I, _F, _I, _P]
+        # t0, t1, t2; act, slope, split, post_res, stream
+        fn.argtypes = [_P, _I] + [_P] * 7 + [_I] * 8 + [_I, _F, _I, _I, _P]
         fn.restype = ctypes.c_int
         _fns["norm_apply_ndhwc"] = fn
     return fn
@@ -52,12 +55,14 @@ def _fn():
 
 def norm_apply_ndhwc_plain(x, a, s, tile_maps, *, act="none", slope=0.3,
                            out_dtype=torch.bfloat16, residual=None,
-                           split=False):
+                           split=False, post_res=False):
     """f32 arithmetic on the same inputs."""
     y = x.float() * expand_tiles(a, tile_maps) + expand_tiles(s, tile_maps)
     if residual is not None:
         y = y + (merge3(residual) if split else residual.float())
     y = apply_activation(y, act, slope=slope)
+    if post_res:
+        y = y + 0.1 * x.float()
     return split3(y) if split else y.to(out_dtype)
 
 
@@ -73,16 +78,18 @@ def norm_apply_ndhwc(
     residual: torch.Tensor | None = None,  # x's shape, bf16 on the card
     split: bool = False,
     out: torch.Tensor | None = None,
+    post_res: bool = False,
 ) -> torch.Tensor:
-    """act(x * a[tile] + s[tile] [+ residual]) per (sample, tile,
-    channel), stored in `out_dtype` (bf16 on the card), or with `split` as
-    the bf16 (..., 3 C) [hi | lo | hi] of the f32 value, a residual then
-    in that form; written into `out` when given (contiguous, of the
-    result's shape and dtype)."""
+    """act(x * a[tile] + s[tile] [+ residual]) [+ 0.1 x with `post_res`]
+    per (sample, tile, channel), stored in `out_dtype` (bf16 on the card),
+    or with `split` as the bf16 (..., 3 C) [hi | lo | hi] of the f32 value,
+    a residual then in that form; written into `out` when given
+    (contiguous, of the result's shape and dtype)."""
     if x.device.type == "cpu":
         y = norm_apply_ndhwc_plain(x, a, s, tile_maps, act=act,
                                    slope=slope, out_dtype=out_dtype,
-                                   residual=residual, split=split)
+                                   residual=residual, split=split,
+                                   post_res=post_res)
         return y if out is None else out.copy_(y)
     dev = x.device
     if (x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 5
@@ -126,7 +133,8 @@ def norm_apply_ndhwc(
         s.data_ptr(), zmap.data_ptr(), ymap.data_ptr(), xmap.data_ptr(),
         None if residual is None else residual.data_ptr(), out.data_ptr(),
         B, D, H, W, C,
-        t0, t1, t2, EPILOGUE_ACTS[act], float(slope), int(split), stream,
+        t0, t1, t2, EPILOGUE_ACTS[act], float(slope), int(split),
+        int(post_res), stream,
     )
     build.check(rc, "norm_apply_ndhwc")
     norm_apply_ndhwc.launches += 1

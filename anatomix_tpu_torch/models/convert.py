@@ -7,7 +7,12 @@ The port's state dict is the reference's: flat-Sequential keys
 by the same index as a string, with DHWIO convs `{"w", "b"}`, batch norms
 `{"scale", "bias", "mean", "var"}` and `instance_affine` norms
 `{"scale", "bias"}` (state dict `weight` / `bias`). Plain instance norms have
-no parameters.
+no parameters. A PReLU UNet's shared weight is JAX's `params["prelu"]["w"]`
+and the state dict's `model.<slot>.weight` at every act slot (the
+reference's one shared `nn.PReLU`); `final_prelu` is the final
+activation's own. A 1-D or 2-D net's convs are native rank in the state
+dict ((O, I, 3) / (O, I, 3, 3), as `nn.Conv1d` / `nn.Conv2d`) and
+degenerate 3-D DHWIO in JAX ((1, 1, 3, I, O) / (1, 3, 3, I, O)).
 
 `from_jax_train_state` carries a JAX pretraining `TrainState` across, of
 the UNet or of the Primus ViT.
@@ -20,7 +25,13 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from anatomix_tpu_torch.models.unet import UnetPlan
+from anatomix_tpu_torch.models.unet import (
+    UnetPlan,
+    act_slots,
+    final_prelu_key,
+    prelu_key,
+)
+from anatomix_tpu_torch.ops.conv import lift_weight
 
 _PREFIXES = ("_orig_mod.", "module.")
 
@@ -48,14 +59,17 @@ def _t(val) -> torch.Tensor:
 def from_jax_params(
     plan: UnetPlan, params: Mapping[str, Mapping[str, Any]]
 ) -> dict[str, torch.Tensor]:
-    """JAX pytree (numpy leaves) -> the port's state dict (CPU float32)."""
+    """JAX pytree (numpy leaves) -> the port's state dict (CPU float32), in
+    the reference layout (the shared PReLU weight at every act slot)."""
     sd: dict[str, torch.Tensor] = {}
+    dim = plan.config.dimension
     for idx, spec in enumerate(plan.layers):
         p = params.get(str(idx))
         base = f"model.{idx}"
         if spec.kind == "conv":
-            w = np.asarray(p["w"], np.float32)
-            sd[f"{base}.weight"] = _t(np.transpose(w, (4, 3, 0, 1, 2)))
+            w = np.transpose(np.asarray(p["w"], np.float32), (4, 3, 0, 1, 2))
+            sd[f"{base}.weight"] = _t(w.reshape(w.shape[:2]
+                                                + w.shape[5 - dim:]))
             if "b" in p:
                 sd[f"{base}.bias"] = _t(p["b"])
         elif spec.kind == "norm" and plan.config.norm == "batch":
@@ -69,13 +83,18 @@ def from_jax_params(
         elif spec.kind == "norm" and plan.config.norm == "instance_affine":
             sd[f"{base}.weight"] = _t(p["scale"])
             sd[f"{base}.bias"] = _t(p["bias"])
+        elif spec.kind == "act" and plan.config.activation == "prelu":
+            sd[f"{base}.weight"] = _t(params["prelu"]["w"])
+        elif spec.kind == "final_act" and plan.config.final_act == "prelu":
+            sd[f"{base}.weight"] = _t(params["final_prelu"]["w"])
     return sd
 
 
 def to_jax_params(
     plan: UnetPlan, state_dict: Mapping[str, torch.Tensor]
 ) -> dict[str, dict[str, np.ndarray]]:
-    """The port's state dict -> JAX pytree with numpy leaves."""
+    """The port's state dict (reference layout, or a training tree with the
+    PReLU weight tied) -> JAX pytree with numpy leaves."""
     sd = strip_prefixes(state_dict)
     params: dict[str, dict[str, np.ndarray]] = {}
 
@@ -85,9 +104,9 @@ def to_jax_params(
     for idx, spec in enumerate(plan.layers):
         base = f"model.{idx}"
         if spec.kind == "conv":
+            w = lift_weight(sd[f"{base}.weight"].detach().cpu().float())
             p = {"w": np.ascontiguousarray(
-                np.transpose(arr(f"{base}.weight"), (2, 3, 4, 1, 0))
-            )}
+                np.transpose(w.numpy(), (2, 3, 4, 1, 0)))}
             if f"{base}.bias" in sd:
                 p["b"] = arr(f"{base}.bias")
             params[str(idx)] = p
@@ -103,6 +122,10 @@ def to_jax_params(
                 "scale": arr(f"{base}.weight"),
                 "bias": arr(f"{base}.bias"),
             }
+    for name, key in (("prelu", prelu_key(plan)),
+                      ("final_prelu", final_prelu_key(plan))):
+        if key is not None:
+            params[name] = {"w": arr(key)}
     return params
 
 
@@ -119,7 +142,13 @@ def check_state_dict(plan: UnetPlan, state_dict: Mapping[str, Any]) -> None:
                        ("weight", "bias", "running_mean", "running_var")}
         elif spec.kind == "norm" and plan.config.norm == "instance_affine":
             wanted |= {f"{base}.weight", f"{base}.bias"}
+    for key in (prelu_key(plan), final_prelu_key(plan)):
+        if key is not None:
+            wanted.add(key)
     optional = {f"model.{i}.bias" for i in plan.conv_indices}
+    if prelu_key(plan) is not None:
+        # the other act slots repeat the shared weight
+        optional |= {f"model.{i}.weight" for i in act_slots(plan)}
     keys = {k for k in state_dict if not k.endswith("num_batches_tracked")}
     missing = wanted - keys
     extra = keys - wanted - optional
@@ -128,6 +157,14 @@ def check_state_dict(plan: UnetPlan, state_dict: Mapping[str, Any]) -> None:
             "state dict does not match the plan (architecture mismatch?): "
             f"missing {sorted(missing)[:8]}, unconsumed {sorted(extra)[:8]}"
         )
+    key = prelu_key(plan)
+    if key is not None:
+        ref = np.asarray(state_dict[key])
+        for i in act_slots(plan):
+            v = state_dict.get(f"model.{i}.weight")
+            if v is not None and not np.array_equal(np.asarray(v), ref):
+                raise ValueError("PReLU act weights differ across layers: "
+                                 "the reference shares one instance")
 
 
 def load_pth(path: str, plan: UnetPlan) -> dict[str, torch.Tensor]:
@@ -153,6 +190,7 @@ def from_jax_train_state(state_np: Mapping[str, Any], plan, *,
     `params_f` (`mlp_<t>`: `linears` (in, out), `bns` {mean, var[, scale,
     bias]}) keeps its structure. The optimizer states start fresh (zero
     moments, count 0), as a JAX state from `init_train_state` does."""
+    from anatomix_tpu_torch.models.unet import trainable_state
     from anatomix_tpu_torch.pretraining.train_step import (
         TrainState,
         init_opt_state,
@@ -160,9 +198,8 @@ def from_jax_train_state(state_np: Mapping[str, Any], plan, *,
     )
 
     if isinstance(plan, UnetPlan):
-        params_g = {k: v for k, v in
-                    from_jax_params(plan, state_np["params_g"]).items()
-                    if v.is_floating_point()}
+        params_g = trainable_state(
+            plan, from_jax_params(plan, state_np["params_g"]))
     else:
         from anatomix_tpu_torch.models.vit3d.convert import (
             from_jax_primus_params,

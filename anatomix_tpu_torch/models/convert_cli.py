@@ -13,9 +13,8 @@ UNets go through `convert.load_pth` (prefixes stripped, keys checked
 against the plan) and `convert.to_jax_params` into `load.save_npz`'s flat
 `"<idx>/<leaf>"` file; the ViT variant through
 `vit3d.convert.convert_primus_state_dict` into `utils/checkpoint.
-save_pytree`'s file. A UNet option the port does not run (1-D and 2-D
-models, PReLU, residuals) raises `NotImplementedError` naming the ROADMAP
-item that brings it.
+save_pytree`'s file. Every UNet option of the JAX package's CLI converts,
+1-D and 2-D nets and PReLU among them.
 """
 
 from __future__ import annotations

@@ -15,7 +15,13 @@ the same packed weights (`unet_fused.prepack_fused`, batch norms folded):
   (`ops/norms.instance_norm_stats(..., group=)`; the shards are of equal
   size, as in JAX's `pmean`), applied by D1 (`kernels/norm.
   norm_apply_ndhwc`, the three-term split where the unsharded walk stores
-  it);
+  it); a residual block's D1 pass (its norm, activation and `+ 0.1 x`)
+  as in the unsharded walk;
+- the padding: reflect, replicate or zeros at the volume's two D ends and
+  on H and W; circular raises `ValueError`, since a periodic D halo would
+  join the first and last shards (the JAX package's spatial path has no
+  circular halo either, `anatomix_tpu/models/unet.py:435-436`), and so do
+  1-D and 2-D nets, which have no D axis to shard;
 - pools and the nearest upsample: shard-local;
 - the trilinear upsample: a one-plane halo (replicate at the global
   edges, the edge clamp of `align_corners=False`), D2
@@ -38,7 +44,6 @@ from anatomix_tpu_torch.kernels.conv import conv3x3x3_dvalid_ndhwc
 from anatomix_tpu_torch.kernels.norm import norm_apply_ndhwc
 from anatomix_tpu_torch.kernels.resize import upsample2x_trilinear_ndhwc
 from anatomix_tpu_torch.models.unet import UnetPlan
-from anatomix_tpu_torch.ops.activations import UNET_LRELU_SLOPE
 from anatomix_tpu_torch.ops.conv import merge3, split3
 from anatomix_tpu_torch.ops.norms import (
     fold_affine,
@@ -79,6 +84,27 @@ def _upsampled_into(dst: torch.Tensor, small: torch.Tensor, interp: str,
         dst.copy_(upsample2x_trilinear_ndhwc(small, split=split)[:, 2:-2])
 
 
+def _norm_apply_into(feat, p, cfg, group, compute_dtype, post_res=False):
+    """D1 on the shard `feat` into a new haloed buffer: the batch norm's
+    running affine, or the instance norm's moments averaged over the
+    group; with `post_res` the residual block's `+ 0.1 feat`."""
+    if "a" in p:
+        a = p["a"].reshape(1, 1, 1, 1, -1).expand(
+            feat.shape[0], 1, 1, 1, -1)
+        s = p["s"].reshape(1, 1, 1, 1, -1).expand_as(a)
+    else:
+        mean, var = instance_norm_stats(feat, group=group)
+        a, s = fold_affine(mean, var, cfg.norm_eps, p["scale"], p["bias"])
+    c = feat.shape[-1]
+    buf = _haloed(feat, 3 * c if p["split"] else c, compute_dtype)
+    norm_apply_ndhwc(
+        feat, a.contiguous(), s.contiguous(),
+        tile_maps(feat.shape[1:4], (1, 1, 1), feat.device),
+        act=p["act"], slope=p["slope"], out_dtype=compute_dtype,
+        split=p["split"], out=buf[:, 1:-1], post_res=post_res)
+    return buf
+
+
 def unet_apply_sharded(
     plan: UnetPlan,
     packed: dict[int, dict[str, Any]],
@@ -99,6 +125,10 @@ def unet_apply_sharded(
                                              compute_dtype=compute_dtype)
                           for b in range(x.shape[0])])
     cfg = plan.config
+    if cfg.pad_type == "circular" or cfg.dimension != 3:
+        raise ValueError("the spatially sharded forward takes 3-D UNets "
+                         "with reflect, replicate or zeros padding, got "
+                         f"{cfg.dimension}-D {cfg.pad_type!r}")
     last_conv = plan.conv_indices[-1]
     split = packed[plan.conv_indices[0]]["split"]
     first = split3(x.float()) if split else x.to(compute_dtype)
@@ -114,23 +144,15 @@ def unet_apply_sharded(
             out = _haloed(buf[:, 1:-1], p["w"].shape[1], out_dtype)
             conv3x3x3_dvalid_ndhwc(
                 halo_exchange_(buf, group, cfg.pad_type), p["w"], p["b"],
-                act=p["act"], slope=UNET_LRELU_SLOPE, pad_type=cfg.pad_type,
+                act=p["act"], slope=p["slope"], pad_type=cfg.pad_type,
                 out_dtype=out_dtype, out=out[:, 1:-1])
             buf = out
-        elif spec.kind == "norm":
-            p = packed[idx]
-            feat = buf[:, 1:-1]
-            mean, var = instance_norm_stats(feat, group=group)
-            a, s = fold_affine(mean, var, cfg.norm_eps, p["scale"],
-                               p["bias"])
-            c = feat.shape[-1]
-            buf = _haloed(feat, 3 * c if p["split"] else c, compute_dtype)
-            norm_apply_ndhwc(
-                feat, a.contiguous(), s.contiguous(),
-                tile_maps(feat.shape[1:4], (1, 1, 1), feat.device),
-                act=p["act"], slope=UNET_LRELU_SLOPE,
-                out_dtype=compute_dtype, split=p["split"],
-                out=buf[:, 1:-1])
+            if "block" in p:
+                buf = _norm_apply_into(buf[:, 1:-1], p["block"], cfg, group,
+                                       compute_dtype, post_res=True)
+        elif spec.kind == "norm" and idx in packed:
+            buf = _norm_apply_into(buf[:, 1:-1], packed[idx], cfg, group,
+                                   compute_dtype)
         elif spec.kind == "pool":
             pool = max_pool if cfg.pooling == "Max" else avg_pool
             feat = buf[:, 1:-1]

@@ -7,7 +7,11 @@ and the same results, `(out, taps, new_stats)`, for batch norm (the
 batch's statistics, the running stats updated), instance norm and
 `instance_affine` (the JAX package's one-pass f32 statistics,
 `ops/norms.tiled_instance_norm`), Max or Avg pool, nearest or trilinear x2
-upsampling, reflect or zeros padding, with or without skip connections.
+upsampling, reflect, zeros, replicate or circular padding, with or without
+skip connections and residual connections, every activation (PReLU's
+weight one leaf shared by every act slot, as JAX's `params["prelu"]["w"]`,
+so its gradient sums over the slots), and 1-D and 2-D nets lifted to 3-D
+(their kernels' zero taps on the lifted axes, which pad with zeros).
 The pretraining step and segmentation finetuning take it for every UNet
 outside `train_block_eligible` (the 6M family keeps the block walk of
 `models/unet_train_block.py`), among them the 94M `anatomix-dev` UNet
@@ -25,8 +29,8 @@ volume. The backward runs on the bf16 roundings of x and w. Otherwise the
 convs read and store `compute_dtype`. The decoder materializes
 `cat(enc, up(small))`, as the JAX walk does, so every conv has one operand
 and its saved input is what the wgrad kernel reads. Norms, pools,
-upsampling and activations are torch autograd glue (XLA ops in the JAX
-walk).
+upsampling, activations and the residual adds are torch autograd glue
+(XLA ops in the JAX walk).
 
 `plain=True` runs the same walk in f32 with `F.conv3d` under autograd (the
 port's reference path on the card).
@@ -39,16 +43,20 @@ from typing import Mapping, Sequence
 import torch
 
 from anatomix_tpu_torch.kernels.conv_train import conv3x3x3_train
-from anatomix_tpu_torch.models.unet import UnetPlan, check_supported
+from anatomix_tpu_torch.models.unet import (
+    UnetPlan,
+    check_supported,
+    deflate,
+    kernel_pad,
+    layer_acts,
+    lift_input,
+    pool_window,
+)
 from anatomix_tpu_torch.models.unet_train_block import (
     train_block_eligible,
     unet_apply_train_block,
 )
-from anatomix_tpu_torch.ops.activations import (
-    UNET_LRELU_SLOPE,
-    apply_activation,
-)
-from anatomix_tpu_torch.ops.conv import conv3d_same
+from anatomix_tpu_torch.ops.conv import conv3d_same, full_kernel, lift_weight
 from anatomix_tpu_torch.ops.norms import batch_norm_train, instance_norm
 from anatomix_tpu_torch.ops.pool import avg_pool, max_pool
 from anatomix_tpu_torch.ops.resize import upsample2x
@@ -90,20 +98,24 @@ def unet_apply_train(
     act_dtype = torch.float32 if split else cd
     layers = tuple(layers or ())
     eval_norm_layers = frozenset(eval_norm_layers)
-    feat = x.to(act_dtype).contiguous()
+    act, final_act = layer_acts(plan, params)
+    pad = kernel_pad(cfg)
+    win = pool_window(cfg)
+    feat = lift_input(cfg, x).to(act_dtype).contiguous()
     enc_feats: list[torch.Tensor] = []
     taps: list[torch.Tensor] = []
     new_stats: dict[str, tuple] = {}
+    res = None
     for idx, spec in enumerate(plan.layers):
         base = f"model.{idx}"
         if spec.kind == "conv":
-            w = params[f"{base}.weight"]
+            w = lift_weight(params[f"{base}.weight"])
             b = params.get(f"{base}.bias")
             if plain:
                 feat = conv3d_same(feat, w, b, pad_type=cfg.pad_type)
             else:
-                feat = conv3x3x3_train(feat.contiguous(), w, b, cfg.pad_type,
-                                       out_dtype=act_dtype, split=split)
+                feat = conv3x3x3_train(feat.contiguous(), full_kernel(w), b,
+                                       pad, out_dtype=act_dtype, split=split)
         elif spec.kind == "norm" and cfg.norm == "batch":
             mean = params[f"{base}.running_mean"]
             var = params[f"{base}.running_var"]
@@ -123,15 +135,20 @@ def unet_apply_train(
                                  scale=params.get(f"{base}.weight"),
                                  bias=params.get(f"{base}.bias"))
         elif spec.kind == "act":
-            feat = apply_activation(feat, cfg.activation,
-                                    slope=UNET_LRELU_SLOPE)
+            feat = act(feat)
         elif spec.kind == "final_act":
-            feat = apply_activation(feat, cfg.final_act,
-                                    slope=UNET_LRELU_SLOPE)
+            feat = final_act(feat)
         elif spec.kind == "pool":
-            feat = (max_pool if cfg.pooling == "Max" else avg_pool)(feat, 2)
+            feat = (max_pool if cfg.pooling == "Max" else avg_pool)(feat,
+                                                                   win)
         elif spec.kind == "upsample":
-            feat = upsample2x(feat, cfg.interp)
+            feat = upsample2x(feat, cfg.interp, win)
+        if cfg.residual_connection:
+            # the block's conv output, added after its norm and act
+            if idx in plan.res_source:
+                res = feat
+            if idx in plan.res_dest:
+                feat = feat + 0.1 * res
         if cfg.use_skip_connection:
             if idx in plan.decoder_idx:
                 # the reference concatenates (encoder, decoder) on channels
@@ -139,8 +156,8 @@ def unet_apply_train(
             if idx in plan.encoder_idx:
                 enc_feats.append(feat)
         if idx in layers:
-            taps.append(feat)
-    return feat, taps, new_stats
+            taps.append(deflate(cfg, feat))
+    return deflate(cfg, feat), taps, new_stats
 
 
 def unet_train_forward(plan, params, x, *, layers=(), eval_norm_layers=(),

@@ -13,7 +13,8 @@ copies; the nearest upsample is a channel tile then `depth_to_space2`.
 The two permutation kernels run forward and, each as the other's adjoint,
 backward. Each conv is `kernels/conv_train.conv3x3x3_train` (forward on
 K1, gradients on the dgrad and wgrad kernels), then batch norm in f32
-(`ops/norms.batch_norm_train`) and the activation. The decoder
+(`ops/norms.batch_norm_train`) and the activation (PReLU with its one
+weight shared by every act slot). The decoder
 materializes `cat(enc, nearest2x(small))` as the JAX train walk does, so
 every decoder conv is a single-operand conv whose saved input is what the
 wgrad kernel reads.
@@ -34,11 +35,7 @@ from anatomix_tpu_torch.kernels.reshuffle import (
     depth_to_space2,
     space_to_depth2,
 )
-from anatomix_tpu_torch.models.unet import UnetPlan
-from anatomix_tpu_torch.ops.activations import (
-    UNET_LRELU_SLOPE,
-    apply_activation,
-)
+from anatomix_tpu_torch.models.unet import UnetPlan, layer_acts
 from anatomix_tpu_torch.ops.conv import conv3d_same
 from anatomix_tpu_torch.ops.norms import batch_norm_train
 from anatomix_tpu_torch.ops.pool import max_pool, max_pool_block
@@ -49,7 +46,7 @@ def train_block_eligible(plan: UnetPlan) -> bool:
     """The pretraining backbone family the train walk covers (the JAX
     package's `train_block_eligible`): 3-D, batch norm, Max pool, nearest
     x2 decoders, reflect padding, skip connections, no residuals, fewer than
-    16 input channels."""
+    16 input channels; any activation."""
     cfg = plan.config
     return (
         cfg.dimension == 3
@@ -91,6 +88,7 @@ def unet_apply_train_block(
     cd = torch.float32 if plain else compute_dtype
     layers = tuple(layers or ())
     eval_norm_layers = frozenset(eval_norm_layers)
+    act, final_act = layer_acts(plan, params)
     feat = x.to(cd).contiguous()
     enc_feats: list[torch.Tensor] = []
     taps: list[torch.Tensor] = []
@@ -119,11 +117,9 @@ def unet_apply_train_block(
                     group=bn_group)
                 new_stats[str(idx)] = (m, v)
         elif spec.kind == "act":
-            feat = apply_activation(feat, cfg.activation,
-                                    slope=UNET_LRELU_SLOPE)
+            feat = act(feat)
         elif spec.kind == "final_act":
-            feat = apply_activation(feat, cfg.final_act,
-                                    slope=UNET_LRELU_SLOPE)
+            feat = final_act(feat)
         elif spec.kind == "pool":
             if plain:
                 feat = max_pool(feat, 2)

@@ -307,3 +307,68 @@ def load_primus_state_dict(cfg: PrimusConfig, path: str):
             f"{path} does not match the Primus layout: unmapped "
             f"{unmapped[:8]}, unfilled {unfilled[:8]}")
     return from_jax_primus_params(cfg, params)
+
+
+def to_jax_primus_params(cfg: PrimusConfig,
+                         sd: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """The port's state dict -> the JAX Primus pytree (numpy leaves), the
+    inverse of `from_jax_primus_params`: convs DHWIO with their bias,
+    linears (in, out) (`k_proj` without a bias, as JAX builds it),
+    LayerNorms `scale` / `bias`, the decoder's transposed convs DHWIO."""
+    def arr(key):
+        return sd[key].detach().cpu().float().numpy()
+
+    def conv(key, perm=(2, 3, 4, 1, 0)):
+        return {"w": np.ascontiguousarray(np.transpose(arr(f"{key}.weight"),
+                                                       perm)),
+                "b": arr(f"{key}.bias")}
+
+    def ln(key):
+        return {"scale": arr(f"{key}.weight"), "bias": arr(f"{key}.bias")}
+
+    def linear(key):
+        p = {"w": np.ascontiguousarray(arr(f"{key}.weight").T)}
+        if f"{key}.bias" in sd:
+            p["b"] = arr(f"{key}.bias")
+        return p
+
+    params: dict[str, Any] = {}
+    if cfg.version == "v1":
+        params["tokenizer"] = {"proj": conv("tokenizer.proj"),
+                               "norm": ln("tokenizer.norm")}
+    else:
+        stages = []
+        for i in range(len(cfg.tokenizer_depth_per_level)):
+            base = f"tokenizer.stages.{i}"
+            stages.append({"down": conv(f"{base}.down"), "blocks": [
+                {name: conv(f"{base}.blocks.{j}.{name}")
+                 for name in ("conv1", "conv2")}
+                for j in range(cfg.tokenizer_depth_per_level[i])]})
+        params["tokenizer"] = {"stem": conv("tokenizer.stem"),
+                               "stages": stages,
+                               "proj": conv("tokenizer.proj")}
+    for name in ("pos_embed", "register_tokens"):
+        if name in sd:
+            params[name] = arr(name)
+    blocks = []
+    for i in range(cfg.eva_depth):
+        base = f"blocks.{i}"
+        blk = {}
+        for name in ("norm1", "norm2", "q_norm", "k_norm",
+                     "attn_inner_norm"):
+            if f"{base}.{name}.weight" in sd:
+                blk[name] = ln(f"{base}.{name}")
+        for name in ("q_proj", "k_proj", "v_proj", "proj", "mlp_w1",
+                     "mlp_w2", "mlp_w3"):
+            blk[name] = linear(f"{base}.{name}")
+        for name in ("gamma1", "gamma2"):
+            if f"{base}.{name}" in sd:
+                blk[name] = arr(f"{base}.{name}")
+        blocks.append(blk)
+    params["blocks"] = blocks
+    params["norm"] = ln("norm")
+    n_dec = sum(1 for k in sd if k.startswith("decoder.")
+                and k.endswith(".weight"))
+    params["decoder"] = [conv(f"decoder.{i}", perm=(2, 3, 4, 0, 1))
+                         for i in range(n_dec)]
+    return params

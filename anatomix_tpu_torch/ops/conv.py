@@ -27,7 +27,31 @@ import torch.nn.functional as F
 _PAD_MODES = {
     "reflect": "reflect",      # mirror, edge not repeated (torch 'reflect')
     "zeros": "constant",
+    "replicate": "replicate",  # the edge voxel repeated (jnp 'edge')
+    "circular": "circular",    # periodic (jnp 'wrap')
 }
+
+
+def pad_modes(pad_type) -> tuple[str, str, str]:
+    """The padding of each of the D, H, W axes: `pad_type` names one mode
+    for all three, or gives a mode per axis (a 1-D or 2-D UNet's lifted
+    axes pad with zeros, `models/unet.kernel_pad`)."""
+    modes = (pad_type,) * 3 if isinstance(pad_type, str) else tuple(pad_type)
+    if len(modes) != 3 or any(m not in _PAD_MODES for m in modes):
+        raise ValueError(f"unsupported pad_type {pad_type!r}")
+    return modes
+
+
+def pad_axes(xc: torch.Tensor, widths, pad_type) -> torch.Tensor:
+    """Pad the three trailing axes of `xc` (B, C, D, H, W) by `widths`
+    ((lo, hi) per axis, D first) with each axis's mode of `pad_type`."""
+    modes = pad_modes(pad_type)
+    for ax, ((lo, hi), mode) in enumerate(zip(widths, modes)):
+        if lo or hi:
+            pads = [0] * 6
+            pads[2 * (2 - ax):2 * (2 - ax) + 2] = [lo, hi]
+            xc = F.pad(xc, pads, mode=_PAD_MODES[mode])
+    return xc
 
 
 def conv3d_same(
@@ -35,20 +59,32 @@ def conv3d_same(
     w: torch.Tensor,
     b: torch.Tensor | None = None,
     *,
-    pad_type: str = "zeros",
+    pad_type="zeros",
 ) -> torch.Tensor:
     """Stride-1 'same' conv of NDHWC `x` with a torch-layout kernel `w`,
-    as `nn.Conv3d(..., padding='same', padding_mode=pad_type)`."""
-    if pad_type not in _PAD_MODES:
-        raise ValueError(f"unsupported pad_type {pad_type!r}")
+    as `nn.Conv3d(..., padding='same', padding_mode=pad_type)` (a mode per
+    axis, `pad_modes`; a kernel axis of extent 1 is not padded)."""
     kd, kh, kw = w.shape[2:]
-    xc = x.permute(0, 4, 1, 2, 3)
-    pads = (kw // 2, (kw - 1) // 2, kh // 2, (kh - 1) // 2,
-            kd // 2, (kd - 1) // 2)
-    if any(pads):
-        xc = F.pad(xc, pads, mode=_PAD_MODES[pad_type])
+    xc = pad_axes(x.permute(0, 4, 1, 2, 3),
+                  [(k // 2, (k - 1) // 2) for k in (kd, kh, kw)], pad_type)
     y = F.conv3d(xc, w, b)
     return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def lift_weight(w: torch.Tensor) -> torch.Tensor:
+    """A 1-D or 2-D conv weight (O, I, k) / (O, I, kh, kw) as the 3-D
+    kernel of the lifted volume, leading kernel axes of extent 1
+    (`anatomix_tpu/ops/conv.py` torch_conv_weight_to_jax); 3-D as it is."""
+    return w.reshape(w.shape[:2] + (1,) * (5 - w.dim()) + w.shape[2:])
+
+
+def full_kernel(w: torch.Tensor) -> torch.Tensor:
+    """A lifted kernel (O, I, 1 or 3, 1 or 3, 3) as the 3x3x3 kernel with
+    zero taps on its extent-1 axes, the layout the conv kernels pack."""
+    pads = []
+    for k in reversed(w.shape[2:]):
+        pads += [0, 0] if k == 3 else [1, 1]
+    return F.pad(w, pads) if any(pads) else w
 
 
 def conv3d_down2(

@@ -25,13 +25,17 @@ def _as3(v) -> tuple[int, int, int]:
     return (v,) * 3 if isinstance(v, int) else tuple(v)
 
 
-def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), window, window)
+def max_pool(x: torch.Tensor, window=2) -> torch.Tensor:
+    """Non-overlapping max pool by `window` (an int, or one per axis: a
+    lifted 1-D or 2-D net pools its real axes only)."""
+    w = _as3(window)
+    y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), w, w)
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def avg_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    y = F.avg_pool3d(x.permute(0, 4, 1, 2, 3).float(), window, window)
+def avg_pool(x: torch.Tensor, window=2) -> torch.Tensor:
+    w = _as3(window)
+    y = F.avg_pool3d(x.permute(0, 4, 1, 2, 3).float(), w, w)
     return y.permute(0, 2, 3, 4, 1).contiguous().to(x.dtype)
 
 

@@ -19,13 +19,18 @@ import torch
 import torch.nn.functional as F
 
 
-def upsample2x(x: torch.Tensor, mode: str = "nearest") -> torch.Tensor:
+def upsample2x(x: torch.Tensor, mode: str = "nearest",
+               factors=(2, 2, 2)) -> torch.Tensor:
+    """2x upsample of the axes whose factor is 2 (a lifted 1-D or 2-D net
+    upsamples its real axes only, factor 1 on the others)."""
     if mode == "nearest":
-        for axis in (1, 2, 3):
-            x = torch.repeat_interleave(x, 2, dim=axis)
+        for axis, f in zip((1, 2, 3), factors):
+            if f != 1:
+                x = torch.repeat_interleave(x, 2, dim=axis)
         return x
     if mode == "trilinear":
-        y = F.interpolate(x.permute(0, 4, 1, 2, 3).float(), scale_factor=2,
+        size = tuple(s * f for s, f in zip(x.shape[1:4], factors))
+        y = F.interpolate(x.permute(0, 4, 1, 2, 3).float(), size=size,
                           mode="trilinear", align_corners=False)
         return y.permute(0, 2, 3, 4, 1).contiguous().to(x.dtype)
     raise ValueError(f"unsupported upsample mode {mode!r}")

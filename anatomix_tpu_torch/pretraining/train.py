@@ -103,6 +103,15 @@ from anatomix_tpu_torch.utils.profiling import annotate
 from anatomix_tpu_torch.utils.visualization import log_panels, save_tensor
 
 
+def frozen_layers(cfg: PretrainConfig, plan, taps) -> tuple[int, ...]:
+    """The UNet layers `cfg.unfreeze_layers` leaves frozen (none for the
+    ViT)."""
+    if not (cfg.unfreeze_layers and cfg.netG == "unet"):
+        return ()
+    return frozen_layer_ids(
+        plan, [int(i) for i in cfg.unfreeze_layers.split(",")], taps)
+
+
 def build_all(cfg: PretrainConfig, steps_per_epoch: int, *,
               device: str | torch.device = "cuda", plain: bool = False,
               mesh=None):
@@ -141,10 +150,7 @@ def build_all(cfg: PretrainConfig, steps_per_epoch: int, *,
     schedule = None if cfg.lr_policy == "plateau" else make_schedule(
         cfg.lr, cfg.lr_policy, n_epochs=cfg.n_epochs,
         n_epochs_decay=cfg.n_epochs_decay, steps_per_epoch=steps_per_epoch)
-    frozen = ()
-    if cfg.unfreeze_layers and cfg.netG == "unet":
-        frozen = frozen_layer_ids(
-            plan, [int(i) for i in cfg.unfreeze_layers.split(",")], taps)
+    frozen = frozen_layers(cfg, plan, taps)
     state = init_train_state(
         plan, torch.Generator().manual_seed(cfg.seed), tap_layers=taps,
         netf_nc=cfg.netF_nc, n_mlps=cfg.n_mlps, init_type=cfg.init_type,
@@ -404,7 +410,9 @@ def _run(cfg, train_h5, val_h5, dev, mesh):
     if resume_path:
         # the port's train states always carry lr_scale: the JAX package's
         # migration of its pre-lr_scale files has no counterpart here
-        state = load_train_state(resume_path, device=dev)
+        state = load_train_state(resume_path, device=dev, jax_layout=dict(
+            plan=plan, like=state, grad_accum=cfg.grad_accum_iters,
+            frozen_layers=frozen_layers(cfg, plan, taps)))
         total_iters = state.step
         bv_path = os.path.join(run_dir, "best_val_loss.txt")
         if os.path.exists(bv_path):

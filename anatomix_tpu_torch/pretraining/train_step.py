@@ -39,7 +39,11 @@ import torch
 import torch.distributed as dist
 
 from anatomix_tpu_torch.device import resolve_device
-from anatomix_tpu_torch.models.unet import UnetPlan, init_params
+from anatomix_tpu_torch.models.unet import (
+    UnetPlan,
+    init_params,
+    trainable_state,
+)
 from anatomix_tpu_torch.models.unet_train import unet_train_forward
 from anatomix_tpu_torch.models.vit3d.primus import (
     PrimusConfig,
@@ -264,9 +268,8 @@ def init_train_state(
     if isinstance(plan, PrimusConfig):
         params_g = init_primus_params(plan, generator)
     else:
-        params_g = {k: v for k, v in init_params(
-            plan, generator, init_type=init_type,
-            init_gain=init_gain).items() if v.is_floating_point()}
+        params_g = trainable_state(plan, init_params(
+            plan, generator, init_type=init_type, init_gain=init_gain))
     params_f = init_patch_mlps(
         generator, backbone_tap_channels(plan, tap_layers), nc=netf_nc,
         n_mlps=n_mlps, init_type=init_type, init_gain=init_gain,

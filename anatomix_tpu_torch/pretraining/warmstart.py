@@ -72,9 +72,9 @@ def params_g_from_checkpoint(plan, loaded: Mapping[str, Any]):
                 for k, v in loaded.items()}
     if isinstance(plan, UnetPlan):
         from anatomix_tpu_torch.models.convert import from_jax_params
+        from anatomix_tpu_torch.models.unet import trainable_state
 
-        return {k: v for k, v in from_jax_params(plan, loaded).items()
-                if v.is_floating_point()}
+        return trainable_state(plan, from_jax_params(plan, loaded))
     from anatomix_tpu_torch.models.vit3d.convert import from_jax_primus_params
 
     return from_jax_primus_params(plan, loaded)

@@ -44,7 +44,12 @@ from anatomix_tpu_torch.extract import fold_batchnorm
 from anatomix_tpu_torch.models.convert import from_jax_params, to_jax_params
 from anatomix_tpu_torch.models.load import load_from_hf, load_model
 from anatomix_tpu_torch.models.registry import ANATOMIX_VARIANTS
-from anatomix_tpu_torch.models.unet import Unet, UnetPlan, check_supported
+from anatomix_tpu_torch.models.unet import (
+    Unet,
+    UnetPlan,
+    check_supported,
+    trainable_state,
+)
 from anatomix_tpu_torch.models.unet_fused import (
     prepack_fused,
     unet_apply_fused,
@@ -119,7 +124,7 @@ def load_seg_model(
             allow_scratch=True, seed=seed, device=dev,
         )
         feat_channels = output_nc
-    backbone = {k: v for k, v in backbone.items() if v.is_floating_point()}
+    backbone = trainable_state(plan, backbone)
     head = init_head(torch.Generator().manual_seed(seed + 1), feat_channels,
                      n_classes)
     return plan, {"backbone": backbone,
@@ -128,9 +133,8 @@ def load_seg_model(
 
 def check_trainable(plan) -> None:
     """Raise for a backbone the train walks do not cover: a ViT plan
-    (`ValueError`), or UNet options the port does not run
-    (`NotImplementedError` naming the ROADMAP item, from
-    `models.unet.check_supported`)."""
+    (`ValueError`), or UNet options the JAX package refuses as well
+    (`NotImplementedError`, from `models.unet.check_supported`)."""
     if not isinstance(plan, UnetPlan):
         raise ValueError("segmentation finetunes the UNet backbones")
     check_supported(plan.config)
@@ -206,8 +210,8 @@ def seg_forward(
 def from_jax_seg_params(plan: UnetPlan, params: dict[str, Any]):
     """The JAX package's `{"backbone": pytree, "head": {"w", "b"}}` (numpy
     leaves) -> the port's parameters (CPU f32)."""
-    backbone = {k: v for k, v in from_jax_params(
-        plan, params["backbone"]).items() if v.is_floating_point()}
+    backbone = trainable_state(plan,
+                               from_jax_params(plan, params["backbone"]))
     w = np.asarray(params["head"]["w"], np.float32)  # (1, 1, 1, C, O)
     return {"backbone": backbone, "head": {
         "weight": torch.from_numpy(

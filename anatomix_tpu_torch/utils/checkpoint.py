@@ -7,8 +7,9 @@ carry a `__len__` entry, as in the JAX package's `save_pytree`, so
 arrays, which the JAX package's own reader cannot read back.
 
 The trainer's resumable state (`latest_train_state.npz`) is the named-key
-tree of `save_train_state`, not the JAX package's ordered leaves
-(`save_state_leaves`), which only a JAX treedef can read.
+tree of `save_train_state`. `load_train_state` also reads the JAX
+package's ordered leaves (`save_state_leaves`, `leaf_{i}`), given the
+trainer's fresh state to name them (`pretraining/jax_state.py`).
 """
 
 from __future__ import annotations
@@ -96,12 +97,23 @@ def save_train_state(path: str, state) -> None:
     })
 
 
-def load_train_state(path: str, device: str | torch.device = "cuda"):
+def load_train_state(path: str, device: str | torch.device = "cuda", *,
+                     jax_layout: dict | None = None):
     """The `TrainState` `save_train_state` wrote, its tensors on `device`
-    (the card unless the caller asks for the CPU; raises without one)."""
+    (the card unless the caller asks for the CPU; raises without one); or
+    a JAX run's ordered leaves, which `jax_layout` names: the keyword
+    arguments of `pretraining.jax_state.load_jax_train_state` (`plan`,
+    `like` the trainer's fresh state, `frozen_layers`, `grad_accum`)."""
+    from anatomix_tpu_torch.pretraining import jax_state
     from anatomix_tpu_torch.pretraining.train_step import TrainState
 
     device = resolve_device(device)
+    if jax_state.is_leaf_file(path):
+        if jax_layout is None:
+            raise ValueError(f"{path} holds a JAX run's ordered leaves: "
+                             "pass jax_layout to name them")
+        return jax_state.load_jax_train_state(path, device=device,
+                                              **jax_layout)
     tree = load_pytree(path)
 
     def opt(s):

@@ -138,6 +138,25 @@ Phases, each printed on its own lines; any failure exits non-zero:
      dry run (`anatomix_tpu_torch.parallel.dryrun`) on min(4, cards) ranks
      of its own, one card each, on NCCL, with its trainer phase (`train`
      with `device="cuda"` on one card and over the ranks);
+ 14. (run before 13) every UNet option of the JAX package: each new
+     kernel mode against its plain version (K1, K3, D3 under replicate and
+     circular padding, K1 on a lifted 2-D volume, the SELU epilogue and
+     PReLU's slope, T-x's replicate and circular pad adjoints, T-w under
+     each and at the dev width, each pair of launches bit for bit, D1's
+     SELU and the residual block's `+ 0.1 x`); `[options-full]`, the 6M
+     topology with PReLU 0.37, replicate padding and residual connections
+     (batch norms with seeded running statistics, unfolded) through `full`
+     on 256^3, and how far the batch norms folded into residual-source
+     convs (the JAX package's extractor, ROADMAP F10) would land;
+     `[options-dev-fwd128]`, the dev topology with SELU, circular padding
+     and residuals at 128^3; `[options-2d]`, the 6M widths as a 2-D UNet
+     on four 512^2 slices; each on a noisy and a smooth input to the
+     two-part rule; `[options-step]`, `build_all(PretrainConfig(actG=
+     "prelu"))` for five steps and `[options-step-general]` (batch norm,
+     residuals, replicate, SELU) for three, each with `[train-step128]`'s
+     gates and its first step run twice from one state, bit for bit (P5);
+     `[options-dev-repeat]`, the dev step twice from one state, its spread
+     printed;
  13. the `kernels` JSON line (launches on each path, errors, times and
      bounds), then the device's JSON line last.
 
@@ -159,6 +178,11 @@ range) and one segmentation step and one 256^3 validation (the same, by
 `seg/*` range) with torch.profiler, and one dev pretraining step, one
 dev finetuning step and one dev 256^3 validation;
 `--segmentation` runs phase 1 and then phase 11's 6M part alone;
+`--options` runs phase 1, then phase 14 alone (`chiprun_out/
+chip_options.json`); `--conv-time` runs phase 1, then times T-w alone at
+the dev step's 128^3 96 -> 32 and T-w, K1 and T-x at the 6M step's 128^3
+16 -> 16 in rounds (it reads only the wrappers, so a copy of this script
+also measures an earlier checkout);
 `--parallel` runs phase 1, K1's D-valid rows, then phase 12 alone (the
 unsharded steps it compares with run there; `chiprun_out/
 chip_parallel.json`);
@@ -1231,15 +1255,15 @@ def check_conv_backward(kt, torch, F, dev, gen, B, S, ci, co, which,
     if which == "dgrad" and pad == "reflect":
         # the reflect route's two launches apart, the shell's own error and
         # two launches' bits
-        dx, g_ext = kt.reflect_dgrad_store(dy, w)
+        dx, g_ext = kt.pad_dgrad_store(dy, w)
         again = fn()
         torch.cuda.synchronize()
         row.update(
             shell_rel_err=shell_rel_err(torch, got, ref),
             repeat_max_abs_diff=(got.float() - again.float()).abs().max()
             .item(),
-            conv_ms=cuda_ms(lambda: kt.reflect_dgrad_store(dy, w)),
-            fold_ms=cuda_ms(lambda: kt.reflect_shell_ndhwc(g_ext, dx)),
+            conv_ms=cuda_ms(lambda: kt.pad_dgrad_store(dy, w)),
+            fold_ms=cuda_ms(lambda: kt.pad_shell_ndhwc(g_ext, dx)),
             fold_library_ms=cuda_ms(fold_library(
                 torch, torch.randn_like(g_ext))))
         row["ok"] = (row["ok"] and row["shell_rel_err"] < tol
@@ -1270,8 +1294,8 @@ def check_reflect_shell(kt, torch, dev, gen, B, S, C):
     g = torch.randn((B, S + 2, S + 2, S + 2, C), generator=gen, device=dev)
     dx0 = torch.randn((B, S, S, S, C), generator=gen, device=dev).to(
         torch.bfloat16)
-    got = kt.reflect_shell_ndhwc(g, dx0.clone())
-    ref = kt.reflect_shell_plain(g, dx0.clone())
+    got = kt.pad_shell_ndhwc(g, dx0.clone())
+    ref = kt.pad_shell_plain(g, dx0.clone())
     torch.cuda.synchronize()
     err, rel = rel_err(got, ref)
     dx = dx0.clone()
@@ -1280,8 +1304,8 @@ def check_reflect_shell(kt, torch, dev, gen, B, S, C):
     return dict(shape=f"B{B} {S}^3x{C} f32 -> bf16 shell pass",
                 max_abs_err=err, rel_err=rel, tol=TOL_EXACT,
                 ok=rel <= TOL_EXACT,
-                ms=cuda_ms(lambda: kt.reflect_shell_ndhwc(g, dx)),
-                plain_ms=cuda_ms(lambda: kt.reflect_shell_plain(g, dx)),
+                ms=cuda_ms(lambda: kt.pad_shell_ndhwc(g, dx)),
+                plain_ms=cuda_ms(lambda: kt.pad_shell_plain(g, dx)),
                 library_ms=cuda_ms(fold_library(torch, g)), bound_ms=b_ms,
                 bound_by=b_by)
 
@@ -1388,7 +1412,7 @@ def run_dgrad_split(torch, kt, dev, B: int = 2, S: int = 128) -> dict:
         by_kernel = device_ms_by_kernel(torch, fn)
         parts = {"conv": 0.0, "fold": 0.0, "glue": 0.0}
         for name, ms in by_kernel.items():
-            part = ("fold" if "pad_adjoint" in name or "reflect_shell" in name
+            part = ("fold" if "pad_adjoint" in name or "pad_shell" in name
                     else "conv" if "conv" in name or "splitk" in name
                     else "glue")
             parts[part] += ms
@@ -1616,6 +1640,15 @@ def main(argv) -> int:
         for line in ptxas_report(text):
             log(f"[build:{name}] {line}")
 
+    if "--conv-time" in argv:
+        report["conv_time"] = run_conv_time(torch, kc, kt, dev)
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "conv_time.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        print(json.dumps({"conv_time": report["conv_time"]}), flush=True)
+        return 0
+
     if "--dgrad-split" in argv:
         report["dgrad_split"] = run_dgrad_split(torch, kt, dev)
         out_dir = os.path.join(ROOT, "chiprun_out")
@@ -1644,7 +1677,7 @@ def main(argv) -> int:
         "depth_to_space_interleave_ndhwc":
             kr8.depth_to_space_interleave_ndhwc,
         "space_to_depth_c1_ndhwc": kr8.space_to_depth_c1_ndhwc,
-        "reflect_shell_ndhwc": kt.reflect_shell_ndhwc,
+        "pad_shell_ndhwc": kt.pad_shell_ndhwc,
         "conv3x3x3_dvalid_ndhwc": kc.conv3x3x3_dvalid_ndhwc,
     }
 
@@ -1673,6 +1706,25 @@ def main(argv) -> int:
         out_dir = os.path.join(ROOT, "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_parallel.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        return 0
+
+    if "--options" in argv:
+        # phase 1, then phase 14 alone: the new kernel modes, the options
+        # paths and steps
+        checks = options_kernel_checks(kc, kt, kn, norms, torch, F, dev)
+        report["checks"] = checks
+        failed = log_kernel_rows(checks)
+        if failed:
+            raise RuntimeError(f"kernel disagrees with its plain version: "
+                               f"{failed}")
+        paths = {}
+        report["options"] = run_options(torch, dev, make_feature_extractor,
+                                        wrappers, paths, kt)
+        report["paths"] = paths
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_options.json"), "w") as f:
             json.dump(report, f, indent=1)
         return 0
 
@@ -1814,7 +1866,7 @@ def main(argv) -> int:
     # the reflect dgrad's shell pass at the step's 128^3 (ci 16, 48) and
     # 64^3 (ci 96) shapes
     for B, S, C in [(2, 128, 16), (2, 128, 48), (2, 64, 96)]:
-        checks["reflect_shell_ndhwc"].append(
+        checks["pad_shell_ndhwc"].append(
             check_reflect_shell(kt, torch, dev, gen, B, S, C))
     # the ViT step's tokenizer (zero padding): the stem on (hi, lo) (no
     # dx), a residual conv per stage; then the three stride-2 convs'
@@ -2097,6 +2149,18 @@ def main(argv) -> int:
         report, init_params,
         build_plan(UnetConfig(**ANATOMIX_VARIANTS["anatomix-dev"]
                               ["unet_kwargs"])))
+    # phase 14: every UNet option on the kernels (their new modes first),
+    # and the ordered T-w's repeats
+    rows = options_kernel_checks(kc, kt, kn, norms, torch, F, dev)
+    failed = log_kernel_rows(rows)
+    if failed:
+        raise RuntimeError(f"kernel disagrees with its plain version: "
+                           f"{failed}")
+    for name, extra in rows.items():
+        checks[name] += extra
+    report["options"] = run_options(torch, dev, make_feature_extractor,
+                                     wrappers, paths, kt)
+
     for name in wrappers:
         log(f"[launches] {name}: " + ", ".join(
             f"{p} {v[name]}" for p, v in paths.items()))
@@ -2151,7 +2215,7 @@ def main(argv) -> int:
             "depth_to_space_interleave"),
         "space_to_depth_c1_ndhwc": "anatomix_tpu/ops/pallas/reshuffle.py:580"
                                    " space_to_depth_c1",
-        "reflect_shell_ndhwc": (
+        "pad_shell_ndhwc": (
             "anatomix_tpu/ops/pallas/conv_block.py:691 conv_block_sparse_dx "
             "(the reflect pad adjoint its caller takes, "
             "anatomix_tpu/ops/pallas/conv_block_train.py:678-683)"),
@@ -2180,7 +2244,7 @@ def main(argv) -> int:
         "depth_to_space_fold_ndhwc": csrc + "reshuffle.cu",
         "depth_to_space_interleave_ndhwc": csrc + "reshuffle.cu",
         "space_to_depth_c1_ndhwc": csrc + "reshuffle.cu",
-        "reflect_shell_ndhwc": csrc + "conv3d.cu",
+        "pad_shell_ndhwc": csrc + "conv3d.cu",
         "conv3x3x3_dvalid_ndhwc": csrc + "conv3d.cu",
     }
     # the line reports each kernel at its dominant main-path shape: the
@@ -2203,7 +2267,7 @@ def main(argv) -> int:
                 "depth_to_space2_ndhwc": 0, "flash_attention_bwd_dkv": 0,
                 "flash_attention_bwd_dq": 0, "depth_to_space_fold_ndhwc": 0,
                 "depth_to_space_interleave_ndhwc": 0,
-                "space_to_depth_c1_ndhwc": 0, "reflect_shell_ndhwc": 0,
+                "space_to_depth_c1_ndhwc": 0, "pad_shell_ndhwc": 0,
                 "conv3x3x3_dvalid_ndhwc": 0}
     kernels = []
     for name, rows in checks.items():
@@ -2220,7 +2284,7 @@ def main(argv) -> int:
         })
         if name == "conv3x3x3_dgrad_ndhwc":
             # reflect padding: the split store, then the shell pass
-            kernels[-1]["shell_pass"] = "reflect_shell_ndhwc"
+            kernels[-1]["shell_pass"] = "pad_shell_ndhwc"
             kernels[-1]["reflect_split_ms"] = {
                 "conv": row["conv_ms"], "fold": row["fold_ms"]}
     report["kernels"] = kernels
@@ -2703,7 +2767,7 @@ def profile_train(torch, dev, out_dir, netG="unet"):
                    and ev.device_type == DeviceType.CPU), reverse=True)
     with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
         f.write(events.table(sort_by=attr, row_limit=60))
-    fold = [r for r in rows if "reflect_shell" in r[2]]
+    fold = [r for r in rows if "pad_shell" in r[2]]
     fold_ms = sum(r[0] for r in fold)
     log(f"[profile] {tag}: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f} %); reflect fold "
@@ -2767,6 +2831,15 @@ def train_dw_check(torch, kt, plan, state0, views, segs, sampler, kw):
                          / ref[f"model.{i}.weight"].std())
                 for i in plan.conv_indices}
 
+    from anatomix_tpu_torch.models.unet import prelu_key
+
+    pkey = prelu_key(plan)
+    prelu = {}
+    if pkey:
+        # the shared PReLU weight's gradient against the plain backward's
+        prelu["prelu_backward"] = float(
+            (grads_k[pkey] - grads_b[pkey]).abs().max()
+            / grads_b[pkey].abs().max())
     launches = {"wgrad": [], "dgrad": [], "dgrad_shell": []}
     for which, args, pad, got in records:
         plain_fn = (kt.conv3x3x3_wgrad_ndhwc_plain if which == "wgrad"
@@ -2780,7 +2853,7 @@ def train_dw_check(torch, kt, plan, state0, views, segs, sampler, kw):
         loss_plain=float(loss_p), plain_seconds=plain_s,
         dw_backward=dw_err(grads_k, grads_b), dw_end_to_end=dw_err(
             grads_k, grads_p), dw_floor=dw_err(grads_q, grads_p),
-        launch_errs=launches)
+        launch_errs=launches, **prelu)
 
 
 def fmt_dw(errs) -> str:
@@ -2849,7 +2922,7 @@ def run_train(torch, dev, wrappers, paths, kt):
     # upsample permutes forward and backward
     want = {"conv3x3x3_ndhwc": n_conv, "conv3x3x3_wgrad_ndhwc": n_conv,
             "conv3x3x3_dgrad_ndhwc": n_conv - 1,
-            "reflect_shell_ndhwc": n_conv - 1,
+            "pad_shell_ndhwc": n_conv - 1,
             "space_to_depth2_ndhwc": n_resize,
             "depth_to_space2_ndhwc": n_resize}
     if any(c[k] != v for k, v in want.items()):
@@ -2943,7 +3016,7 @@ def dev_backward_checks(kt, torch, F, dev, gen) -> dict:
     1536 channels), the 4^3 bottleneck (512 -> 1024, 1024 -> 1024); the
     shell at 4^3, where it holds most of the volume, and at 8^3."""
     rows = {"conv3x3x3_wgrad_ndhwc": [], "conv3x3x3_dgrad_ndhwc": [],
-            "reflect_shell_ndhwc": []}
+            "pad_shell_ndhwc": []}
     for B, S, ci, co in [(2, 128, 1, 32), (2, 128, 32, 32), (2, 128, 96, 32),
                          (2, 8, 512, 512), (2, 8, 1536, 512),
                          (2, 4, 512, 1024), (2, 4, 1024, 1024)]:
@@ -2953,7 +3026,7 @@ def dev_backward_checks(kt, torch, F, dev, gen) -> dict:
             rows[f"conv3x3x3_{which}_ndhwc"].append(check_conv_backward(
                 kt, torch, F, dev, gen, B, S, ci, co, which))
     for B, S, C in [(2, 4, 512), (2, 4, 1024), (2, 8, 1536)]:
-        rows["reflect_shell_ndhwc"].append(
+        rows["pad_shell_ndhwc"].append(
             check_reflect_shell(kt, torch, dev, gen, B, S, C))
     return rows
 
@@ -3065,7 +3138,7 @@ def run_dev_train(torch, dev, wrappers, paths, kt):
     want = {k: 0 for k in wrappers}
     want.update({"conv3x3x3_ndhwc": n_conv, "conv3x3x3_wgrad_ndhwc": n_conv,
                  "conv3x3x3_dgrad_ndhwc": n_conv - 1,
-                 "reflect_shell_ndhwc": n_conv - 1})
+                 "pad_shell_ndhwc": n_conv - 1})
     if c != want:
         raise RuntimeError(f"dev-train-step128: launches {c}, want {want}")
     del state
@@ -3335,7 +3408,7 @@ def run_vit_train(torch, dev, wrappers, paths, ka):
             "conv3x3x3_wgrad_ndhwc": n_conv + n_stages,
             "conv3x3x3_dgrad_ndhwc": n_conv - 1 + n_stages,
             "conv_down2_ndhwc": n_stages, "flash_attention": depth,
-            "reflect_shell_ndhwc": 0,
+            "pad_shell_ndhwc": 0,
             "flash_attention_bwd_dkv": depth, "flash_attention_bwd_dq": depth,
             "depth_to_space8_ndhwc": 1}
     if any(c[k] != v for k, v in want.items()):
@@ -4310,6 +4383,15 @@ def seg_backward_check(torch, kt, plan, ckpt, dev, batch):
                          / ref[f"model.{i}.weight"].std())
                 for i in plan.conv_indices}
 
+    from anatomix_tpu_torch.models.unet import prelu_key
+
+    pkey = prelu_key(plan)
+    prelu = {}
+    if pkey:
+        # the shared PReLU weight's gradient against the plain backward's
+        prelu["prelu_backward"] = float(
+            (grads_k[pkey] - grads_b[pkey]).abs().max()
+            / grads_b[pkey].abs().max())
     launches = {"wgrad": [], "dgrad": [], "dgrad_shell": []}
     for which, args, pad, got in records:
         plain_fn = (kt.conv3x3x3_wgrad_ndhwc_plain if which == "wgrad"
@@ -4375,7 +4457,7 @@ def run_segmentation(torch, dev, wrappers, paths, kt, ckpt, root):
     want = {k: 0 for k in wrappers}
     want.update({"conv3x3x3_ndhwc": n_conv, "conv3x3x3_wgrad_ndhwc": n_conv,
                  "conv3x3x3_dgrad_ndhwc": n_conv - 1,
-                 "reflect_shell_ndhwc": n_conv - 1,
+                 "pad_shell_ndhwc": n_conv - 1,
                  "space_to_depth2_ndhwc": n_resize,
                  "depth_to_space2_ndhwc": n_resize})
 
@@ -4712,7 +4794,7 @@ def run_dev_segmentation(torch, dev, wrappers, paths, pth, root):
     want = {k: 0 for k in wrappers}
     want.update({"conv3x3x3_ndhwc": n_conv, "conv3x3x3_wgrad_ndhwc": n_conv,
                  "conv3x3x3_dgrad_ndhwc": n_conv - 1,
-                 "reflect_shell_ndhwc": n_conv - 1})
+                 "pad_shell_ndhwc": n_conv - 1})
 
     def val_timed(tag):
         reset_counts(wrappers)
@@ -4903,7 +4985,7 @@ def run_segmentation_phases(torch, dev, wrappers, paths, kt, plan, *,
                 ["--hf_variant", "anatomix-dev", "--cache_path", pth], root,
                 tag="dev-segmentation-cli", epochs=1,
                 expect=("conv3x3x3_ndhwc", "conv3x3x3_wgrad_ndhwc",
-                        "conv3x3x3_dgrad_ndhwc", "reflect_shell_ndhwc")
+                        "conv3x3x3_dgrad_ndhwc", "pad_shell_ndhwc")
                 + DEV_VAL_KERNELS)
     return out
 
@@ -5004,9 +5086,9 @@ def step_pair(torch, dev, wrappers, cfg, mesh, n_steps=3) -> dict:
     each; then from each of those states one step through
     `build_train_step(mesh=...)`. A step's loss is computed before its
     update, so each pair reads the same state and must agree bit for bit;
-    the updates themselves differ from run to run on either route (T-w
-    adds its split partials with f32 atomics), which is why the pairs
-    start from one state instead of running free."""
+    the pairs start from one state rather than running free, which also
+    keeps the dev step's trilinear backward (torch's, with atomics) from
+    moving the series apart."""
     from anatomix_tpu_torch.parallel.mesh import shard_batch
     from anatomix_tpu_torch.pretraining.train import build_all
 
@@ -5169,6 +5251,610 @@ def run_parallel(torch, dev, mfe, wrappers, paths, plan, sd, vol256,
     log(f"[parallel] dryrun over {n} ranks on NCCL: {out['dryrun']}")
     return out
 
+
+def run_conv_time(torch, kc, kt, dev, rounds: int = 4) -> dict:
+    """The reflect-padded convs alone, by CUDA events in `rounds` rounds:
+    T-w at the dev step's 128^3 96 -> 32 and at the 6M step's 128^3 16 ->
+    16, K1 and T-x at the latter (B2): the numbers that decide whether the
+    ordered T-w reduction is the only path and what the pad modes cost the
+    default route. It reads only the wrappers, so a copy of this script
+    measures an earlier checkout the same way."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for ci, co in ((96, 32), (16, 16)):
+        x = torch.randn((2, 128, 128, 128, ci), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        dy = torch.randn((2, 128, 128, 128, co), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        w = (torch.randn((27 * ci, co), generator=gen, device=dev)
+             * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+        b = torch.zeros((co,), device=dev)
+        fns = {"wgrad": lambda: kt.conv3x3x3_wgrad_ndhwc(
+            x, dy, pad_type="reflect")}
+        if ci == 16:
+            fns["conv"] = lambda: kc.conv3x3x3_ndhwc(
+                x, w, b, act="relu", pad_type="reflect")
+            fns["dgrad"] = lambda: kt.conv3x3x3_dgrad_ndhwc(
+                dy, w, pad_type="reflect")
+        for name, fn in fns.items():
+            out[f"{name} B2 128^3 {ci}->{co}"] = [cuda_ms(fn)
+                                                  for _ in range(rounds)]
+        del x, dy
+    log(f"[conv-time] {out}; {nvidia_smi()}")
+    return out
+
+
+# -----------------------------------------------------------------------------
+# phase 14: every UNet option of the JAX package (PReLU, SELU, residual
+# connections, replicate and circular padding, 1-D and 2-D nets) and the
+# ordered T-w (P5)
+
+def torch_pad(F, xc, pad):
+    """`xc` (B, C, D, H, W) padded by 1 on each axis with that axis's mode
+    of `pad` (one name or one per axis; the JAX package's `jnp.pad`
+    modes under torch's names)."""
+    modes = (pad,) * 3 if isinstance(pad, str) else tuple(pad)
+    for ax, m in enumerate(modes):
+        w = [0] * 6
+        w[2 * (2 - ax):2 * (2 - ax) + 2] = [1, 1]
+        xc = F.pad(xc, w, mode="constant" if m == "zeros" else m)
+    return xc
+
+
+def pad_name(pad) -> str:
+    return pad if isinstance(pad, str) else "/".join(pad)
+
+
+def check_conv_mode(kc, torch, F, dev, gen, B, spatial, ci, co, pad,
+                    act="relu", out_f32=False, slope=0.3):
+    """conv3x3x3_ndhwc at (B, D, H, W, ci) -> co with padding `pad` (a
+    mode per axis where a lifted net's axes pad with zeros) and epilogue
+    `act`, against its plain version; cuDNN (bf16, channels-last) on the
+    input padded beforehand (the pad not timed) as the yardstick."""
+    D, H, W = spatial
+    x = torch.randn((B, D, H, W, ci), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = (torch.randn((27 * ci, co), generator=gen, device=dev)
+         * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+    b = torch.randn((co,), generator=gen, device=dev) * 0.1
+    out_dtype = torch.float32 if out_f32 else torch.bfloat16
+    kw = dict(act=act, slope=slope, pad_type=pad, out_dtype=out_dtype)
+    got = kc.conv3x3x3_ndhwc(x, w, b, **kw)
+    ref = kc.conv3x3x3_ndhwc_plain(x, w, b, **kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    tol = tol_conv_f32(27 * ci) if out_f32 else TOL_CONV_BF16
+    ms = cuda_ms(lambda: kc.conv3x3x3_ndhwc(x, w, b, **kw))
+    plain_ms = cuda_ms(lambda: kc.conv3x3x3_ndhwc_plain(x, w, b, **kw))
+    xc = torch_pad(F, x.permute(0, 4, 1, 2, 3), pad).contiguous(
+        memory_format=torch.channels_last_3d)
+    wt = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    lib_ms = cuda_ms(lambda: F.conv3d(xc, wt, b.to(torch.bfloat16)))
+    vox = B * D * H * W
+    # the function's own work: a lifted axis (extent 1, zero padded) leaves
+    # one live tap of its three (the kernel still multiplies all 27: the
+    # lifted-axis MMAs, item 16's work)
+    flops = 2.0 * vox * 3 ** sum(s > 1 for s in spatial) * ci * co
+    nbytes = vox * ci * 2 + 27 * ci * co * 2 + co * 4 + vox * co * (
+        4 if out_f32 else 2)
+    b_ms, b_by = bound(flops, nbytes)
+    return dict(
+        shape=f"B{B} {D}x{H}x{W} {ci}->{co} {pad_name(pad)} {act}"
+        + (" f32-out" if out_f32 else ""),
+        max_abs_err=err, rel_err=rel, tol=tol, ok=rel < tol, ms=ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        plan=conv_plan_desc(kc.conv_plan(B, spatial, ci, co)),
+    )
+
+
+def check_two_operand_mode(kc, torch, F, dev, gen, B, S, c1, c2, co, pad,
+                           up):
+    """K3 (`up`: the small operand at half resolution, nearest-upsampled
+    in the kernel) or D3 (both at full resolution) under `pad`, relu,
+    against the plain version; cuDNN over the materialized, padded concat
+    (not timed) as the yardstick."""
+    s = S // 2 if up else S
+    enc = torch.randn((B, S, S, S, c1), generator=gen, device=dev).to(
+        torch.bfloat16)
+    small = torch.randn((B, s, s, s, c2), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ci = c1 + c2
+    w = (torch.randn((27 * ci, co), generator=gen, device=dev)
+         * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+    b = torch.randn((co,), generator=gen, device=dev) * 0.1
+    kw = dict(act="relu", pad_type=pad)
+    fn = kc.conv3x3x3_upcat_ndhwc if up else kc.conv3x3x3_cat_ndhwc
+    plain = (kc.conv3x3x3_upcat_ndhwc_plain if up
+             else kc.conv3x3x3_cat_ndhwc_plain)
+    got = fn(enc, small, w, b, **kw)
+    ref = plain(enc, small, w, b, **kw)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    ms = cuda_ms(lambda: fn(enc, small, w, b, **kw))
+    plain_ms = cuda_ms(lambda: plain(enc, small, w, b, **kw))
+    big = small
+    if up:
+        for ax in (1, 2, 3):
+            big = torch.repeat_interleave(big, 2, dim=ax)
+    cat = torch.cat([enc, big], dim=-1).permute(0, 4, 1, 2, 3)
+    xc = torch_pad(F, cat, pad).contiguous(
+        memory_format=torch.channels_last_3d)
+    wt = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    lib_ms = cuda_ms(lambda: F.conv3d(xc, wt, b.to(torch.bfloat16)))
+    vox = B * S ** 3
+    nbytes = (vox * c1 * 2 + B * s ** 3 * c2 * 2 + 27 * ci * co * 2 + co * 4
+              + vox * co * 2)
+    b_ms, b_by = bound(2.0 * vox * 27 * ci * co, nbytes)
+    return dict(
+        shape=f"B{B} {S}^3 [{c1}+{'up(' if up else ''}{c2}"
+        f"{')' if up else ''}]->{co} {pad}",
+        max_abs_err=err, rel_err=rel, tol=TOL_CONV_BF16,
+        ok=rel < TOL_CONV_BF16, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=b_ms, bound_by=b_by,
+        plan=conv_plan_desc(kc.conv_plan(B, (S, S, S), ci, co)),
+    )
+
+
+def check_backward_mode(kt, torch, F, dev, gen, B, S, ci, co, which, pad):
+    """T-w (dW f32) or T-x (dx bf16: the split store, then the shell pass)
+    under `pad` at (B, S^3): ci -> co, against the plain version, with
+    cuDNN's backward on the padded input as the yardstick; T-x also on its
+    shell alone (the voxels the pad's adjoint sums into); both run twice
+    on the same tensors, which must give the same bits (P5: T-w sums its
+    split partials in order)."""
+    x = torch.randn((B, S, S, S, ci), generator=gen, device=dev).to(
+        torch.bfloat16)
+    dy = torch.randn((B, S, S, S, co), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = (torch.randn((27 * ci, co), generator=gen, device=dev)
+         * (2.0 / (27 * ci)) ** 0.5).to(torch.bfloat16)
+    if which == "wgrad":
+        fn = lambda: kt.conv3x3x3_wgrad_ndhwc(x, dy, pad_type=pad)  # noqa
+        plain = lambda: kt.conv3x3x3_wgrad_ndhwc_plain(  # noqa: E731
+            x, dy, pad_type=pad)
+        mask, tol = (False, True, False), TOL_WGRAD
+        nbytes = B * S ** 3 * (ci + co) * 2 + 27 * ci * co * 4
+        plan = wgrad_plan_desc(kt.wgrad_plan(B, (S, S, S), ci, co), ci)
+    else:
+        fn = lambda: kt.conv3x3x3_dgrad_ndhwc(dy, w, pad_type=pad)  # noqa
+        plain = lambda: kt.conv3x3x3_dgrad_ndhwc_plain(  # noqa: E731
+            dy, w, pad_type=pad)
+        mask, tol = (True, False, False), TOL_CONV_BF16
+        nbytes = B * S ** 3 * (ci + co) * 2 + 27 * ci * co * 2
+        plan = conv_plan_desc(kt.conv_plan(B, (S + 2,) * 3, co, ci))
+    got = fn()
+    again = fn()
+    ref = plain()
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    xc = torch_pad(F, x.permute(0, 4, 1, 2, 3), pad).contiguous(
+        memory_format=torch.channels_last_3d)
+    wt = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    dyc = dy.permute(0, 4, 1, 2, 3)
+    lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+        dyc, xc, wt, None, [1] * 3, [0] * 3, [1, 1, 1], False, [0, 0, 0],
+        1, list(mask))
+    b_ms, b_by = bound(2.0 * B * S ** 3 * 27 * ci * co, nbytes)
+    row = dict(
+        shape=f"B{B} {S}^3 {ci}->{co} {pad}", max_abs_err=err, rel_err=rel,
+        tol=tol, ok=rel < tol, ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+        library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by, plan=plan,
+        repeat_max_abs_diff=(got.float() - again.float()).abs().max()
+        .item())
+    if which == "dgrad":
+        st, g_ext = kt.pad_dgrad_store(dy, w, pad)
+        row.update(
+            shell_rel_err=shell_rel_err(torch, got, ref),
+            conv_ms=cuda_ms(lambda: kt.pad_dgrad_store(dy, w, pad)),
+            fold_ms=cuda_ms(lambda: kt.pad_shell_ndhwc(g_ext, st, pad)),
+            fold_library_ms=cuda_ms(fold_library(
+                torch, torch.randn_like(g_ext))))
+        row["ok"] = row["ok"] and row["shell_rel_err"] < tol
+    row["ok"] = row["ok"] and row["repeat_max_abs_diff"] == 0.0
+    return row
+
+
+def check_norm_apply_mode(kn, norms, torch, dev, gen, B, S, C, act,
+                          post_res, split):
+    """D1 with the SELU epilogue or the residual block's post-activation
+    `+ 0.1 x` (relu), the instance statistics of the f32 input, split
+    and not, against the plain version."""
+    from anatomix_tpu_torch.ops.conv import merge3
+
+    x = torch.randn((B, S, S, S, C), generator=gen, device=dev)
+    mean, var = norms.instance_norm_stats(x, (1, 1, 1))
+    a, s = norms.fold_affine(mean, var, 1e-2)
+    maps = norms.tile_maps(x.shape[1:4], (1, 1, 1), dev)
+    kw = dict(act=act, split=split, post_res=post_res)
+    got = kn.norm_apply_ndhwc(x, a, s, maps, **kw)
+    ref = kn.norm_apply_ndhwc_plain(x, a, s, maps, **kw)
+    torch.cuda.synchronize()
+    err, rel = (rel_err(merge3(got), merge3(ref)) if split
+                else rel_err(got, ref))
+    tol = TOL_CONV_F32 if split else TOL_CONV_BF16
+    n = x.numel()
+    nbytes = (4.0 + (6.0 if split else 2.0)) * n + 8.0 * a.numel() + 4.0 * (
+        sum(m.numel() for m in maps))
+    b_ms, b_by = bound((5.0 if post_res else 3.0) * n, nbytes,
+                       PEAK_F32_FLOPS)
+    return dict(
+        shape=f"B{B} {S}^3x{C} {act}" + (" +0.1x" if post_res else "")
+        + (" split" if split else ""),
+        max_abs_err=err, rel_err=rel, tol=tol, ok=rel < tol,
+        ms=cuda_ms(lambda: kn.norm_apply_ndhwc(x, a, s, maps, **kw)),
+        plain_ms=cuda_ms(lambda: kn.norm_apply_ndhwc_plain(x, a, s, maps,
+                                                           **kw)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def options_kernel_checks(kc, kt, kn, norms, torch, F, dev) -> dict:
+    """Phase 14's kernel rows: every new kernel mode at the options
+    paths' shapes."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rows = {name: [] for name in (
+        "conv3x3x3_ndhwc", "conv3x3x3_upcat_ndhwc", "conv3x3x3_cat_ndhwc",
+        "conv3x3x3_dgrad_ndhwc", "conv3x3x3_wgrad_ndhwc",
+        "norm_apply_ndhwc")}
+    lifted2 = ("zeros", "reflect", "reflect")
+    for B, spatial, ci, co, pad, act, f32 in [
+        (2, (128,) * 3, 16, 16, "replicate", "relu", False),
+        (2, (128,) * 3, 16, 16, "circular", "relu", False),
+        (2, (64,) * 3, 96, 32, "replicate", "none", True),
+        (4, (1, 512, 512), 16, 16, lifted2, "relu", False),
+        (2, (128,) * 3, 16, 16, "reflect", "selu", False),
+    ]:
+        rows["conv3x3x3_ndhwc"].append(check_conv_mode(
+            kc, torch, F, dev, gen, B, spatial, ci, co, pad, act, f32))
+    # PReLU: the lrelu epilogue with the weight's value as its slope
+    rows["conv3x3x3_ndhwc"].append(check_conv_mode(
+        kc, torch, F, dev, gen, 2, (128,) * 3, 16, 16, "replicate", "lrelu",
+        slope=0.37))
+    rows["conv3x3x3_upcat_ndhwc"].append(check_two_operand_mode(
+        kc, torch, F, dev, gen, 2, 128, 16, 32, 16, "replicate", up=True))
+    rows["conv3x3x3_cat_ndhwc"].append(check_two_operand_mode(
+        kc, torch, F, dev, gen, 2, 32, 384, 768, 128, "replicate", up=False))
+    for pad in ("replicate", "circular"):
+        for which in ("dgrad", "wgrad"):
+            rows[f"conv3x3x3_{which}_ndhwc"].append(check_backward_mode(
+                kt, torch, F, dev, gen, 2, 128, 16, 16, which, pad))
+    rows["conv3x3x3_wgrad_ndhwc"].append(check_backward_mode(
+        kt, torch, F, dev, gen, 2, 128, 96, 32, "wgrad", "reflect"))
+    for act, post_res in (("selu", False), ("relu", True)):
+        for split in (False, True):
+            rows["norm_apply_ndhwc"].append(check_norm_apply_mode(
+                kn, norms, torch, dev, gen, 1, 128, 32, act, post_res,
+                split))
+    return rows
+
+
+def seeded_bn_stats(torch, sd, seed=3):
+    """Non-trivial running statistics for every batch norm of `sd`."""
+    gen = torch.Generator().manual_seed(seed)
+    for k, v in list(sd.items()):
+        if k.endswith("running_mean"):
+            sd[k] = (torch.randn(v.shape, generator=gen) * 0.1).to(v.device)
+        elif k.endswith("running_var"):
+            sd[k] = (0.5 + torch.rand(v.shape, generator=gen)).to(v.device)
+    return sd
+
+
+def slices_2d(torch, dev, n, size, seed, noisy):
+    """`n` seeded 2-D images (n, size, size, 1) in [0, 1]: the 3-D test
+    volumes' blobs (`synthetic_volume` with its noise when `noisy`, else
+    `smooth_field`'s) evaluated on `n` planes."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ax = torch.linspace(-1, 1, size, device=dev)
+    zs = torch.linspace(-0.3, 0.3, n, device=dev)
+    z, y, x = torch.meshgrid(zs, ax, ax, indexing="ij")
+    img = torch.zeros((n, size, size), device=dev)
+    centers = torch.rand((8, 3), generator=gen, device=dev) * 1.6 - 0.8
+    widths = 0.05 + 0.2 * torch.rand((8,), generator=gen, device=dev)
+    for c, s in zip(centers, widths):
+        img += torch.exp(-((z - c[0]) ** 2 + (y - c[1]) ** 2
+                           + (x - c[2]) ** 2) / s)
+    if noisy:
+        img += 0.05 * torch.randn(img.shape, generator=gen, device=dev)
+    lo = img.amin(dim=(1, 2), keepdim=True)
+    hi = img.amax(dim=(1, 2), keepdim=True)
+    return ((img - lo) / (hi - lo))[..., None].contiguous()
+
+
+def options_forward(torch, make_feature_extractor, wrappers, paths, tag,
+                    plan, sd, dev, volumes, shape, needed):
+    """One options path through `make_feature_extractor(strategy="full")`:
+    the wall and CUDA-event time and the launches per kernel on the first
+    volume, then on each volume the error against the port's f32 plain
+    path (the eager module) beside the plain path run in bf16 (bf16 convs
+    under autocast), under the two-part rule."""
+    fused = make_feature_extractor(plan, sd, strategy="full", device=dev)
+    eager = make_feature_extractor(plan, sd, strategy="full", impl="eager",
+                                   device=dev)
+    first = next(iter(volumes.values()))
+    fused(first)
+    torch.cuda.synchronize()
+    reset_counts(wrappers)
+    feats, wall_s = timed(torch, lambda: fused(first))
+    c = paths[tag] = counts(wrappers)
+    check_path(tag, feats, shape, c, needed)
+    ms = cuda_ms(lambda: fused(first), min_ms=10.0, max_reps=5)
+    log(f"[{tag}] {tuple(first.shape)} -> {tuple(feats.shape)}: wall "
+        f"{wall_s:.4f} s, CUDA events {ms:.4f} ms, launches {c}")
+    del feats
+    out = dict(seconds=wall_s, ms=ms, launches=c)
+    for name, vol in volumes.items():
+        ref = eager(vol)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            ref_b = eager(vol)
+        r = dict(kernels=mean_rel(fused(vol), ref),
+                 plain_bf16=mean_rel(ref_b, ref))
+        out[name] = r
+        log(f"[{tag}] {name} vs the f32 plain path, mean|err|/std: kernels "
+            f"{r['kernels']:.3e}, the plain path in bf16 "
+            f"{r['plain_bf16']:.3e} (tol {TOL_MODEL} and "
+            f"{TOL_VS_BF16_PLAIN}x plain bf16 + {TOL_VS_BF16_PLAIN_ABS})")
+        two_part_gate(f"{tag} {name}", r["kernels"], r["plain_bf16"])
+        del ref, ref_b
+    del fused, eager
+    torch.cuda.empty_cache()
+    return out
+
+
+def fold_every_batch_norm(plan, sd):
+    """The JAX package's fold (ROADMAP F10): every batch norm into its
+    conv, residual sources included."""
+    import dataclasses
+
+    from anatomix_tpu_torch.extract import fold_batchnorm
+
+    plain_cfg = dataclasses.replace(plan.config, residual_connection=False)
+    fplan, fsd = fold_batchnorm(dataclasses.replace(plan, config=plain_cfg),
+                                sd)
+    for i in plan.conv_indices:  # the exit conv keeps no bias
+        w = fsd[f"model.{i}.weight"]
+        fsd.setdefault(f"model.{i}.bias", w.new_zeros(w.shape[0]))
+    return dataclasses.replace(fplan, config=plan.config), fsd
+
+
+def options_step(torch, dev, wrappers, paths, kt, cfg, tag, n_steps,
+                 built=None):
+    """A pretraining step with the options in `cfg` (`build_all`'s, or
+    `built` = (plan, taps, state, step)): `n_steps` steps from the seeded
+    state on `[train-step128]`'s batch; the first loss against the f32
+    plain path, every backward launch against its plain version on the
+    step's tensors, each dW and the PReLU weight's gradient against the
+    plain backward from the same forward (`train_dw_check`); then the
+    first step twice from the seeded state, losses and parameters bit for
+    bit (P5)."""
+    from anatomix_tpu_torch.models.unet import prelu_key
+    from anatomix_tpu_torch.pretraining.train import build_all
+    from anatomix_tpu_torch.pretraining.train_step import NCEOptions
+
+    plan, taps, state0, step = built or build_all(cfg, 1000, device=dev)
+    views, segs = train_batch(torch, dev, cfg.crop_size)
+    sampler = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa
+    state, losses, step_ms = state0, [], []
+    for i in range(n_steps):
+        if i == 0:
+            reset_counts(wrappers)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, views, segs, sampler())
+        end.record()
+        torch.cuda.synchronize()
+        if i == 0:
+            c = paths[tag] = counts(wrappers)
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    n_conv = len(plan.conv_indices)
+    if c["conv3x3x3_ndhwc"] != n_conv or c["conv3x3x3_wgrad_ndhwc"] != \
+            n_conv or c["pad_shell_ndhwc"] != n_conv - 1:
+        raise RuntimeError(f"{tag}: launches {c}")
+    if not all(v == v and abs(v) < float("inf") for v in losses):
+        raise RuntimeError(f"{tag}: non-finite loss {losses}")
+    pkey = prelu_key(plan)
+    log(f"[{tag}] {plan.config}: losses {losses}; step ms {step_ms}; "
+        f"launches per step {c}"
+        + (f"; PReLU weight {float(state.params_g[pkey]):.6f} after "
+           f"{n_steps} steps" if pkey else ""))
+    del state
+    kw = dict(tap_layers=taps, num_patches=cfg.num_patches,
+              nce=NCEOptions(temperature=cfg.nce_T))
+    main = train_dw_check(torch, kt, plan, state0, views, segs, sampler, kw)
+    loss_rel = abs(losses[0] - main["loss_plain"]) / abs(main["loss_plain"])
+    errs = main["launch_errs"]
+    log(f"[{tag}] first loss {losses[0]:.6f} vs plain f32 path "
+        f"{main['loss_plain']:.6f}: rel {loss_rel:.3e} (tol "
+        f"{TOL_TRAIN_LOSS}); wgrad launches max rel {max(errs['wgrad']):.3e}"
+        f" (tol {TOL_WGRAD}), dgrad {max(errs['dgrad']):.3e}, its shell "
+        f"{max(errs['dgrad_shell']):.3e} (tol {TOL_CONV_BF16}); dW vs the "
+        f"plain backward of the same forward: {fmt_dw(main['dw_backward'])}")
+    out = dict(losses=losses, step_ms=step_ms, launches=c,
+               loss_rel=loss_rel, first_step=main)
+    bad = (not loss_rel < TOL_TRAIN_LOSS
+           or not max(errs["wgrad"]) < TOL_WGRAD
+           or not max(errs["dgrad"]) < TOL_CONV_BF16
+           or not max(errs["dgrad_shell"]) < TOL_CONV_BF16
+           or not max(main["dw_backward"].values()) < TOL_TRAIN_DW)
+    if pkey:
+        out["prelu_grad_rel"] = main["prelu_backward"]
+        log(f"[{tag}] the PReLU weight's gradient vs the plain backward of "
+            f"the same forward: rel {main['prelu_backward']:.3e} (tol "
+            f"{TOL_TRAIN_DW})")
+        bad = bad or not main["prelu_backward"] < TOL_TRAIN_DW
+    if bad:
+        raise RuntimeError(f"{tag}: outside its gates: loss {loss_rel}, "
+                           f"launches {errs}, dW {main['dw_backward']}")
+    # P5: one step twice from one state
+    runs = [step(state0, views, segs, sampler()) for _ in range(2)]
+    torch.cuda.synchronize()
+    (s1, m1), (s2, m2) = runs
+    diff = max((s1.params_g[k].float() - s2.params_g[k].float()).abs()
+               .max().item() for k in s1.params_g)
+    out["repeat"] = dict(loss_equal=float(m1["loss"]) == float(m2["loss"]),
+                         params_g_max_abs_diff=diff)
+    log(f"[{tag}] one step twice from one state: losses {float(m1['loss'])!r}"
+        f" / {float(m2['loss'])!r}, params_g max|diff| {diff}")
+    if not (out["repeat"]["loss_equal"] and diff == 0.0):
+        raise RuntimeError(f"{tag}: the step does not repeat: {out['repeat']}")
+    del runs, s1, s2, state0
+    torch.cuda.empty_cache()
+    return out
+
+
+def dev_step_repeat(torch, dev):
+    """The dev UNet's pretraining step (`dev_pretrain_config()`) twice from
+    one seeded state: the loss and how far the parameters land apart.
+    Ungated: torch's trilinear upsample backward accumulates with atomics
+    on the card (`upsample_trilinear3d_backward`)."""
+    from anatomix_tpu_torch.pretraining.train import build_all
+
+    cfg = dev_pretrain_config()
+    _, _, state0, step = build_all(cfg, 1000, device=dev)
+    views, segs = train_batch(torch, dev, cfg.crop_size)
+    runs = [step(state0, views, segs,
+                 torch.Generator(device=dev).manual_seed(7))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (s1, m1), (s2, m2) = runs
+    diffs = {k: (s1.params_g[k].float() - s2.params_g[k].float()).abs()
+             .max().item() for k in s1.params_g}
+    worst = max(diffs, key=diffs.get)
+    out = dict(losses=[float(m1["loss"]), float(m2["loss"])],
+               params_g_max_abs_diff=diffs[worst], worst_leaf=worst,
+               leaves_that_differ=sum(v > 0 for v in diffs.values()),
+               leaves=len(diffs))
+    log(f"[options-dev-repeat] the dev step twice from one state: losses "
+        f"{out['losses']}, params_g max|diff| {diffs[worst]:.3e} at {worst}, "
+        f"{out['leaves_that_differ']} of {len(diffs)} leaves differ")
+    del runs, s1, s2, state0
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_options(torch, dev, make_feature_extractor, wrappers, paths, kt):
+    """Phase 14: the UNet options on the card at full width."""
+    from anatomix_tpu_torch.models.registry import ANATOMIX_VARIANTS
+    from anatomix_tpu_torch.models.unet import (
+        Unet,
+        UnetConfig,
+        build_plan,
+        init_params,
+    )
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+
+    out = {}
+    # [options-full]: the anatomix topology with PReLU 0.37, replicate
+    # padding and residual connections, batch norms with non-trivial
+    # running statistics, `full` on 256^3
+    cfg = UnetConfig(**dict(ANATOMIX_VARIANTS["anatomix"]["unet_kwargs"],
+                            activation="prelu", pad_type="replicate",
+                            residual_connection=True))
+    plan = build_plan(cfg)
+    sd = seeded_bn_stats(torch, init_params(
+        plan, torch.Generator().manual_seed(0)))
+    for i, spec in enumerate(plan.layers):
+        if spec.kind == "act":
+            sd[f"model.{i}.weight"] = torch.full((1,), 0.37)
+    sd = {k: v.to(dev) for k, v in sd.items()}
+    vols = {"noisy": synthetic_volume(torch, dev, 256, seed=1),
+            "smooth": smooth_field(torch, dev, 256, seed=3)[
+                None, ..., None].contiguous()}
+    out["full"] = options_forward(
+        torch, make_feature_extractor, wrappers, paths, "options-full",
+        plan, sd, dev, vols, (1, 256, 256, 256, cfg.output_nc),
+        ["conv3x3x3_ndhwc", "conv3x3x3_upcat_ndhwc", "norm_apply_ndhwc"])
+    # what the JAX package's folded extractor computes instead (F10)
+    fplan, fsd = fold_every_batch_norm(plan, sd)
+    with torch.no_grad():
+        net = Unet.from_state_dict(plan, sd).to(dev)
+        fnet = Unet.from_state_dict(fplan, fsd).to(dev)
+        v = vols["noisy"][:, :128, :128, :128].contiguous()
+        f10 = mean_rel(fnet(v), net(v))
+    out["f10_folded_vs_network"] = f10
+    log(f"[options-full] F10: the batch norms folded into residual-source "
+        f"convs (the JAX package's extractor) vs the network, 128^3: "
+        f"mean|err|/std {f10:.3e} (ungated)")
+    del net, fnet, fsd, sd, vols
+    torch.cuda.empty_cache()
+
+    # [options-dev-fwd128]: the anatomix-dev topology with SELU, circular
+    # padding and residual connections, 128^3 B1
+    dcfg = UnetConfig(**dict(ANATOMIX_VARIANTS["anatomix-dev"]["unet_kwargs"],
+                             activation="selu", pad_type="circular",
+                             residual_connection=True))
+    dplan = build_plan(dcfg)
+    dsd = {k: v.to(dev) for k, v in init_params(
+        dplan, torch.Generator().manual_seed(0)).items()}
+    out["dev_fwd128"] = options_forward(
+        torch, make_feature_extractor, wrappers, paths, "options-dev-fwd128",
+        dplan, dsd, dev,
+        {"noisy": synthetic_volume(torch, dev, 128, seed=4),
+         "smooth": smooth_field(torch, dev, 128, seed=3)[
+             None, ..., None].contiguous()},
+        (1, 128, 128, 128, dcfg.output_nc),
+        ["conv3x3x3_ndhwc", "conv3x3x3_cat_ndhwc", "norm_apply_ndhwc",
+         "upsample2x_trilinear_ndhwc"])
+    del dsd
+    torch.cuda.empty_cache()
+
+    # [options-2d]: the 6M widths as a 2-D UNet on B4 512^2 slices
+    tcfg = UnetConfig(**dict(ANATOMIX_VARIANTS["anatomix"]["unet_kwargs"],
+                             dimension=2))
+    tplan = build_plan(tcfg)
+    tsd = {k: v.to(dev) for k, v in seeded_bn_stats(torch, init_params(
+        tplan, torch.Generator().manual_seed(0))).items()}
+    out["2d"] = options_forward(
+        torch, make_feature_extractor, wrappers, paths, "options-2d", tplan,
+        tsd, dev,
+        {"noisy": slices_2d(torch, dev, 4, 512, 5, True),
+         "smooth": slices_2d(torch, dev, 4, 512, 6, False)},
+        (4, 512, 512, tcfg.output_nc),
+        ["conv3x3x3_ndhwc", "conv3x3x3_cat_ndhwc"])
+    del tsd
+    torch.cuda.empty_cache()
+
+    # [options-step]: the launcher's own `--actG prelu` on the 6M step, then
+    # a general-walk step (batch norm, residual, replicate, SELU)
+    out["step_prelu"] = options_step(
+        torch, dev, wrappers, paths, kt, PretrainConfig(actG="prelu"),
+        "options-step", 5)
+    out["step_general"] = options_general_step(
+        torch, dev, wrappers, paths, kt, PretrainConfig(actG="selu"))
+    out["dev_repeat"] = dev_step_repeat(torch, dev)
+    return out
+
+
+def options_general_step(torch, dev, wrappers, paths, kt, cfg):
+    """The general train walk's step at the 6M widths with batch norm,
+    residual connections, replicate padding and `cfg.actG`: the launcher
+    (`build_all`, as the JAX package's) takes no residual or padding
+    option, so the step is built on that plan with `init_train_state` and
+    `build_train_step` at `cfg`'s settings."""
+    from anatomix_tpu_torch.models.unet import UnetConfig, build_plan
+    from anatomix_tpu_torch.pretraining.train_step import (
+        build_train_step,
+        init_train_state,
+    )
+
+    plan = build_plan(UnetConfig(
+        input_nc=cfg.input_nc, output_nc=cfg.output_nc,
+        num_downs=cfg.num_downs, ngf=cfg.ngf, norm=cfg.normG,
+        activation=cfg.actG, residual_connection=True,
+        pad_type="replicate"))
+    taps = cfg.tap_layers()
+    state = init_train_state(
+        plan, torch.Generator().manual_seed(cfg.seed), tap_layers=taps,
+        netf_nc=cfg.netF_nc, n_mlps=cfg.n_mlps, device=dev)
+    step = build_train_step(
+        plan, tap_layers=taps, num_patches=cfg.num_patches,
+        nce_temperature=cfg.nce_T, lr=cfg.lr, compute_dtype=torch.bfloat16)
+    return options_step(torch, dev, wrappers, paths, kt, cfg,
+                        "options-step-general", 3,
+                        built=(plan, taps, state, step))
 
 if __name__ == "__main__":
     rc = main(sys.argv[1:])

@@ -105,6 +105,12 @@ def _check_cover(plan, B, grid, ci, co, taps):
     (2, (6, 6, 6), 1024, 1024),
     (2, (10, 10, 10), 512, 1536),
     (2, (130, 130, 130), 32, 96),
+    # a lifted 2-D UNet's slices (an extent of 1 on D) and a 1-D UNet's
+    # lines (extents of 1 on D and H)
+    (4, (1, 512, 512), 1, 16),
+    (4, (1, 512, 512), 16, 16),
+    (2, (1, 1, 4096), 1, 16),
+    (4, (1, 64, 64), 128, 256),
 ])
 def test_conv_plan_covers_every_voxel_and_k_row_once(B, grid, ci, co):
     plan = conv_plan(B, grid, ci, co)
@@ -320,6 +326,9 @@ def test_conv_plan_is_a_pure_function():
     (3, (64, 64, 64), 96, 32, 1),
     (3, (64, 64, 64), 32, 32, 1),
     (3, (64, 64, 64), 16, 32, 1),
+    # lifted 2-D and 1-D UNets: extents of 1
+    (4, (1, 512, 512), 16, 16, 1),
+    (2, (1, 1, 4096), 1, 16, 1),
 ])
 def test_wgrad_plan_covers_every_position_and_row_once(B, grid, ci, co,
                                                         stride):

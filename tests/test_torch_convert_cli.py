@@ -1,11 +1,10 @@
 """The port's `models/convert_cli.py` against the JAX package's on the same
 seeded `.pth` files: the `.npz` each writes holds the same arrays under the
 same keys, bit for bit, for the `anatomix` variant, custom flags (a
-`module.` prefix, an instance-norm model) and the ViT variant (a seeded
-full-config upstream state dict). The JAX package's round trip reads the
+`module.` prefix, an instance-norm model, PReLU, a 2-D model) and the ViT
+variant (a seeded full-config upstream state dict). The JAX package's round trip reads the
 port's file. No test here reads a reference checkout."""
 
-import os
 
 import numpy as np
 import pytest
@@ -86,11 +85,27 @@ def test_vit_npz_equals_jax(tmp_path):
     assert _equal_npz(got, ref) > 100
 
 
-def test_options_the_port_does_not_run(tmp_path):
-    """A PReLU or 2-D model raises NotImplementedError naming item 15
-    before anything is written."""
-    dst = str(tmp_path / "x.npz")
-    for argv in (["--activation", "prelu"], ["--dimension", "2"]):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            convert_cli.main([str(tmp_path / "missing.pth"), dst] + argv)
-    assert not os.path.exists(dst)
+@pytest.mark.parametrize("argv,config", [
+    (["--activation", "prelu", "--num_downs", "2", "--ngf", "4",
+      "--output_nc", "4"],
+     dict(activation="prelu", num_downs=2, ngf=4, output_nc=4)),
+    (["--dimension", "2", "--num_downs", "2", "--ngf", "4", "--output_nc",
+      "4"], dict(dimension=2, num_downs=2, ngf=4, output_nc=4)),
+])
+def test_prelu_and_2d_options_convert(tmp_path, argv, config):
+    """A PReLU model (the shared weight at every act slot of the `.pth`,
+    one `prelu/w` in the `.npz`) and a 2-D model (`nn.Conv2d` weights,
+    degenerate-3-D DHWIO in the `.npz`) convert, and the file equals the
+    JAX package's `convert_cli` output bit for bit."""
+    plan = build_plan(UnetConfig(**config))
+    sd = init_params(plan, torch.Generator().manual_seed(2))
+    sd = {k: (torch.full_like(v, 0.37) if v.shape == (1,) else v)
+          for k, v in sd.items()}
+    got, ref = _both(tmp_path, sd, argv)
+    assert _equal_npz(got, ref) > 0
+    with np.load(got) as flat:
+        if config.get("activation") == "prelu":
+            np.testing.assert_array_equal(flat["prelu/w"],
+                                          np.float32([0.37]))
+        else:
+            assert flat["0/w"].shape == (1, 3, 3, 1, 4)

@@ -523,7 +523,7 @@ def test_pretrain_step_kernels_match_plain_path(cuda):
         assert float((got - ref).abs().mean() / ref.std()) < 5e-2, i
     ref, _, _, _ = run(plain=True)
     assert abs(float(loss) - float(ref)) < 1e-2 * abs(float(ref))
-    wrappers = (wgrad, dgrad, kt.reflect_shell_ndhwc,
+    wrappers = (wgrad, dgrad, kt.pad_shell_ndhwc,
                 kr.space_to_depth2_ndhwc, kr.depth_to_space2_ndhwc)
     before = [fn.launches for fn in wrappers]
     state, metrics = step(state, views, segs,
@@ -842,12 +842,12 @@ def test_reflect_dgrad_split_store_and_shell_pass(cuda, B, spatial, co, ci,
     dy = torch.randn((B, *spatial, co), generator=g, device=cuda).bfloat16()
     w = (torch.randn((27 * ci, co), generator=g, device=cuda)
          * (2.0 / (27 * ci)) ** 0.5).bfloat16()
-    n = (kt.conv3x3x3_dgrad_ndhwc.launches, kt.reflect_shell_ndhwc.launches)
+    n = (kt.conv3x3x3_dgrad_ndhwc.launches, kt.pad_shell_ndhwc.launches)
     dx = kt.conv3x3x3_dgrad_ndhwc(dy, w, pad_type="reflect")
     again = kt.conv3x3x3_dgrad_ndhwc(dy, w, pad_type="reflect")
     torch.cuda.synchronize()
     assert (kt.conv3x3x3_dgrad_ndhwc.launches,
-            kt.reflect_shell_ndhwc.launches) == (n[0] + 2, n[1] + 2)
+            kt.pad_shell_ndhwc.launches) == (n[0] + 2, n[1] + 2)
     ref = kt.conv3x3x3_dgrad_ndhwc_plain(dy, w, pad_type="reflect")
     assert dx.dtype == torch.bfloat16 and dx.shape == (B, *spatial, ci)
     assert _maxrel(dx.float().cpu(), ref.float().cpu()) < 1e-2
@@ -855,12 +855,12 @@ def test_reflect_dgrad_split_store_and_shell_pass(cuda, B, spatial, co, ci,
     assert _maxrel(dx.float()[:, edge].cpu(), ref.float()[:, edge].cpu()) \
         < 1e-2
     assert torch.equal(dx, again)
-    st, g_ext = kt.reflect_dgrad_store(dy, w)
+    st, g_ext = kt.pad_dgrad_store(dy, w)
     torch.cuda.synchronize()
     off = ~_reflect_shell_mask(spatial, False, cuda)
     assert torch.equal(st[:, off], dx[:, off])
-    assert torch.equal(kt.reflect_shell_ndhwc(g_ext, st.clone()),
-                       kt.reflect_shell_plain(g_ext, st.clone()))
+    assert torch.equal(kt.pad_shell_ndhwc(g_ext, st.clone()),
+                       kt.pad_shell_plain(g_ext, st.clone()))
 
 
 @pytest.mark.gpu
@@ -880,11 +880,11 @@ def test_reflect_shell_kernel_matches_plain_bit_for_bit(cuda, B, spatial,
     g_ext = torch.randn((B, *(s + 2 for s in spatial), C), generator=g,
                         device=cuda)
     dx0 = torch.randn((B, *spatial, C), generator=g, device=cuda).bfloat16()
-    n = kt.reflect_shell_ndhwc.launches
-    got = kt.reflect_shell_ndhwc(g_ext, dx0.clone())
+    n = kt.pad_shell_ndhwc.launches
+    got = kt.pad_shell_ndhwc(g_ext, dx0.clone())
     torch.cuda.synchronize()
-    assert kt.reflect_shell_ndhwc.launches == n + 1
-    assert torch.equal(got, kt.reflect_shell_plain(g_ext, dx0.clone()))
+    assert kt.pad_shell_ndhwc.launches == n + 1
+    assert torch.equal(got, kt.pad_shell_plain(g_ext, dx0.clone()))
     off = ~_reflect_shell_mask(spatial, False, cuda)
     assert torch.equal(got[:, off], dx0[:, off])
 
@@ -900,11 +900,11 @@ def test_zeros_dgrad_and_k1_take_no_shell_pass(cuda):
     w = (torch.randn((27 * 16, 16), generator=g, device=cuda)
          * 0.1).bfloat16()
     b = torch.randn((16,), generator=g, device=cuda) * 0.1
-    n = kt.reflect_shell_ndhwc.launches
+    n = kt.pad_shell_ndhwc.launches
     dx = kt.conv3x3x3_dgrad_ndhwc(dy, w, pad_type="zeros")
     y = conv3x3x3_ndhwc(dy, w, b, act="none", pad_type="reflect")
     torch.cuda.synchronize()
-    assert kt.reflect_shell_ndhwc.launches == n
+    assert kt.pad_shell_ndhwc.launches == n
     assert _maxrel(dx.float().cpu(), kt.conv3x3x3_dgrad_ndhwc_plain(
         dy, w, pad_type="zeros").float().cpu()) < 1e-2
     assert _maxrel(y.float().cpu(), conv3x3x3_ndhwc_plain(
@@ -1110,7 +1110,7 @@ def test_dev_train_walk_on_the_card_matches_the_plain_walk(cuda):
     x = torch.randn((2, 32, 32, 32, 1), generator=g, device=cuda)
     cot = torch.randn((2, 32, 32, 32, 8), generator=g, device=cuda)
     wrappers = (conv3x3x3_ndhwc, kt.conv3x3x3_wgrad_ndhwc,
-                kt.conv3x3x3_dgrad_ndhwc, kt.reflect_shell_ndhwc)
+                kt.conv3x3x3_dgrad_ndhwc, kt.pad_shell_ndhwc)
     n_conv = len(plan.conv_indices)
     runs = {}
     for plain in (True, False):
@@ -1256,3 +1256,204 @@ def test_trainer_on_the_card_named_without_an_index(cuda):
     assert t["dp"][0] == t["one"][0]
     np.testing.assert_allclose(t["dp"] + t["dp_val"], t["one"] + t["one_val"],
                                rtol=TOL_TRAIN[torch.bfloat16])
+
+
+# -----------------------------------------------------------------------------
+# the UNet options: pad modes, SELU, PReLU's slope, the residual block's
+# norm-apply pass, lifted 1-D and 2-D nets, the ordered T-w
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad,spatial,ci,co,act", [
+    ("replicate", (5, 7, 9), 5, 7, "relu"),
+    ("circular", (5, 7, 9), 12, 20, "selu"),
+    ("replicate", (1, 1, 1), 8, 8, "none"),   # extent 1
+    ("circular", (1, 3, 1), 16, 16, "lrelu"),
+    ("circular", (9, 10, 11), 96, 33, "selu"),   # the gather ring
+    (("zeros", "reflect", "reflect"), (1, 33, 17), 16, 16, "relu"),
+    (("zeros", "zeros", "replicate"), (1, 1, 70), 1, 16, "relu"),
+])
+def test_conv_pad_modes_and_selu_match_plain(cuda, pad, spatial, ci, co,
+                                             act):
+    """K1 under replicate and circular padding (extents of 1 included),
+    the SELU epilogue, PReLU's slope, and a lifted net's per-axis padding,
+    at odd extents and widths, against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn((2, *spatial, ci), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((27 * ci, co), generator=g, device=cuda)
+         * 0.2).bfloat16()
+    b = torch.randn((co,), generator=g, device=cuda)
+    for out_dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        kw = dict(act=act, slope=-0.11, pad_type=pad, out_dtype=out_dtype)
+        got = conv3x3x3_ndhwc(x, w, b, **kw)
+        ref = conv3x3x3_ndhwc_plain(x, w, b, **kw)
+        torch.cuda.synchronize()
+        assert _maxrel(got.float().cpu(), ref.float().cpu()) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad", ["replicate", "circular"])
+def test_two_operand_convs_pad_modes_match_plain(cuda, pad):
+    """K3 and D3 under replicate and circular padding at odd widths."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    enc = torch.randn((2, 6, 10, 8, 12), generator=g, device=cuda).bfloat16()
+    small = torch.randn((2, 3, 5, 4, 20), generator=g, device=cuda).bfloat16()
+    up = torch.randn((2, 6, 10, 8, 20), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((27 * 32, 24), generator=g, device=cuda)
+         * 0.1).bfloat16()
+    b = torch.randn((24,), generator=g, device=cuda)
+    kw = dict(act="relu", pad_type=pad)
+    for fn, plain, second in (
+            (conv3x3x3_upcat_ndhwc, conv3x3x3_upcat_ndhwc_plain, small),
+            (conv3x3x3_cat_ndhwc, conv3x3x3_cat_ndhwc_plain, up)):
+        got = fn(enc, second, w, b, **kw)
+        ref = plain(enc, second, w, b, **kw)
+        torch.cuda.synchronize()
+        assert _maxrel(got.float().cpu(), ref.float().cpu()) < 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad,B,spatial,co,ci", [
+    ("replicate", 1, (1, 1, 1), 8, 8),
+    ("circular", 1, (1, 4, 2), 16, 8),
+    ("replicate", 2, (5, 6, 7), 12, 20),
+    ("circular", 2, (9, 11, 6), 32, 96),   # split K
+    ("circular", 2, (30, 30, 30), 64, 16),
+    (("zeros", "reflect", "reflect"), 2, (1, 20, 24), 16, 16),
+])
+def test_padded_dgrad_split_store_and_shell_pass(cuda, pad, B, spatial, co,
+                                                 ci):
+    """T-x under replicate, circular and a lifted net's per-axis padding:
+    against its plain version, two launches bit for bit, the shell pass
+    bit for bit its plain version on the same g_ext."""
+    from anatomix_tpu_torch.kernels import conv_train as kt
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    dy = torch.randn((B, *spatial, co), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((27 * ci, co), generator=g, device=cuda)
+         * (2.0 / (27 * ci)) ** 0.5).bfloat16()
+    dx = kt.conv3x3x3_dgrad_ndhwc(dy, w, pad_type=pad)
+    again = kt.conv3x3x3_dgrad_ndhwc(dy, w, pad_type=pad)
+    ref = kt.conv3x3x3_dgrad_ndhwc_plain(dy, w, pad_type=pad)
+    torch.cuda.synchronize()
+    assert _maxrel(dx.float().cpu(), ref.float().cpu()) < 1e-2
+    assert torch.equal(dx, again)
+    st, g_ext = kt.pad_dgrad_store(dy, w, pad)
+    assert torch.equal(kt.pad_shell_ndhwc(g_ext, st.clone(), pad),
+                       kt.pad_shell_plain(g_ext, st.clone(), pad))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pad,B,grid,ci,co,kind", [
+    ("reflect", 2, (32, 32, 32), 16, 16, "halo"),
+    ("replicate", 2, (17, 9, 11), 16, 16, "halo"),
+    ("circular", 1, (1, 5, 3), 8, 12, "halo"),
+    ("circular", 2, (20, 20, 20), 96, 32, "ring"),
+    ("replicate", 2, (4, 4, 4), 256, 256, "ring"),
+    (("zeros", "reflect", "reflect"), 4, (1, 64, 64), 16, 16, "halo"),
+])
+def test_wgrad_repeats_bit_for_bit_and_matches_plain(cuda, pad, B, grid, ci,
+                                                     co, kind):
+    """T-w on each plan kind (halo brick, gather ring; split or not) under
+    each padding: against its plain version, and two launches bit for bit
+    (P5: the splits' partials summed in split order, no atomics)."""
+    from anatomix_tpu_torch.kernels import conv_train as kt
+
+    plan = kt.wgrad_plan(B, grid, ci, co)
+    assert bool(plan.halo) == (kind == "halo")
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn((B, *grid, ci), generator=g, device=cuda).bfloat16()
+    dy = torch.randn((B, *grid, co), generator=g, device=cuda).bfloat16()
+    got = kt.conv3x3x3_wgrad_ndhwc(x, dy, pad_type=pad)
+    again = kt.conv3x3x3_wgrad_ndhwc(x, dy, pad_type=pad)
+    ref = kt.conv3x3x3_wgrad_ndhwc_plain(x, dy, pad_type=pad)
+    torch.cuda.synchronize()
+    assert _maxrel(got.cpu(), ref.cpu()) < 1e-3
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act,post_res,split,x_dtype", [
+    ("selu", False, False, torch.float32),
+    ("selu", False, True, torch.float32),
+    ("relu", True, False, torch.bfloat16),
+    ("lrelu", True, True, torch.float32),
+    ("selu", True, False, torch.float32),
+])
+def test_norm_apply_selu_and_residual_match_plain(cuda, act, post_res,
+                                                  split, x_dtype):
+    """D1 with the SELU epilogue and the residual block's `+ 0.1 x`, at 12
+    channels (one a thread) and 16 (eight), split and not."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    for C in (12, 16):
+        x = torch.randn((2, 5, 6, 7, C), generator=g,
+                        device=cuda).to(x_dtype)
+        a = torch.rand((2, 1, 1, 1, C), generator=g, device=cuda) + 0.5
+        s = torch.randn((2, 1, 1, 1, C), generator=g, device=cuda)
+        maps = tile_maps((5, 6, 7), (1, 1, 1), cuda)
+        kw = dict(act=act, slope=0.37, split=split, post_res=post_res)
+        got = norm_apply_ndhwc(x, a, s, maps, **kw)
+        ref = norm_apply_ndhwc_plain(x, a, s, maps, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape
+        assert _maxrel(got.float().cpu(), ref.float().cpu()) < (
+            1e-5 if split else 1e-2)
+
+
+@pytest.mark.gpu
+def test_prelu_pretrain_step_on_the_card(cuda):
+    """`build_all(PretrainConfig(actG="prelu"))` at a small crop: the
+    loss close to the plain route's, the PReLU weight one leaf that moves,
+    and the step from one state twice gives the same bits (P5)."""
+    from anatomix_tpu_torch.models.unet import prelu_key
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+    from anatomix_tpu_torch.pretraining.train import build_all
+
+    cfg = PretrainConfig(actG="prelu", crop_size=32, num_patches=128)
+    plan, _, state, step = build_all(cfg, 1, device=cuda)
+    _, _, _, plain = build_all(cfg, 1, device=cuda, plain=True)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    views = torch.rand((1, 2, 32, 32, 32, 1), generator=g, device=cuda)
+    segs = torch.randint(0, 4, (1, 32, 32, 32, 1), generator=g, device=cuda)
+    runs = [step(state, views, segs,
+                 torch.Generator(device=cuda).manual_seed(3))
+            for _ in range(2)]
+    _, mp = plain(state, views, segs,
+                  torch.Generator(device=cuda).manual_seed(3))
+    (s1, m1), (s2, m2) = runs
+    key = prelu_key(plan)
+    assert float(m1["loss"]) == float(m2["loss"])
+    assert all(torch.equal(s1.params_g[k], s2.params_g[k])
+               for k in s1.params_g)
+    assert abs(float(m1["loss"]) - float(mp["loss"])) < 1e-2 * abs(
+        float(mp["loss"]))
+    assert float(s1.params_g[key]) != float(state.params_g[key])
+
+
+@pytest.mark.gpu
+def test_2d_unet_forward_on_the_card(cuda):
+    """A 2-D UNet (the 6M widths) through `make_feature_extractor` on the
+    kernels against the eager f32 module, under the bf16 model tolerance,
+    its convs launched on K1 and D3."""
+    from anatomix_tpu_torch.extract import make_feature_extractor
+    from anatomix_tpu_torch.kernels import conv as kc
+    from anatomix_tpu_torch.models.unet import (
+        UnetConfig,
+        build_plan,
+        init_params,
+    )
+
+    plan = build_plan(UnetConfig(dimension=2, num_downs=4, ngf=16))
+    sd = {k: v.to(cuda) for k, v in init_params(
+        plan, torch.Generator().manual_seed(0)).items()}
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.rand((2, 96, 80, 1), generator=g, device=cuda)
+    n = (kc.conv3x3x3_ndhwc.launches, kc.conv3x3x3_cat_ndhwc.launches)
+    got = make_feature_extractor(plan, sd, strategy="full", device=cuda)(x)
+    ref = make_feature_extractor(plan, sd, strategy="full", impl="eager",
+                                 device=cuda)(x)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (2, 96, 80, 16)
+    assert kc.conv3x3x3_ndhwc.launches > n[0]
+    assert kc.conv3x3x3_cat_ndhwc.launches > n[1]
+    err = ((got - ref).abs().mean() / ref.std()).item()
+    assert err < 3e-2

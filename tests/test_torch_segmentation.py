@@ -185,12 +185,19 @@ def test_load_seg_model_matches_jax(tmp_path):
     torch.testing.assert_close(again, params["head"], rtol=0, atol=0)
 
 
-def test_backbones_the_walk_does_not_train(tmp_path):
-    """A backbone with residual connections, an option the port does not
-    run, raises NotImplementedError naming item 15 when trained; an
-    instance-norm backbone (the dev UNet's options) now trains through the
-    general walk; the ViT variant is refused."""
-    from anatomix_tpu_torch.models.unet import UnetConfig, build_plan
+def test_backbones_the_walks_train(tmp_path):
+    """A backbone with residual connections (an option the JAX package
+    runs) now trains: its train-mode logits and running stats match JAX's
+    `seg_forward(train=True)`, `build_seg_train_step` takes a step, and
+    the eval forward after it (batch norms live, not folded: ROADMAP F10)
+    matches JAX's unfolded eval forward; an instance-norm backbone (the dev
+    UNet's options) trains through the general walk; the ViT variant is
+    refused."""
+    from anatomix_tpu_torch.models.unet import (
+        UnetConfig,
+        build_plan,
+        trainable_state,
+    )
 
     plan, params = pm.load_seg_model(
         N_CLASSES, ckpt_path="scratch", norm="instance", pooling="Avg",
@@ -202,11 +209,41 @@ def test_backbones_the_walk_does_not_train(tmp_path):
     assert torch.isfinite(logits).all()
     rplan = build_plan(UnetConfig(input_nc=1, residual_connection=True,
                                   **TINY))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pm.seg_forward(rplan, params, _t(x), train=True)
-    opt = ptr.make_seg_optimizer(params)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ptr.build_seg_train_step(rplan, opt)
+    rng = np.random.default_rng(7)
+    backbone = trainable_state(rplan, init_params(
+        rplan, torch.Generator().manual_seed(4)))
+    for k, v in backbone.items():
+        if k.endswith("running_mean"):
+            backbone[k] = _t(rng.normal(0.0, 0.3, v.shape))
+        elif k.endswith("running_var"):
+            backbone[k] = _t(rng.uniform(0.5, 2.0, v.shape))
+    rparams = {"backbone": backbone, "head": dict(params["head"])}
+    jplan = jax_unet.build_plan(jax_unet.UnetConfig(
+        dimension=3, input_nc=1, residual_connection=True, **TINY))
+
+    def jparams():
+        return jax.tree_util.tree_map(jnp.asarray,
+                                      pm.to_jax_seg_params(rplan, rparams))
+
+    ref, jstats = jm.seg_forward(jplan, jparams(), jnp.asarray(x),
+                                 train=True, conv_impl="xla")
+    got, stats = pm.seg_forward(rplan, rparams, _t(x), train=True,
+                                plain=False)
+    assert _rel(got, ref) <= 1e-4 and sorted(stats) == sorted(jstats)
+    for idx, (mean, var) in stats.items():
+        assert _rel(mean, jstats[idx][0]) <= 1e-5
+        assert _rel(var, jstats[idx][1]) <= 1e-5
+    opt = ptr.make_seg_optimizer(rparams)
+    step = ptr.build_seg_train_step(rplan, opt)
+    before = {k: v.clone() for k, v in rparams["backbone"].items()}
+    loss = step(rparams, _t(x), torch.from_numpy(lab))
+    assert torch.isfinite(loss) and any(
+        not torch.equal(before[k], v)
+        for k, v in rparams["backbone"].items())
+    ref = jm.seg_forward(jplan, jparams(), jnp.asarray(x), conv_impl="xla")
+    for plain in (True, False):
+        got = pm.seg_forward(rplan, rparams, _t(x), plain=plain)
+        assert _rel(got, ref) <= 1e-5, plain
     with pytest.raises(ValueError, match="ViT"):
         pm.load_seg_model(N_CLASSES, hf_variant="anatomix-dev-vit",
                           cache_path=str(tmp_path / "vit.npz"), device="cpu")

@@ -106,12 +106,30 @@ def test_prepack_needs_folded_plan_and_supported_config():
     with pytest.raises(ValueError, match="fold"):
         prepack_fused(plan, sd, device="cpu")
     for kw, item in [(dict(norm="group"), "unsupported"),
-                     (dict(interp="bicubic"), "unsupported"),
-                     (dict(residual_connection=True), "item 15"),
-                     (dict(activation="prelu"), "item 15")]:
+                     (dict(interp="bicubic"), "unsupported")]:
         cfg = UnetConfig(num_downs=2, ngf=8, **kw)
         with pytest.raises(NotImplementedError, match=item):
             Unet(build_plan(cfg))
+    # residual and PReLU UNets build and pack: a residual batch norm stays
+    # live (its conv is a residual source), PReLU runs as the lrelu
+    # epilogue with the shared weight's value as its slope
+    rplan = build_plan(UnetConfig(num_downs=2, ngf=8,
+                                  residual_connection=True))
+    rsd = Unet(rplan).state_dict()
+    fplan, fsd = fold_batchnorm(rplan, rsd)
+    assert fplan.layers == rplan.layers
+    packed = prepack_fused(fplan, fsd, device="cpu")
+    assert packed[0]["act"] == "none" and packed[0]["f32_out"]
+    assert packed[0]["block"]["norm"] == "batch"
+    assert packed[0]["block"]["act"] == "relu"
+    pplan = build_plan(UnetConfig(num_downs=2, ngf=8, activation="prelu"))
+    psd = Unet(pplan).state_dict()
+    psd = {k: (torch.full_like(v, 0.37) if k.endswith(".weight")
+               and v.shape == (1,) else v) for k, v in psd.items()}
+    fplan, fsd = fold_batchnorm(pplan, psd)
+    packed = prepack_fused(fplan, fsd, device="cpu")
+    assert packed[0]["act"] == "lrelu"
+    assert packed[0]["slope"] == pytest.approx(0.37)
     # the dev family (live instance norm, trilinear) packs unfolded
     dev = build_plan(UnetConfig(num_downs=2, ngf=8, norm="instance",
                                 interp="trilinear", pooling="Avg"))
