@@ -35,13 +35,22 @@
 // divides them; an odd C such as the ViT decoder's 99 still moves 4-byte
 // units of its 198-element runs). Stores are fully coalesced and each
 // thread's load is a unit of a run its neighbours continue, so every byte is
-// read once in runs of 2 C elements. The c1 kernel writes one 8-lane voxel
-// per thread from four 2-element pairs. Indices are 32-bit (the launchers
-// refuse more than 2^31 - 1 units).
+// read once in runs of 2 C elements. The c1 kernel has C = 1, so a run is
+// one pair and an 8-lane voxel gathers four of them from four input rows;
+// it too walks the output in 16-byte units (s2d_c1_vec_kernel), each built
+// from two or four pair loads, so that a warp stores 512 contiguous bytes
+// (B2 128^3 f32: 16.8 MB each way, 0.010 ms at 3.35 TB/s). A thread that
+// instead loaded one 16-byte run of each of the four input rows and stored
+// the 64 contiguous bytes they make leaves a warp's stores 64 bytes apart,
+// and measured slower than one voxel a thread; streaming cache hints
+// measured no gain. Indices are 32-bit (the launchers refuse more than
+// 2^31 - 1 units).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -137,14 +146,13 @@ d2s2_sub_kernel(const Ti* __restrict__ in, const float* __restrict__ sub,
   *reinterpret_cast<Vec<To, V>*>(out + (size_t)e * V) = y;
 }
 
-// x (B, 2d, 2h, 2w) -> out (B, d, h, w, 8), one output voxel per thread:
-// lanes (2 p, 2 p + 1) = the pair x[b, 2 i + ad, 2 j + ah, 2 k .. 2 k + 1]
-// of plane p = ad * 2 + ah. VEC: 2-element loads and one 8-element store
-// (both pointers aligned), else element by element.
-template <typename T, bool VEC>
+// x (B, 2d, 2h, 2w) -> out (B, d, h, w, 8), the scalar route (an odd or
+// misaligned row): one output voxel per thread, lanes (2 p, 2 p + 1) = the
+// pair x[b, 2 i + ad, 2 j + ah, 2 k .. 2 k + 1] of plane p = ad * 2 + ah.
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-s2d_c1_kernel(const T* __restrict__ x, T* __restrict__ out, uint32_t n_vox,
-              uint32_t d, uint32_t h, uint32_t w) {
+s2d_c1_scalar_kernel(const T* __restrict__ x, T* __restrict__ out,
+                     uint32_t n_vox, uint32_t d, uint32_t h, uint32_t w) {
   const uint32_t e = blockIdx.x * NTHREADS + threadIdx.x;
   if (e >= n_vox) return;
   uint32_t t = e;
@@ -154,26 +162,51 @@ s2d_c1_kernel(const T* __restrict__ x, T* __restrict__ out, uint32_t n_vox,
   t /= h;
   const uint32_t i = t % d;
   const uint32_t b = t / d;
-  Vec<T, 8> y;
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
     const uint32_t src =
         (((b * 2 * d + 2 * i + (p >> 1)) * 2 * h + 2 * j + (p & 1)) * 2 * w) +
         2 * k;
-    if constexpr (VEC) {
-      const Vec<T, 2> pair = *reinterpret_cast<const Vec<T, 2>*>(x + src);
-      y.v[2 * p] = pair.v[0];
-      y.v[2 * p + 1] = pair.v[1];
-    } else {
-      y.v[2 * p] = x[src];
-      y.v[2 * p + 1] = x[src + 1];
-    }
+    out[(size_t)e * 8 + 2 * p] = x[src];
+    out[(size_t)e * 8 + 2 * p + 1] = x[src + 1];
   }
-  if constexpr (VEC) {
-    *reinterpret_cast<Vec<T, 8>*>(out + (size_t)e * 8) = y;
-  } else {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) out[(size_t)e * 8 + q] = y.v[q];
+}
+
+// The vector route (the output 16-byte aligned, the input aligned to a
+// pair): one thread per 16-byte run of the output, which is half a voxel
+// (f32: lanes 4 h .. 4 h + 3, the pairs of planes 2 h and 2 h + 1) or a
+// whole voxel (bf16: the pairs of all four planes). A W-pair (x[2k],
+// x[2k + 1]) of one (ad, ah) plane is a P (uint2 for f32, one 32-bit word
+// for bf16), so a thread makes its run from two or four pair loads. A warp's
+// stores are 512 contiguous bytes; its pair loads are two (f32) or four
+// (bf16) runs of 128 contiguous bytes, each row of each plane read once.
+// The block is TX threads along an output row of nch runs by NTHREADS / TX
+// rows, and the row index comes from the grid, so the (b, i, j) decode runs
+// once per thread and row.
+template <typename P>
+__global__ void __launch_bounds__(NTHREADS)
+s2d_c1_vec_kernel(const P* __restrict__ x, uint4* __restrict__ out,
+                  uint32_t n_rows, uint32_t h, uint32_t w, uint32_t nch) {
+  const uint32_t c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= nch) return;
+  for (uint32_t row = blockIdx.y * blockDim.y + threadIdx.y; row < n_rows;
+       row += gridDim.y * blockDim.y) {
+    const uint32_t j = row % h;
+    const uint32_t bi = row / h;  // b * d + i
+    // the input row (b, 2 i + ad, 2 j + ah) of w pairs is row
+    // (2 (b d + i) + ad) 2h + 2 j + ah of the (B 2d 2h) rows
+    const size_t r00 = ((size_t)(2 * bi) * 2 * h + 2 * j) * w;
+    const size_t dz = (size_t)2 * h * w, dy = w;
+    uint4 v;
+    if constexpr (sizeof(P) == 8) {  // f32: half h = c & 1 of voxel c / 2
+      const size_t src = r00 + (c & 1) * dz + (c >> 1);
+      const P a = x[src], b = x[src + dy];
+      v = make_uint4(a.x, a.y, b.x, b.y);
+    } else {  // bf16: voxel c
+      const size_t src = r00 + c;
+      v = make_uint4(x[src], x[src + dy], x[src + dz], x[src + dz + dy]);
+    }
+    out[(size_t)row * nch + c] = v;
   }
 }
 
@@ -257,15 +290,24 @@ int launch_c1(const void* x, void* out, int B, int d, int h, int w,
   const int64_t n_vox = (int64_t)B * d * h * w;
   if (n_vox == 0) return 0;
   if (n_vox * 8 > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const uint32_t n = (uint32_t)n_vox;
-  const T* src = static_cast<const T*>(x);
-  T* dst = static_cast<T*>(out);
-  if (aligned(x, 2 * sizeof(T)) && aligned(out, 8 * sizeof(T)))
-    s2d_c1_kernel<T, true><<<n_blocks(n), NTHREADS, 0, st>>>(src, dst, n, d,
-                                                             h, w);
-  else
-    s2d_c1_kernel<T, false><<<n_blocks(n), NTHREADS, 0, st>>>(src, dst, n, d,
-                                                              h, w);
+  if (aligned(x, 2 * sizeof(T)) && aligned(out, 16)) {
+    using P = typename std::conditional<sizeof(T) == 4, uint2, uint32_t>::type;
+    // 16-byte runs of an output row of w 8-lane voxels
+    const uint32_t nch = (uint32_t)(w * 8 * sizeof(T) / 16);
+    const uint32_t n_rows = (uint32_t)(B * d * h);
+    uint32_t tx = NTHREADS;
+    while (tx > 32 && tx / 2 >= nch) tx /= 2;
+    const dim3 block(tx, NTHREADS / tx);
+    const uint32_t gy = (n_rows + block.y - 1) / block.y;
+    const dim3 grid((nch + tx - 1) / tx, gy < 65535u ? gy : 65535u);
+    s2d_c1_vec_kernel<P><<<grid, block, 0, st>>>(
+        static_cast<const P*>(x), static_cast<uint4*>(out), n_rows, h, w,
+        nch);
+  } else {
+    const uint32_t n = (uint32_t)n_vox;
+    s2d_c1_scalar_kernel<T><<<n_blocks(n), NTHREADS, 0, st>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), n, d, h, w);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,33 +1,49 @@
-"""The differentiable forward of the Primus v2 ViT, for its pretraining step.
+"""The differentiable forward of the Primus ViT, for its pretraining step.
 
 The counterpart of the JAX package's `primus_apply` under `jax.grad`
 (`anatomix_tpu/models/vit3d/primus.py`), over the port's ViT state dict
 (`convert.from_jax_primus_params` layout, the keys of `Primus.state_dict()`)
-as a flat dict of f32 leaves. It computes what `Primus.forward` computes,
-with gradients:
-- the tokenizer's stride-1 convs (zero padding) on
+as a flat dict of f32 leaves. It takes every config `Primus.forward` takes
+(`primus.check_supported`) and computes what that forward computes, with
+gradients:
+- v2's tokenizer: its stride-1 convs (zero padding) on
   `kernels/conv_train.conv3x3x3_train` (K1 forward, T-x dx, T-w dW; the stem
   takes no dx) and its stride-2 convs on `kernels/conv_down.conv_down2_train`
   (V2 forward, T-x and T-w in their stride-2 mode); as on the
   inference path, the stem reads the f32 volume as two bf16 terms `hi + lo`
   (its weights repeated along Ci) and every tokenizer conv stores f32, since
-  an instance norm follows each one;
-- instance norm (the one-pass E[x^2] - E[x]^2 statistics of the JAX
-  package's `instance_norm` and of the inference path) + LeakyReLU(0.01)
-  (+ the residual) as f32 torch autograd;
+  an instance norm follows each one; instance norm (the one-pass
+  E[x^2] - E[x]^2 statistics of the JAX package's `instance_norm` and of
+  the inference path) + LeakyReLU(0.01) (+ the residual) as f32 torch
+  autograd;
+- v1's patch embed: the inference path's f32 block-layout chain on the
+  volume (`space_to_depth_c1_ndhwc`, L-c1, then `log2(p) - 1`
+  `space_to_depth2_ndhwc`, L), outside autograd since the image takes no
+  gradient, then one f32 `torch.matmul` against the `tokenizer.proj.weight`
+  leaf permuted to the chain's lanes (`primus._patch_embed_matrix`, a
+  differentiable permutation, so dW lands in the leaf's (E, Ci, p, p, p)
+  layout), the bias and the token LayerNorm (eps 1e-6), f32 autograd;
 - attention on `kernels/attention.flash_attention_train` (V3 forward with
   the log-sum-exp, the dkv and dq kernels backward), q, k and v cast to the
   compute dtype; the linears, LayerNorms, RoPE, LayerScale, registers and
   position embedding as f32 torch autograd, the precision split of the
   inference path;
-- the decoder's per-sub-voxel GEMMs on `torch.matmul` in the compute dtype,
-  the channel LayerNorm and tanh-GELU in f32, and the exit on V1
-  (`depth_to_space8_ndhwc`, which subtracts the `demean` mean in f32) in an
-  autograd Function whose backward is the inverse permutation of
-  `g - mean_c(g)` as torch glue. The walk takes the `demean` output norm
-  only, the one `build_all` sets.
-`plain=True` is the f32 plain path: `F.conv3d`, einsum/softmax attention and
-torch's reshapes under autograd.
+- the decoder's GEMMs on `torch.matmul` in the compute dtype. Three stages
+  (patch 8) run in block space with the channel LayerNorm and tanh-GELU in
+  f32 between them and exit on V1 (`depth_to_space8_ndhwc`), which
+  subtracts in f32 the `demean` mean or, under any other output norm, the
+  final bias's negative, in an autograd Function whose backward is the
+  inverse permutation as torch glue (of `g - mean_c(g)` under `demean`).
+  Any other number of stages runs the inference model's stage path: each
+  GEMM into the block layout, `reshuffle.depth_to_space2` (L; its backward
+  is `space_to_depth2_ndhwc`), the bias, the channel LayerNorm and GELU in
+  f32; the last stage exits on `depth_to_space_interleave_ndhwc` (L-il, f32,
+  minus the mean or the final bias's negative) in a Function whose backward
+  is `space_to_depth2_ndhwc` of `g` (`g - mean_c(g)` under `demean`) in the
+  compute dtype. The output norms `none`, `instance` and `layernorm` (and
+  their aliases) then run as f32 torch autograd (`primus.build_out_norm`).
+`plain=True` is the f32 plain path: `F.conv3d` (stride p for v1's patch
+embed), einsum/softmax attention and torch's reshapes under autograd.
 """
 
 from __future__ import annotations
@@ -46,15 +62,22 @@ from anatomix_tpu_torch.kernels.attention import (
 from anatomix_tpu_torch.kernels.conv_down import conv_down2_train
 from anatomix_tpu_torch.kernels.conv_train import conv3x3x3_train
 from anatomix_tpu_torch.kernels.reshuffle import (
+    depth_to_space2,
+    depth_to_space2_ndhwc_plain,
     depth_to_space8_ndhwc,
     depth_to_space8_ndhwc_plain,
+    depth_to_space_interleave_ndhwc,
+    space_to_depth2_ndhwc,
+    space_to_depth_c1_ndhwc,
 )
 from anatomix_tpu_torch.models.vit3d.primus import (
     TOKENIZER_LRELU_SLOPE,
     PrimusConfig,
     _apply_rope,
     _out_norm_mode,
+    _patch_embed_matrix,
     _rope_tables,
+    build_out_norm,
     check_supported,
 )
 from anatomix_tpu_torch.ops.conv import conv3d_down2, conv3d_same
@@ -64,12 +87,9 @@ Params = Mapping[str, torch.Tensor]
 
 
 def check_train_supported(cfg: PrimusConfig) -> None:
-    """Raise on the configs the train walk does not run: it takes the v2
-    tokenizer (patch 8^3) only."""
+    """Raise on the configs the train walk does not run: those
+    `Primus.forward` does not run (`primus.check_supported`)."""
     check_supported(cfg)
-    if cfg.version != "v2":
-        raise NotImplementedError(
-            "the ViT's train walk runs the v2 tokenizer only")
 
 
 @functools.lru_cache(maxsize=8)
@@ -77,27 +97,64 @@ def _rope(cfg: PrimusConfig, device: str):
     return tuple(t.to(device) for t in _rope_tables(cfg))
 
 
-class _Exit8Demean(torch.autograd.Function):
+def _exit_sub(y, b, groups):
+    """The exit's f32 subtract (B, groups C) of block tensor `y` (..., groups
+    C): each channel's mean over every voxel and sub-position (the
+    full-resolution mean; the final bias cancels under `demean`) when `b` is
+    None, else the final bias's negative."""
+    B, C = y.shape[0], y.shape[-1] // groups
+    if b is None:
+        m = torch.mean(y.reshape(B, -1, C), dim=1, dtype=torch.float32)
+        return m.repeat(1, groups).contiguous()
+    return (-b.float()).repeat(groups)[None].expand(B, -1).contiguous()
+
+
+def _exit_grads(ctx, g):
+    """`g` minus its channel means under `demean`, and the final bias's
+    gradient otherwise."""
+    if ctx.demean:
+        return g - g.mean(dim=(1, 2, 3), keepdim=True), None
+    return g, g.sum(dim=(0, 1, 2, 3))
+
+
+class _Exit8(torch.autograd.Function):
     """(B, d, h, w, 512 C) block tensor -> f32 (B, 8d, 8h, 8w, C) volume on
-    V1, minus each channel's mean."""
+    V1, minus each channel's mean (`b` None: `demean`) or plus the final
+    bias `b`."""
 
     @staticmethod
-    def forward(ctx, y):
-        B, C = y.shape[0], y.shape[-1] // 512
-        # the per-channel mean over every voxel and sub-position is the
-        # full-resolution mean
-        m = torch.mean(y.reshape(B, -1, C), dim=1, dtype=torch.float32)
+    def forward(ctx, y, b):
+        ctx.demean = b is None
         ctx.block_shape = y.shape
         ctx.dtype = y.dtype
-        return depth_to_space8_ndhwc(y, m.repeat(1, 512).contiguous())
+        return depth_to_space8_ndhwc(y, _exit_sub(y, b, 512))
 
     @staticmethod
     def backward(ctx, g):
-        g = g - g.mean(dim=(1, 2, 3), keepdim=True)
+        g, db = _exit_grads(ctx, g)
         B, d, h, w, c512 = ctx.block_shape
         t = g.reshape(B, d, 2, 2, 2, h, 2, 2, 2, w, 2, 2, 2, c512 // 512)
         t = t.permute(0, 1, 5, 9, 2, 6, 10, 3, 7, 11, 4, 8, 12, 13)
-        return t.reshape(ctx.block_shape).to(ctx.dtype)
+        return t.reshape(ctx.block_shape).to(ctx.dtype), db
+
+
+class _ExitInterleave(torch.autograd.Function):
+    """The stage path's last stage: (B, d, h, w, 8 C) block tensor -> f32
+    (B, 2d, 2h, 2w, C) on L-il, minus each channel's mean (`b` None:
+    `demean`) or plus the final bias `b`; the backward is L's
+    space-to-depth."""
+
+    @staticmethod
+    def forward(ctx, yb, b):
+        ctx.demean = b is None
+        ctx.dtype = yb.dtype
+        return depth_to_space_interleave_ndhwc(yb, _exit_sub(yb, b, 8),
+                                               out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        g, db = _exit_grads(ctx, g)
+        return space_to_depth2_ndhwc(g.to(ctx.dtype).contiguous()), db
 
 
 def _norm_act(cfg, y, residual=None):
@@ -144,6 +201,24 @@ def _tokenizer(cfg, p: Params, x, cd, plain):
         p["tokenizer.proj.bias"]
 
 
+def _tokenizer_v1(cfg, p: Params, x, plain):
+    """v1's patch embed: (B, D, H, W, Ci) f32 -> (B, d, h, w, E) f32, the
+    stride-p conv and the token LayerNorm (eps 1e-6)."""
+    w, b = p["tokenizer.proj.weight"], p["tokenizer.proj.bias"]
+    if plain:
+        grid = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b,
+                        stride=tuple(cfg.patch_embed_size))
+        grid = grid.permute(0, 2, 3, 4, 1)
+    else:
+        # the chain moves the data, which takes no gradient
+        xb = (space_to_depth_c1_ndhwc(x[..., 0].contiguous())
+              if x.shape[-1] == 1 else space_to_depth2_ndhwc(x))
+        for _ in range(int(round(math.log2(cfg.patch_embed_size[0]))) - 1):
+            xb = space_to_depth2_ndhwc(xb)
+        grid = torch.matmul(xb, _patch_embed_matrix(w)) + b
+    return _ln(p, "tokenizer.norm", grid, 1e-6)
+
+
 def _ln(p: Params, key, x, eps):
     return F.layer_norm(x, (x.shape[-1],), p[f"{key}.weight"],
                         p[f"{key}.bias"], eps)
@@ -180,31 +255,67 @@ def _attention(cfg, p: Params, base, h, cd, plain):
     return _linear(p, f"{base}.proj", o)
 
 
-def _decoder(cfg, p: Params, grid, cd, plain):
-    """`_decoder`: (B, d, h, w, E) -> f32 (B, 8d, 8h, 8w, C), demeaned (the
-    final bias cancels). Each stride-2 kernel-2 transposed conv is one GEMM
-    into block layout, sub-positions coarsest first."""
-    B, d, h, w, _ = grid.shape
-    y = grid.to(cd)
-    K = 1
+def _decoder_weights(p: Params, cd):
+    """Each stage's GEMM weight (ci, 8 co), columns (kd, kh, kw, co), in
+    `cd`, and its bias."""
     n = len([k for k in p if k.startswith("decoder.")
              and k.endswith(".weight")])
+    out = []
     for i in range(n):
-        wt, b = p[f"decoder.{i}.weight"], p[f"decoder.{i}.bias"]
+        wt = p[f"decoder.{i}.weight"]
         ci, co = wt.shape[:2]
-        w2 = wt.permute(0, 2, 3, 4, 1).reshape(ci, 8 * co).to(cd)
-        y = torch.matmul(y.reshape(B, d, h, w, K, ci), w2)
-        K *= 8
-        y = y.reshape(B, d, h, w, K, co)
-        if i < n - 1:
-            # jax.nn.gelu defaults to the tanh approximation
-            y = F.gelu(channel_layer_norm(y.float() + b, eps=1e-6),
-                       approximate="tanh").to(cd)
-    y = y.reshape(B, d, h, w, K * y.shape[-1])
-    if plain:
-        vol = depth_to_space8_ndhwc_plain(y)
-        return vol - vol.mean(dim=(1, 2, 3), keepdim=True)
-    return _Exit8Demean.apply(y.contiguous())
+        out.append((wt.permute(0, 2, 3, 4, 1).reshape(ci, 8 * co).to(cd),
+                    p[f"decoder.{i}.bias"]))
+    return out
+
+
+def _gelu_ln(y):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(channel_layer_norm(y, eps=1e-6), approximate="tanh")
+
+
+def _decoder(cfg, p: Params, grid, cd, plain):
+    """`_decoder`: (B, d, h, w, E) -> f32 (B, pd, ph, pw, C), out-norm
+    applied. Three stages run in block space (each stride-2 kernel-2
+    transposed conv one GEMM into block layout, sub-positions coarsest
+    first), any other number stage by stage."""
+    demean = _out_norm_mode(cfg.out_norm) in ("demean", "center")
+    stages = _decoder_weights(p, cd)
+    if len(stages) == 3:
+        B, d, h, w, _ = grid.shape
+        y = grid.to(cd)
+        K = 1
+        for i, (w2, b) in enumerate(stages):
+            ci, co = w2.shape[0], w2.shape[1] // 8
+            y = torch.matmul(y.reshape(B, d, h, w, K, ci), w2)
+            K *= 8
+            y = y.reshape(B, d, h, w, K, co)
+            if i < 2:
+                y = _gelu_ln(y.float() + b).to(cd)
+        y = y.reshape(B, d, h, w, K * y.shape[-1])
+        if plain:
+            vol = depth_to_space8_ndhwc_plain(y) + b
+        else:
+            vol = _Exit8.apply(y.contiguous(), None if demean else b)
+            if demean:
+                return vol
+    else:
+        y = grid.to(cd)
+        for i, (w2, b) in enumerate(stages):
+            yb = torch.matmul(y, w2)  # (B, d, h, w, 8 co) in cd
+            if i == len(stages) - 1:
+                break
+            y = (depth_to_space2_ndhwc_plain(yb) if plain
+                 else depth_to_space2(yb.contiguous()))
+            y = _gelu_ln(y.float() + b).to(cd)
+        if plain:
+            vol = depth_to_space2_ndhwc_plain(yb).float() + b
+        else:
+            vol = _ExitInterleave.apply(yb.contiguous(),
+                                        None if demean else b)
+            if demean:
+                return vol
+    return build_out_norm(cfg.out_norm, cfg.out_norm_eps)(vol)
 
 
 def primus_train_apply(
@@ -219,10 +330,6 @@ def primus_train_apply(
     `cfg.input_shape`, or (B, D, H, W)), differentiable with respect to
     every leaf of `params`. `plain=True` runs the f32 plain path."""
     check_train_supported(cfg)
-    if _out_norm_mode(cfg.out_norm) not in ("demean", "center"):
-        raise NotImplementedError(
-            "the ViT's train walk takes the 'demean' output norm, which "
-            "build_all sets")
     if x.dim() == 4:
         x = x[..., None]
     if tuple(x.shape[1:4]) != tuple(cfg.input_shape):
@@ -230,7 +337,9 @@ def primus_train_apply(
                          f" got {tuple(x.shape[1:4])}")
     cd = torch.float32 if plain else compute_dtype
     B = x.shape[0]
-    grid = _tokenizer(cfg, params, x.float().contiguous(), cd, plain)
+    x = x.float().contiguous()
+    grid = (_tokenizer(cfg, params, x, cd, plain) if cfg.version == "v2"
+            else _tokenizer_v1(cfg, params, x, plain))
     tokens = grid.reshape(B, cfg.num_tokens, cfg.embed_dim)
     if cfg.use_abs_pos_embed:
         tokens = tokens + params["pos_embed"]

@@ -21,7 +21,10 @@ the same computation on one rank, which every rank also runs:
 6. with `--train`, the trainer (`pretraining/train.train`) at the 6M
    topology's tiny config: 2 steps of a global batch of N items with
    validation at step 2, over N spawned ranks (`data_parallel_devices=N`)
-   against one device.
+   against one device;
+7. the data-parallel step of that tiny ViT (`netG="primus"`: the v2
+   tokenizer, and v1's patch embed at patch 4) against the single-device
+   step on the global batch.
 
 It prints `dryrun_multichip(N) ok: ...` with each loss's relative
 distance from its single-device run (and a `trainer ok` line after phase
@@ -35,12 +38,16 @@ features equaled one card's bit for bit (held to 1e-6: relative for the
 losses, mean |err| over the std for the features) and the trainer's
 step-2 loss read 3.7e-4 from one card's (held to 2e-3). The stitch sums
 in f32 on both routes and is held to 1e-4 of the features' largest value
-(read: 1.6e-7).
+(read: 1.6e-7). The ViT's mesh step (phase 7) is held to the same 1e-6:
+at world 1 both its losses equaled the unsharded step's bit for bit, on
+four H100s its v2 loss did and its v1 loss read 6.1e-8 from it (one f32
+ulp).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import tempfile
@@ -77,6 +84,10 @@ TINY_VIT = PrimusConfig(
     eva_numheads=4, patch_embed_size=(8, 8, 8), input_shape=(16, 16, 16),
     num_register_tokens=2, qk_norm=True, out_norm="demean",
     out_norm_eps=1e-2, in_eps=1e-2, tokenizer_base_features=8)
+# v1's patch embed at patch 4: the L-c1 + L chain, the stage decoder's L and
+# L-il exit
+TINY_VIT1 = dataclasses.replace(TINY_VIT, version="v1",
+                                patch_embed_size=(4, 4, 4))
 # (f32 on the CPU, bf16 kernels on the card; see the module docstring)
 TOL_LOSS = {torch.float32: 1e-5, torch.bfloat16: 1e-6}
 TOL_FEATS = {torch.float32: 1e-4, torch.bfloat16: 1e-6}
@@ -99,11 +110,16 @@ def _feature_err(got, ref, cd) -> float:
     return float((got - ref).abs().mean() / (ref.std() + 1e-8))
 
 
-def dp_step_losses(config: dict, mesh, dev, views, segs, seed: int):
+def dp_step_losses(config, mesh, dev, views, segs, seed: int):
     """(the data-parallel step's loss, the single-device step's loss on the
-    whole batch) of a tiny UNet at `config`, from one seeded state."""
-    plan = build_plan(UnetConfig(**config))
-    taps = (plan.encoder_idx[-1], plan.num_layers - 1)
+    whole batch) of a tiny UNet at `config` (a `UnetConfig`'s keywords) or
+    of the ViT at `config` (a `PrimusConfig`: its output volume the single
+    tap), from one seeded state."""
+    if isinstance(config, PrimusConfig):
+        plan, taps = config, (-1,)
+    else:
+        plan = build_plan(UnetConfig(**config))
+        taps = (plan.encoder_idx[-1], plan.num_layers - 1)
     cd = _compute_dtype(dev)
     kw = dict(tap_layers=taps, num_patches=16, nce_temperature=0.33,
               compute_dtype=cd)
@@ -121,7 +137,7 @@ def dp_step_losses(config: dict, mesh, dev, views, segs, seed: int):
 
 
 def run_rank(rank: int, world: int, dev: torch.device) -> dict:
-    """The five phases on this rank; returns each phase's numbers."""
+    """Phases 1-5 and 7 on this rank; returns each phase's numbers."""
     cd = _compute_dtype(dev)
     out = {}
     rng = np.random.default_rng(0)
@@ -180,6 +196,11 @@ def run_rank(rank: int, world: int, dev: torch.device) -> dict:
     # 5. data-parallel step of the dev topology
     out["dev_loss"], out["dev_loss_one"] = dp_step_losses(
         TINY_DEV, mesh, dev, views, segs, seed=4)
+
+    # 7. data-parallel step of the ViT, v2 and v1 tokenizers
+    for key, cfg in (("vit_loss", TINY_VIT), ("vit1_loss", TINY_VIT1)):
+        out[key], out[f"{key}_one"] = dp_step_losses(cfg, mesh, dev, views,
+                                                      segs, seed=6)
     return out
 
 
@@ -223,7 +244,7 @@ def _rel(a: float, b: float) -> float:
 def check(res: dict, cd: torch.dtype) -> list[str]:
     """The phases of one rank's results that miss their tolerance."""
     bad = []
-    for k in ("loss", "dev_loss"):
+    for k in ("loss", "dev_loss", "vit_loss", "vit1_loss"):
         one = res[f"{k}_one"]
         if not (np.isfinite(res[k])
                 and abs(res[k] - one) <= TOL_LOSS[cd] * abs(one)):
@@ -237,7 +258,7 @@ def check(res: dict, cd: torch.dtype) -> list[str]:
 
 
 def dryrun(n: int, device: str = "cuda", with_train: bool = False) -> dict:
-    """Run the five phases on n ranks, and the trainer's with
+    """Run phases 1-5 and 7 on n ranks, and the trainer's with
     `with_train`; returns rank 0's numbers (and the trainer's under
     'train'), raises if any rank or the trainer misses a tolerance."""
     results = spawn(run_rank, n, device)
@@ -253,7 +274,11 @@ def dryrun(n: int, device: str = "cuda", with_train: bool = False) -> dict:
           f"vit_window_err={r['vit_window_err']:.2e} "
           f"dev_loss={r['dev_loss']:.4f} "
           f"loss_rel={_rel(r['loss'], r['loss_one']):.2e} "
-          f"dev_loss_rel={_rel(r['dev_loss'], r['dev_loss_one']):.2e}",
+          f"dev_loss_rel={_rel(r['dev_loss'], r['dev_loss_one']):.2e} "
+          f"vit_loss={r['vit_loss']:.4f} "
+          f"vit_loss_rel={_rel(r['vit_loss'], r['vit_loss_one']):.2e} "
+          f"vit1_loss={r['vit1_loss']:.4f} "
+          f"vit1_loss_rel={_rel(r['vit1_loss'], r['vit1_loss_one']):.2e}",
           flush=True)
     if with_train:
         t = r["train"] = trainer_losses(n, device)

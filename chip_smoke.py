@@ -71,7 +71,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
      its plain version on the step's own tensors, and each attention's
      (dq, dk, dv) through the whole backward against the plain attention
      backward from the same forward; the output volume against the plain
-     f32 path on the smooth and the noisy batch;
+     f32 path on the smooth and the noisy batch; then `[vit1-train-step128]`
+     (phase 8b): the same widths with the v1 tokenizer at patch 8 and 16
+     (`init_train_state` / `build_train_step`, as `build_all` builds v2),
+     five steps each with the same gates, the first step's peak memory and
+     its launches of L-c1, L, V1 (patch 8) or L-il (patch 16), V3, dkv and
+     dq;
   9. the trainer loop, input pipeline included: `[train-loop]`, the port's
      `pretraining.train.train` at `PretrainConfig()` over seeded 160^3
      subjects given as a mapping (three to train on, one to validate; each
@@ -183,6 +188,9 @@ chip_options.json`); `--conv-time` runs phase 1, then times T-w alone at
 the dev step's 128^3 96 -> 32 and T-w, K1 and T-x at the 6M step's 128^3
 16 -> 16 in rounds (it reads only the wrappers, so a copy of this script
 also measures an earlier checkout);
+`--vit1-train` runs phase 1, L-c1's rows, then phase 8b alone
+(`chiprun_out/chip_vit1_train.json`; with `--profile`, a profiled step of
+each patch after its phase; `--profile` alone profiles them too);
 `--parallel` runs phase 1, K1's D-valid rows, then phase 12 alone (the
 unsharded steps it compares with run there; `chiprun_out/
 chip_parallel.json`);
@@ -349,6 +357,31 @@ def cuda_ms(fn, *, min_ms: float = 30.0, max_reps: int = 200) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, *, reps: int = 50) -> float:
+    """Median device time of one `fn()` from CUDA events, with the L2 cache
+    emptied before each (a 256 MiB write): the time of a kernel whose input
+    comes from DRAM, as on the path, where a loop of calls to a
+    microsecond-scale kernel (`cuda_ms`) would keep its input in the 50 MB
+    L2 or time the host's dispatch instead. The write runs ahead on the
+    stream, so the host's set-up of the call hides behind it."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -1103,24 +1136,32 @@ def check_d2s_sub(kr8, torch, dev, gen, B, d, C, which, in_dtype,
 
 def check_c1(kr8, torch, dev, gen, B, S, dtype):
     """space_to_depth_c1_ndhwc: (B, S^3) -> (B, (S/2)^3, 8), against its
-    plain version. Exact: both move the same values."""
+    plain version. Exact: both move the same values. The kernel, its plain
+    version and the permute are timed from DRAM (`cold_ms`); the loop of
+    calls `cuda_ms` times (L2-resident input, or the host's dispatch of
+    each call) is printed beside it."""
     x = torch.randn((B, S, S, S), generator=gen, device=dev).to(dtype)
     fn = lambda: kr8.space_to_depth_c1_ndhwc(x)  # noqa: E731
     plain = lambda: kr8.space_to_depth_c1_ndhwc_plain(x)  # noqa: E731
+    h = S // 2
+    lib = lambda: x.view(B, h, 2, h, 2, h, 2).permute(  # noqa: E731
+        0, 1, 3, 5, 2, 4, 6).contiguous()
     got, ref = fn(), plain()
     torch.cuda.synchronize()
     err, rel = rel_err(got, ref)
-    ms = cuda_ms(fn)
-    plain_ms = cuda_ms(plain)
-    h = S // 2
-    lib_ms = cuda_ms(lambda: x.view(B, h, 2, h, 2, h, 2).permute(
-        0, 1, 3, 5, 2, 4, 6).contiguous())
+    ms, plain_ms, lib_ms = cold_ms(fn), cold_ms(plain), cold_ms(lib)
+    loop_ms, lib_loop_ms = cuda_ms(fn), cuda_ms(lib)
     b_ms, b_by = bound(0.0, 2.0 * x.numel() * x.element_size())
     tag = {torch.bfloat16: "bf16", torch.float32: "f32"}
     return dict(shape=f"B{B} {S}^3 {tag[dtype]} -> {h}^3x8", max_abs_err=err,
                 rel_err=rel, tol=TOL_EXACT, ok=rel <= TOL_EXACT, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, loop_ms=loop_ms, library_loop_ms=lib_loop_ms,
+                plan=f"16-byte output runs, from DRAM (L2 emptied before "
+                     f"each launch, median of 50): {b_ms / ms:.0%} of the "
+                     f"bound, {ms / lib_ms:.2f}x the permute; a loop of "
+                     f"calls: {loop_ms:.4f} ms, the permute's "
+                     f"{lib_loop_ms:.4f}")
 
 
 def conv_backward_library(torch, F, x, dy, w, pad, mask, stride2=False):
@@ -1709,6 +1750,31 @@ def main(argv) -> int:
             json.dump(report, f, indent=1)
         return 0
 
+    if "--vit1-train" in argv:
+        # phase 1, L-c1's rows, then phase 8b alone
+        gen = torch.Generator(device=dev).manual_seed(0)
+        checks = {"space_to_depth_c1_ndhwc": [
+            check_c1(kr8, torch, dev, gen, 2, 128, dtype)
+            for dtype in (torch.float32, torch.bfloat16)]}
+        failed = log_kernel_rows(checks)
+        if failed:
+            raise RuntimeError(f"kernel disagrees with its plain version: "
+                               f"{failed}")
+        paths = {}
+        report["checks"] = checks
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        for patch in (8, 16):
+            report[f"vit1_train_p{patch}"] = run_vit1_train(
+                torch, dev, wrappers, paths, ka, patch)
+            if "--profile" in argv:
+                report[f"profile_vit1_train_p{patch}"] = profile_train(
+                    torch, dev, out_dir, netG=f"primus_v1_p{patch}")
+        report["paths"] = paths
+        with open(os.path.join(out_dir, "chip_vit1_train.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        return 0
+
     if "--options" in argv:
         # phase 1, then phase 14 alone: the new kernel modes, the options
         # paths and steps
@@ -1983,6 +2049,9 @@ def main(argv) -> int:
         report["profile_train"] = profile_train(torch, dev, out_dir)
         report["profile_vit_train"] = profile_train(torch, dev, out_dir,
                                                     netG="primus")
+        for patch in (8, 16):
+            report[f"profile_vit1_train_p{patch}"] = profile_train(
+                torch, dev, out_dir, netG=f"primus_v1_p{patch}")
         report["profile_dev_train"] = profile_train(torch, dev, out_dir,
                                                     netG="dev")
         report["profile_train_loop"] = profile_train_loop(
@@ -2110,6 +2179,10 @@ def main(argv) -> int:
 
     # phase 8: the 26M ViT's pretraining step
     report["vit_train"] = run_vit_train(torch, dev, wrappers, paths, ka)
+    # phase 8b: its v1 tokenizer at patch 8 and 16
+    for patch in (8, 16):
+        report[f"vit1_train_p{patch}"] = run_vit1_train(
+            torch, dev, wrappers, paths, ka, patch)
 
     # phase 9: the trainer loop (input pipeline included), its multi-step
     # gate against the plain route, and the ViT's loop
@@ -2731,18 +2804,24 @@ def train_batch(torch, dev, S: int, seed: int = 12, noisy: bool = False):
 def profile_train(torch, dev, out_dir, netG="unet"):
     """Kernel time by name and the device's busy share over one pretraining
     step at `PretrainConfig(netG=netG)` (`netG="dev"`: the dev UNet's
-    `dev_pretrain_config()`), from torch.profiler."""
+    `dev_pretrain_config()`; `"primus_v1_p8"` / `"primus_v1_p16"`: the v1
+    ViT of `vit1_train_setup`), from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from anatomix_tpu_torch.pretraining.config import PretrainConfig
     from anatomix_tpu_torch.pretraining.train import build_all
 
-    cfg = (dev_pretrain_config() if netG == "dev"
-           else PretrainConfig(netG=netG))
-    tag = {"unet": "train_step128", "primus": "vit_train_step128",
-           "dev": "dev_train_step128"}[netG]
-    _, _, state, step = build_all(cfg, 1000, device=dev)
+    if netG.startswith("primus_v1_p"):  # the v1 ViT at patch 8 or 16
+        patch = int(netG[len("primus_v1_p"):])
+        cfg, _, _, state, step = vit1_train_setup(torch, dev, patch)
+        tag = f"vit1_train_step128_p{patch}"
+    else:
+        cfg = (dev_pretrain_config() if netG == "dev"
+               else PretrainConfig(netG=netG))
+        tag = {"unet": "train_step128", "primus": "vit_train_step128",
+               "dev": "dev_train_step128"}[netG]
+        _, _, state, step = build_all(cfg, 1000, device=dev)
     views, segs = train_batch(torch, dev, cfg.crop_size)
     sampler = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa
     state, _ = step(state, views, segs, sampler())
@@ -3486,6 +3565,161 @@ def run_vit_train(torch, dev, wrappers, paths, ka):
     return dict(losses=losses, step_ms=step_ms, median_step_ms=med_ms,
                 peak_gib=peak, launches_per_step=c, loss_rel=loss_rel,
                 floor=floor, first_step=chk, forward=fwd)
+
+def vit1_train_setup(torch, dev, patch):
+    """`PretrainConfig(netG="primus")`, the v1 ViT at the `anatomix-dev-vit`
+    widths with patch `patch`^3 at its crop, its tap, seeded state and
+    train step (bf16), built as `build_all` builds the v2 one."""
+    from anatomix_tpu_torch.models.registry import ANATOMIX_VARIANTS
+    from anatomix_tpu_torch.models.vit3d import PrimusConfig
+    from anatomix_tpu_torch.pretraining.config import PretrainConfig
+    from anatomix_tpu_torch.pretraining.train_step import (
+        build_train_step,
+        init_train_state,
+    )
+
+    cfg = PretrainConfig(netG="primus")
+    vcfg = PrimusConfig(**dict(
+        ANATOMIX_VARIANTS["anatomix-dev-vit"]["vit_kwargs"], version="v1",
+        patch_embed_size=(patch,) * 3, input_shape=(cfg.crop_size,) * 3))
+    taps = (-1,)
+    state = init_train_state(
+        vcfg, torch.Generator().manual_seed(cfg.seed), tap_layers=taps,
+        netf_nc=cfg.netF_nc, n_mlps=cfg.n_mlps, device=dev)
+    step = build_train_step(
+        vcfg, tap_layers=taps, num_patches=cfg.num_patches,
+        nce_temperature=cfg.nce_T, lambda_nce=cfg.lambda_NCE, lr=cfg.lr,
+        beta1=cfg.beta1, beta2=cfg.beta2, weight_decay=cfg.weight_decay,
+        compute_dtype=torch.bfloat16)
+    return cfg, vcfg, taps, state, step
+
+
+def run_vit1_train(torch, dev, wrappers, paths, ka, patch):
+    """Phase 8b: the v1 ViT's pretraining step (the patch-embed tokenizer:
+    L-c1 + L chain and an f32 GEMM; patch 8: the block-space decoder and
+    V1; patch 16: the stage decoder's L and the L-il exit) at the
+    `anatomix-dev-vit` widths and depth (embed 396, 12 blocks, 6 heads, 8
+    registers, 32 out, demean) with seeded weights, crop 128^3 and
+    `PretrainConfig(netG="primus")`'s batch and NCE settings, built through
+    `init_train_state` / `build_train_step` (`build_all` builds v2, as in
+    the JAX package): five steps on `[vit-train-step128]`'s batch, then the
+    first step's loss and attention gradients against the plain paths and
+    the output volume against the plain f32 path."""
+    from anatomix_tpu_torch.models.vit3d import Primus
+    from anatomix_tpu_torch.models.vit3d.primus_train import (
+        primus_train_apply,
+    )
+    from anatomix_tpu_torch.pretraining.train_step import NCEOptions
+
+    tag = f"vit1-train-step128 p{patch}"
+    cfg, vcfg, taps, state0, step = vit1_train_setup(torch, dev, patch)
+    S = cfg.crop_size
+    views, segs = train_batch(torch, dev, S)
+    n_g = sum(v.numel() for v in state0.params_g.values())
+    log(f"[{tag}] v1 patch {patch}^3: embed {vcfg.embed_dim}, "
+        f"{vcfg.eva_depth} blocks, {vcfg.eva_numheads} heads, N "
+        f"{vcfg.num_tokens + vcfg.num_register_tokens}, crop {S}^3 x batch "
+        f"{cfg.batch_size} (2 views), out {vcfg.num_classes} ch, "
+        f"{cfg.num_patches} patches, {n_g} G parameters, "
+        f"{len(state0.params_g)} G leaves")
+    sampler = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa
+    state, losses, step_ms = state0, [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(5):
+        if i == 0:
+            reset_counts(wrappers)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, views, segs, sampler())
+        end.record()
+        torch.cuda.synchronize()
+        if i == 0:
+            c = paths[f"vit1_train_p{patch}"] = counts(wrappers)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    med_ms = statistics.median(step_ms[1:])
+    log(f"[{tag}] losses {losses}; step ms {step_ms} (median of steps 2-5 "
+        f"{med_ms:.4f} ms); first step's peak {peak:.2f} GiB; launches per "
+        f"step {c}; {nvidia_smi()}")
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        raise RuntimeError(f"{tag}: non-finite loss {losses}")
+    depth = vcfg.eva_depth
+    n_up = patch.bit_length() - 1
+    # the tokenizer: L-c1, then log2(p) - 1 L; V3, dkv and dq once per
+    # block; patch 8: the V1 exit; otherwise log2(p) - 1 depth-to-space L
+    # and the L-il exit forward, their space-to-depth L backward
+    want = {"space_to_depth_c1_ndhwc": 1, "flash_attention": depth,
+            "flash_attention_bwd_dkv": depth, "flash_attention_bwd_dq": depth,
+            "conv3x3x3_ndhwc": 0, "conv_down2_ndhwc": 0,
+            "conv3x3x3_wgrad_ndhwc": 0, "conv3x3x3_dgrad_ndhwc": 0}
+    if n_up == 3:
+        want.update({"space_to_depth2_ndhwc": n_up - 1,
+                     "depth_to_space8_ndhwc": 1, "depth_to_space2_ndhwc": 0,
+                     "depth_to_space_interleave_ndhwc": 0})
+    else:
+        want.update({"space_to_depth2_ndhwc": 2 * (n_up - 1) + 1,
+                     "depth_to_space2_ndhwc": n_up - 1,
+                     "depth_to_space_interleave_ndhwc": 1,
+                     "depth_to_space8_ndhwc": 0})
+    if any(c[k] != v for k, v in want.items()):
+        raise RuntimeError(f"{tag}: launches {c}, want {want}")
+    del state
+
+    kw = dict(tap_layers=taps, num_patches=cfg.num_patches,
+              nce=NCEOptions(temperature=cfg.nce_T))
+    chk = attention_grad_check(torch, ka, vcfg, state0, views, segs, sampler,
+                               kw)
+    loss_rel = abs(losses[0] - chk["loss_plain"]) / abs(chk["loss_plain"])
+    errs = chk["launch_errs"]
+    worst = {n: max(g[n] for g in chk["attention_grads"])
+             for n in ("dq", "dk", "dv")}
+    log(f"[{tag}] first loss {losses[0]:.6f} (nce_forward on the kernels "
+        f"{chk['loss_kernels']!r}, with the plain attention backward "
+        f"{chk['loss_same_forward']!r}) vs plain f32 path "
+        f"{chk['loss_plain']:.6f}: rel {loss_rel:.3e} (tol "
+        f"{TOL_TRAIN_LOSS}); this step's {len(errs['dkv'])} dkv and "
+        f"{len(errs['dq'])} dq launches vs their plain versions: max rel "
+        f"{max(errs['dkv']):.3e}, {max(errs['dq']):.3e} (tol "
+        f"{TOL_CONV_BF16}); each attention's gradients vs the plain "
+        f"attention backward from the same forward, mean|err|/std (tol "
+        f"{TOL_TRAIN_DATTN}): worst {worst}")
+    if not loss_rel < TOL_TRAIN_LOSS:
+        raise RuntimeError(f"{tag}: loss {losses[0]} vs {chk['loss_plain']}")
+    if (len(errs["dkv"]), len(errs["dq"])) != (depth, depth):
+        raise RuntimeError(f"{tag}: recorded {errs}")
+    if not (max(errs["dkv"]) < TOL_CONV_BF16
+            and max(errs["dq"]) < TOL_CONV_BF16):
+        raise RuntimeError(f"{tag}: kernel errors {errs}")
+    if not max(worst.values()) < TOL_TRAIN_DATTN:
+        raise RuntimeError(f"{tag}: attention gradients "
+                           f"{chk['attention_grads']} over {TOL_TRAIN_DATTN}")
+    fwd = forward_check(torch, dev, vcfg, state0.params_g, Primus,
+                        primus_train_apply, views,
+                        train_batch(torch, dev, S, noisy=True)[0])
+    log(f"[{tag}] output volume vs the plain f32 path, mean|err|/std "
+        f"(max/max): " + "; ".join(
+            f"{k}: {v['mean_err_over_std']:.3e} "
+            f"({v['max_err_over_max']:.3e})" for k, v in fwd.items()))
+    for batch in ("smooth", "noisy"):
+        e = fwd[f"step_{batch}"]["mean_err_over_std"]
+        e_inf = fwd[f"inference_{batch}"]["mean_err_over_std"]
+        e_b = fwd[f"plain_bf16_{batch}"]["mean_err_over_std"]
+        two_part_gate(f"{tag} step, {batch} batch", e, e_b)
+        two_part_gate(f"{tag} inference, {batch} batch", e_inf, e_b)
+        if not e <= TOL_TRAIN_VS_INFER * e_inf:
+            raise RuntimeError(f"{tag}: the step's output on the {batch} "
+                               f"batch {e} vs the inference path's {e_inf}")
+        if not fwd[f"plain_paths_{batch}"]["mean_err_over_std"] < \
+                TOL_CONV_F32:
+            raise RuntimeError(f"{tag}: plain paths differ {fwd}")
+    del state0
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_ms=step_ms, median_step_ms=med_ms,
+                peak_gib=peak, launches_per_step=c, loss_rel=loss_rel,
+                first_step=chk, forward=fwd)
 
 # -----------------------------------------------------------------------------
 # the trainer loop

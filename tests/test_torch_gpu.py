@@ -733,9 +733,12 @@ def test_fold_kernel_raises_outside_envelope(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 16, 8, 12), (1, 6, 4, 2)])
+@pytest.mark.parametrize("shape", [(2, 16, 8, 12), (1, 6, 4, 2),
+                                   (3, 12, 10, 16), (2, 8, 4, 64)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_space_to_depth_c1_kernel_matches_plain(cuda, shape, dtype):
+    """Bit for bit against the plain version: the 16-byte-run route (any
+    width, aligned pointers) and the scalar route (an odd offset)."""
     from anatomix_tpu_torch.kernels import reshuffle as kr
 
     g = torch.Generator(device=cuda).manual_seed(12)

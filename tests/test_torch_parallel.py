@@ -330,7 +330,8 @@ def test_spawn_fails_a_collective_that_outwaits_the_group_timeout():
 @pytest.mark.parametrize("n", [2, 4])
 def test_dryrun_on_cpu_ranks(n):
     """`python -m anatomix_tpu_torch.parallel.dryrun --n N --device cpu`:
-    the five phases, each held against one rank."""
+    phases 1-5 and 7 (the ViT's mesh step, v2 and v1), each held against
+    one rank."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     out = subprocess.run(
@@ -340,6 +341,7 @@ def test_dryrun_on_cpu_ranks(n):
     assert out.returncode == 0, out.stderr[-3000:]
     line = out.stdout.strip().splitlines()[-1]
     assert line.startswith(f"dryrun_multichip({n}) ok: loss=")
+    assert "vit_loss_rel=" in line and "vit1_loss_rel=" in line
     assert TINY["num_downs"] == 2
 
 

@@ -148,19 +148,23 @@ def test_dp_loss_and_grads_match_one_rank(tiny, fg_mask):
                 assert float(np.abs(g - r).max()) <= tol * net, k
 
 
-def test_dp_vit_steps_match_one_rank():
+@pytest.mark.parametrize("version", ["v2", "v1"])
+def test_dp_vit_steps_match_one_rank(version):
     """The ViT (`netG="primus"`, a small Primus: embed 32, one block, 16^3
-    crops) over 2 ranks, 2 steps on a global batch of 2 pairs with 64
-    patches: the losses and gradient norms of the single-device steps
-    within 1e-5 (the projector's batch norms reduce over the group)."""
+    crops; the v2 tokenizer at patch 8, or v1's patch embed at patch 4 with
+    the stage decoder) over 2 ranks, 2 steps on a global batch of 2 pairs
+    with 64 patches: the losses and gradient norms of the single-device
+    steps within 1e-5 (the projector's batch norms reduce over the
+    group)."""
     from anatomix_tpu_torch.models.vit3d import PrimusConfig
 
+    patch = 8 if version == "v2" else 4
     cfg = PrimusConfig(input_channels=1, num_classes=4, embed_dim=32,
                        eva_depth=1, eva_numheads=2,
-                       patch_embed_size=(8, 8, 8), input_shape=(16, 16, 16),
-                       num_register_tokens=2, qk_norm=True,
-                       out_norm="demean", scale_attn_inner=True,
-                       init_values=0.1)
+                       patch_embed_size=(patch,) * 3,
+                       input_shape=(16, 16, 16), num_register_tokens=2,
+                       qk_norm=True, out_norm="demean", scale_attn_inner=True,
+                       init_values=0.1, version=version)
     rng = np.random.default_rng(8)
     views = rng.standard_normal((2, 2, 16, 16, 16, 1)).astype(np.float32)
     segs = rng.integers(0, 4, (2, 16, 16, 16, 1)).astype(np.int32)

@@ -93,14 +93,21 @@ def _leaf_errors(got, ref):
             for (k, g), (_, r) in zip(ts.tree_items(got), items)}
 
 
+def _strong(tree):
+    """`tree`'s arrays without JAX's weak types (LayerScale's `jnp.full`
+    makes one, a step's output has none): a jitted step fed its own output
+    then traces and compiles once, not at every step."""
+    return jax.tree_util.tree_map(lambda a: jnp.array(np.asarray(a)), tree)
+
+
 def _vit():
     """JAX's train state of the small ViT (its own init), the port's state
     carried from it, and a seeded batch."""
     jcfg = JPrimusConfig(**SMALL)
     cfg = PrimusConfig(**SMALL)
-    jstate = jts.init_train_state(
+    jstate = _strong(jts.init_train_state(
         jcfg, jax.random.PRNGKey(0), tap_layers=(-1,), num_patches=P_ALL,
-        netf_nc=16, lr=1e-3)
+        netf_nc=16, lr=1e-3))
     rng = np.random.default_rng(5)
     views = rng.standard_normal((1, 2, 16, 16, 8, 1)).astype(np.float32)
     segs = rng.integers(0, 4, (1, 16, 16, 8, 1)).astype(np.int32)
@@ -163,6 +170,16 @@ def _f64_grads(vit):
 
 
 vit = pytest.fixture(scope="module", name="vit")(_vit)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's side: the suite runs several
+    workers, and many threads on small ops only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

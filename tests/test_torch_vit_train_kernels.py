@@ -29,13 +29,17 @@ from anatomix_tpu.ops.conv import conv3d as jconv3d
 from anatomix_tpu_torch.kernels import attention as ka
 from anatomix_tpu_torch.kernels import conv_down as kd
 from anatomix_tpu_torch.kernels.conv_train import conv3x3x3_train
-from anatomix_tpu_torch.kernels.reshuffle import depth_to_space8_ndhwc_plain
+from anatomix_tpu_torch.kernels.reshuffle import (
+    depth_to_space2_ndhwc_plain,
+    depth_to_space8_ndhwc_plain,
+)
 from anatomix_tpu_torch.models.vit3d import (
     PrimusConfig,
     from_jax_primus_params,
 )
 from anatomix_tpu_torch.models.vit3d.primus_train import (
-    _Exit8Demean,
+    _Exit8,
+    _ExitInterleave,
     primus_train_apply,
 )
 from anatomix_tpu_torch.ops.conv import pack_conv_weight, unpack_conv_weight
@@ -298,7 +302,7 @@ def test_exit8_function_gradient(shape):
     y = _t(rng.standard_normal((B, d, h, w, 512 * C)))
     g = _t(rng.standard_normal((B, 8 * d, 8 * h, 8 * w, C)))
     a = y.clone().requires_grad_()
-    out = _Exit8Demean.apply(a)
+    out = _Exit8.apply(a, None)
     (got,) = torch.autograd.grad(out, a, g)
     b = y.clone().requires_grad_()
     ref_out = depth_to_space8_ndhwc_plain(b)
@@ -307,6 +311,39 @@ def test_exit8_function_gradient(shape):
     torch.testing.assert_close(out.detach(), ref_out.detach(), rtol=1e-6,
                                atol=1e-6)
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("demean", [True, False])
+@pytest.mark.parametrize("factor", [8, 2])
+def test_exit_functions_gradient(factor, demean):
+    """The V1 exit (`_Exit8`, factor 8) and the stage path's L-il exit
+    (`_ExitInterleave`, factor 2), minus the channel mean or plus the final
+    bias, against autograd through the plain reshuffle, the bias add and
+    torch's demean: the output, the block tensor's gradient and the bias's."""
+    B, d, h, w, C = 2, 1, 2, 3, 3
+    rng = np.random.default_rng(11)
+    groups = factor ** 3
+    y = _t(rng.standard_normal((B, d, h, w, groups * C)))
+    bias = _t(rng.standard_normal(C))
+    g = _t(rng.standard_normal((B, factor * d, factor * h, factor * w, C)))
+    fn = _Exit8 if factor == 8 else _ExitInterleave
+    plain = (depth_to_space8_ndhwc_plain if factor == 8
+             else depth_to_space2_ndhwc_plain)
+    a, ab = y.clone().requires_grad_(), bias.clone().requires_grad_()
+    out = fn.apply(a, None if demean else ab)
+    r, rb = y.clone().requires_grad_(), bias.clone().requires_grad_()
+    ref_out = plain(r) + rb
+    if demean:
+        ref_out = ref_out - ref_out.mean(dim=(1, 2, 3), keepdim=True)
+        got = torch.autograd.grad(out, a, g)
+        ref = torch.autograd.grad(ref_out, r, g)
+    else:
+        got = torch.autograd.grad(out, (a, ab), g)
+        ref = torch.autograd.grad(ref_out, (r, rb), g)
+    torch.testing.assert_close(out.detach(), ref_out.detach(), rtol=1e-6,
+                               atol=1e-6)
+    for gg, rr in zip(got, ref):
+        torch.testing.assert_close(gg, rr, rtol=1e-5, atol=1e-5)
 
 
 SMALL = dict(input_channels=1, num_classes=4, embed_dim=32, eva_depth=1,
