@@ -9,6 +9,11 @@ reference's Gaussian-blended sliding windows (`sliding`). The ViT
 (`PrimusConfig`, `models/vit3d`) is bound to its 128^3 input and always
 runs the sliding windows. On a `parallel.Mesh` of ranks, `sliding` shards
 the windows and `full` the volume (`make_feature_extractor(mesh=...)`).
+`record_function` ranges (opened only while a profiler runs,
+`utils/profiling.annotate`): `extract/input` around the volume's
+host-to-device copy (and `full`'s pad to the pooling stride) in every
+extractor; `ops/sliding_window.py` and `models/unet_fused.py` open theirs
+below it.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from anatomix_tpu_torch.ops.sliding_window import (
     sliding_window_inference,
 )
 from anatomix_tpu_torch.parallel.spatial import gather_d
+from anatomix_tpu_torch.utils.profiling import annotate
 
 
 def fold_batchnorm(plan: UnetPlan, state_dict: dict[str, torch.Tensor]):
@@ -101,7 +107,8 @@ def spatial_sharded_unet(plan, state_dict, mesh, *, axis: str = "space",
 
     @torch.inference_mode()
     def run(volume):
-        x = torch.as_tensor(volume, dtype=torch.float32, device=dev)
+        with annotate("extract/input"):
+            x = torch.as_tensor(volume, dtype=torch.float32, device=dev)
         D = x.shape[1]
         if D % (n * stride):
             raise ValueError(f"D={D} must be divisible by space axis ({n}) "
@@ -155,7 +162,8 @@ def _make_vit_extractor(cfg: PrimusConfig, state_dict, *, sw_batch_size,
 
     @torch.inference_mode()
     def extract(volume):
-        x = torch.as_tensor(volume, dtype=torch.float32, device=dev)
+        with annotate("extract/input"):
+            x = torch.as_tensor(volume, dtype=torch.float32, device=dev)
         emit = "fold" if scatter_kernel_eligible(
             max(x.shape[3], cfg.input_shape[2]), cfg.input_shape[2],
             cfg.num_classes) else "spatial"
@@ -268,16 +276,19 @@ def make_feature_extractor(
 
     @torch.inference_mode()
     def extract(volume):
-        x = torch.as_tensor(volume, dtype=torch.float32, device=dev)
-        if strategy in ("full", "full_tiled"):
-            pads, crops = [], []
-            for s in x.shape[1:1 + dim]:
-                pad = (-s) % stride
-                pads.append((pad // 2, pad - pad // 2))
-                crops.append(slice(pad // 2, pad // 2 + s))
-            if any(p != (0, 0) for p in pads):
-                x = F.pad(x, (0, 0) + tuple(
-                    v for p in reversed(pads) for v in p))
+        full = strategy in ("full", "full_tiled")
+        with annotate("extract/input"):
+            x = torch.as_tensor(volume, dtype=torch.float32, device=dev)
+            if full:
+                pads, crops = [], []
+                for s in x.shape[1:1 + dim]:
+                    pad = (-s) % stride
+                    pads.append((pad // 2, pad - pad // 2))
+                    crops.append(slice(pad // 2, pad // 2 + s))
+                if any(p != (0, 0) for p in pads):
+                    x = F.pad(x, (0, 0) + tuple(
+                        v for p in reversed(pads) for v in p))
+        if full:
             tile_counts = None
             if strategy == "full_tiled":
                 tile_counts = (1,) * off + tuple(

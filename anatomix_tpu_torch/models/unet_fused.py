@@ -11,7 +11,10 @@ kernel of `kernels/conv.py` and keeps its bias. The exit conv stores f32.
   `act="none"`; the statistics are torch reductions
   (`ops/norms.instance_norm_stats`, global or per spatial tile) and the
   `norm_apply_ndhwc` kernel applies them together with the following
-  activation, as `_following_act` routes it in the JAX package.
+  activation, as `_following_act` routes it in the JAX package. The
+  statistics and their fold into the affine run in the `record_function`
+  range `unet/norm_stats` (opened only while a profiler runs,
+  `utils/profiling.annotate`).
   The norm divides each channel by its std, which would magnify the bf16
   rounding of a conv output whose mean is large against its std, so a
   conv that feeds a live norm stores f32. On a smooth volume the std is
@@ -91,6 +94,7 @@ from anatomix_tpu_torch.ops.norms import (
 )
 from anatomix_tpu_torch.ops.pool import avg_pool, max_pool
 from anatomix_tpu_torch.ops.resize import upsample2x
+from anatomix_tpu_torch.utils.profiling import annotate
 
 
 def _following_act(plan: UnetPlan, idx: int) -> str | None:
@@ -245,8 +249,9 @@ def _norm_apply(feat, p, *, eps, tile_counts, out_dtype, post_res=False):
         s = p["s"].reshape(1, 1, 1, 1, -1).expand_as(a)
     else:
         maps_tiles = tuple(tile_counts or (1, 1, 1))
-        mean, var = instance_norm_stats(feat, maps_tiles)
-        a, s = fold_affine(mean, var, eps, p["scale"], p["bias"])
+        with annotate("unet/norm_stats"):
+            mean, var = instance_norm_stats(feat, maps_tiles)
+            a, s = fold_affine(mean, var, eps, p["scale"], p["bias"])
     maps = tile_maps(feat.shape[1:4], maps_tiles, feat.device)
     return norm_apply_ndhwc(feat, a.contiguous(), s.contiguous(), maps,
                             act=p["act"], slope=p["slope"],

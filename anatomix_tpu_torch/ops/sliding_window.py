@@ -10,7 +10,13 @@ chunks of `sw_batch_size`; every chunk is stitched into the `(D, H, W, C)`
 f32 canvas by the `blend_scatter` kernel (its plain version on the CPU).
 A window function may return its windows as the folded rows `(B, r0, r1,
 r2 C / 128, 128)` (the ViT's fold exit, f32 or bf16): they are the same
-bytes as `(B, r0, r1, r2, C)`, taken as a view.
+bytes as `(B, r0, r1, r2, C)`, taken as a view. `record_function` ranges
+(opened only while a profiler runs, `utils/profiling.annotate`):
+`sliding/setup` (the pad to roi, window starts, the Gaussian maps, the
+blend weight map, the copies to the device and the canvas), then per chunk
+`sliding/gather` (the stack of its windows) and `sliding/stitch` (the cast
+and `blend_scatter`), and `sliding/finish` (the all-reduce on a mesh,
+`acc / weight` and the crop); the window function runs outside them.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from anatomix_tpu_torch.kernels.scatter import blend_scatter
+from anatomix_tpu_torch.utils.profiling import annotate
 
 
 def gaussian_importance_axes(roi_size, sigma_scale: float = 0.25):
@@ -135,68 +142,73 @@ def sliding_window_inference(
         raise ValueError("volume must be (1, D, H, W, C)")
     roi_size = tuple(roi_size)
     dev = volume.device
-    padded, crops = pad_to_roi(volume, roi_size)
-    spatial = tuple(padded.shape[1:4])
+    with annotate("sliding/setup"):
+        padded, crops = pad_to_roi(volume, roi_size)
+        spatial = tuple(padded.shape[1:4])
 
-    starts_np = compute_window_starts(spatial, roi_size, overlap)
-    if mode == "gaussian":
-        axes, minv = gaussian_importance_axes(roi_size, sigma_scale)
-        imp_np = gaussian_importance_map(roi_size, sigma_scale)
-    elif mode == "constant":
-        axes, minv = [np.ones(r) for r in roi_size], 0.0
-        imp_np = np.ones(roi_size, np.float32)
-    else:
-        raise ValueError(f"Unsupported blend mode: {mode}")
-    hi = np.asarray(spatial) - np.asarray(roi_size)
-    if (starts_np < 0).any() or (starts_np > hi).any():
-        raise ValueError("window starts out of bounds")
-    weight = blend_weight_map(spatial, starts_np, imp_np, device=dev)
+        starts_np = compute_window_starts(spatial, roi_size, overlap)
+        if mode == "gaussian":
+            axes, minv = gaussian_importance_axes(roi_size, sigma_scale)
+            imp_np = gaussian_importance_map(roi_size, sigma_scale)
+        elif mode == "constant":
+            axes, minv = [np.ones(r) for r in roi_size], 0.0
+            imp_np = np.ones(roi_size, np.float32)
+        else:
+            raise ValueError(f"Unsupported blend mode: {mode}")
+        hi = np.asarray(spatial) - np.asarray(roi_size)
+        if (starts_np < 0).any() or (starts_np > hi).any():
+            raise ValueError("window starts out of bounds")
+        weight = blend_weight_map(spatial, starts_np, imp_np, device=dev)
 
-    n_real = len(starts_np)
-    group, n_shards, shard = None, 1, 0
-    if mesh is not None:
-        if mesh_axis not in mesh.axis_names:
-            if len(mesh.axis_names) != 1:
-                raise ValueError(
-                    f"mesh has no '{mesh_axis}' axis (axes: "
-                    f"{mesh.axis_names}); pass mesh_axis= explicitly")
-            mesh_axis = mesh.axis_names[0]
-        group = mesh.group(mesh_axis)
-        n_shards = mesh.axis_size(mesh_axis)
-        shard = mesh.axis_index(mesh_axis)
-    n_group = sw_batch_size * n_shards
-    n_padded = int(math.ceil(n_real / n_group)) * n_group
-    starts_all = np.zeros((n_padded, 3), np.int32)
-    starts_all[:n_real] = starts_np
-    mask_all = np.zeros((n_padded,), np.int32)
-    mask_all[:n_real] = 1
-    starts_dev = torch.from_numpy(starts_all).to(dev)
-    mask_dev = torch.from_numpy(mask_all).to(dev)
-    gd, gh, gw = (
-        torch.as_tensor(a, dtype=torch.float32, device=dev) for a in axes
-    )
+        n_real = len(starts_np)
+        group, n_shards, shard = None, 1, 0
+        if mesh is not None:
+            if mesh_axis not in mesh.axis_names:
+                if len(mesh.axis_names) != 1:
+                    raise ValueError(
+                        f"mesh has no '{mesh_axis}' axis (axes: "
+                        f"{mesh.axis_names}); pass mesh_axis= explicitly")
+                mesh_axis = mesh.axis_names[0]
+            group = mesh.group(mesh_axis)
+            n_shards = mesh.axis_size(mesh_axis)
+            shard = mesh.axis_index(mesh_axis)
+        n_group = sw_batch_size * n_shards
+        n_padded = int(math.ceil(n_real / n_group)) * n_group
+        starts_all = np.zeros((n_padded, 3), np.int32)
+        starts_all[:n_real] = starts_np
+        mask_all = np.zeros((n_padded,), np.int32)
+        mask_all[:n_real] = 1
+        starts_dev = torch.from_numpy(starts_all).to(dev)
+        mask_dev = torch.from_numpy(mask_all).to(dev)
+        gd, gh, gw = (
+            torch.as_tensor(a, dtype=torch.float32, device=dev) for a in axes
+        )
 
-    r0, r1, r2 = roi_size
-    vol3d = padded[0]
-    canvas = torch.zeros(spatial + (out_channels,), dtype=torch.float32,
-                         device=dev)
+        r0, r1, r2 = roi_size
+        vol3d = padded[0]
+        canvas = torch.zeros(spatial + (out_channels,), dtype=torch.float32,
+                             device=dev)
     per_shard = n_padded // n_shards
     for c0 in range(shard * per_shard, (shard + 1) * per_shard,
                     sw_batch_size):
         chunk = slice(c0, c0 + sw_batch_size)
-        windows = torch.stack([
-            vol3d[s0:s0 + r0, s1:s1 + r1, s2:s2 + r2]
-            for s0, s1, s2 in starts_all[chunk].tolist()
-        ])
+        with annotate("sliding/gather"):
+            windows = torch.stack([
+                vol3d[s0:s0 + r0, s1:s1 + r1, s2:s2 + r2]
+                for s0, s1, s2 in starts_all[chunk].tolist()
+            ])
         out = apply_fn(windows)
-        if out.dtype not in (torch.float32, torch.bfloat16):
-            out = out.float()
-        out = out.contiguous().view(len(windows), r0, r1, r2, out_channels)
-        blend_scatter(canvas, out, starts_dev[chunk], mask_dev[chunk],
-                      gd, gh, gw, minv)
+        with annotate("sliding/stitch"):
+            if out.dtype not in (torch.float32, torch.bfloat16):
+                out = out.float()
+            out = out.contiguous().view(len(windows), r0, r1, r2,
+                                        out_channels)
+            blend_scatter(canvas, out, starts_dev[chunk], mask_dev[chunk],
+                          gd, gh, gw, minv)
 
-    if group is not None:
-        dist.all_reduce(canvas, op=dist.ReduceOp.SUM, group=group)
-    out = canvas / weight[..., None]
-    (c0, c1), (c2, c3), (c4, c5) = crops
-    return out[None, c0:c1, c2:c3, c4:c5, :]
+    with annotate("sliding/finish"):
+        if group is not None:
+            dist.all_reduce(canvas, op=dist.ReduceOp.SUM, group=group)
+        out = canvas / weight[..., None]
+        (c0, c1), (c2, c3), (c4, c5) = crops
+        return out[None, c0:c1, c2:c3, c4:c5, :]

@@ -1,14 +1,16 @@
 """Profiling hooks (the port's counterpart of
-`anatomix_tpu/utils/profiling.py`): a `torch.profiler` trace, named ranges
-in its timeline, and the reference's EMA wall-clock timers."""
+`anatomix_tpu/utils/profiling.py`): a `torch.profiler` trace and named
+ranges in its timeline."""
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -27,27 +29,10 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """Named range in the profiler's timeline (free when no profiler
-    runs)."""
-    with torch.profiler.record_function(name):
-        yield
-
-
-class EMATimer:
-    """The reference's EMA iteration timers (`trainers/train.py:186-191`)."""
-
-    def __init__(self, alpha: float = 0.1):
-        self.alpha = alpha
-        self.value = 0.0
-        self._t0 = None
-
-    def start(self):
-        self._t0 = time.time()
-
-    def stop(self) -> float:
-        dt = time.time() - self._t0
-        self.value = (dt if self.value == 0.0
-                      else (1 - self.alpha) * self.value + self.alpha * dt)
-        return self.value
+    """Named range in the profiler's timeline (a `record_function`), opened
+    only while a profiler runs (`torch.profiler.profile`, `emit_nvtx`,
+    `emit_itt`); otherwise a shared no-op context, one flag check."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)

@@ -486,7 +486,7 @@ def test_early_stopping():
 
 def test_utils_of_the_loop(tmp_path):
     from anatomix_tpu_torch.utils.logging import ScalarLogger
-    from anatomix_tpu_torch.utils.profiling import EMATimer, annotate, trace
+    from anatomix_tpu_torch.utils.profiling import annotate, trace
     from anatomix_tpu_torch.utils.visualization import (
         panel_figure,
         save_tensor,
@@ -501,9 +501,6 @@ def test_utils_of_the_loop(tmp_path):
                 str(tmp_path / "v" / "t.nii.gz"))
     assert (tmp_path / "v" / "t.nii.gz").exists()
 
-    t = EMATimer()
-    t.start()
-    assert t.stop() >= 0
     with trace(str(tmp_path / "prof")) as prof:
         with annotate("test-region"):
             torch.ones(4).add_(1)
