@@ -37,6 +37,30 @@
 // per thread (for its block's start) and 32-bit arithmetic after it.
 // Channel counts that are not a multiple of 8 take the same kernel with one
 // channel per thread.
+//
+// The same library holds the statistics that D1 applies,
+// `norm_stats_ndhwc`: for each (sample, tile, channel) of x the f32 mean
+// and biased variance `var = max(E[x^2] - E[x]^2, 0)` over the tile's
+// voxels, folded into the (a, s) that D1 takes,
+//   a = rsqrt(var + eps) [* scale],  s = -mean * a [+ bias],
+// with the tiles given by their boundaries on each axis. It replaces no
+// Pallas kernel: the JAX package leaves these reductions to XLA
+// (`anatomix_tpu/ops/norms.py`, `models/unet_fused._fold_affine`), and the
+// port ran them as torch reductions (an f32 copy, a squared copy, two tile
+// sums, a dozen tiny ops a norm). Bytes bound it on an H100: one read of x
+// for three flops an element. The design reads x once. Pass 1 gives each
+// block a contiguous run of one tile's voxels (in the tile's own z, y, x
+// order) and one range of channel groups; each thread keeps V channels
+// (16-byte loads: 4 f32 or 8 bf16) of a strided run of voxels, with f32
+// sums of x and x^2 in registers, and steps through the tile's box by a
+// fixed decomposition of its stride, with no division in the loop. The
+// block reduces its lanes in shared memory by a fixed tree and writes one
+// partial per (sample, tile, block, channel). Pass 2 sums a tile's partials
+// in double, in a fixed order (32 stripes of batched loads, then a tree),
+// and folds them. No atomics: two launches on the same input give the
+// same bits. The grid (`kernels/norm.stats_plan`) gives every tile the same
+// number of blocks, eight a SM in all at 2x128^3x32 and as few as one at
+// the 4^3 bottleneck; a block never straddles two tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -224,5 +248,277 @@ extern "C" int norm_apply_ndhwc(const void* x, int x_f32, const void* a,
                           n_items, D, H, W, C, t0, t1, t2, act, slope,
                           split, post_res);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// norm_stats_ndhwc: the statistics and their affine fold (header above)
+
+namespace {
+
+constexpr int STATS_THREADS = 256;
+constexpr int STATS_UNROLL = 4;  // loads in flight per thread
+constexpr int FOLD_CH = 32;      // pass 2: channels of a block,
+constexpr int FOLD_ST = 32;      //         its stripes over the partials
+constexpr int FOLD_BATCH = 8;    //         and their loads in flight
+
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, float* v) {
+  if constexpr (V == 1) {
+    v[0] = to_float(*p);
+  } else if constexpr (V == 4) {  // f32
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {  // V == 8, bf16
+    load8(p, v);
+  }
+}
+
+// The box of flat tile t = (tz * t1 + ty) * t2 + tx, from the boundaries
+// offs = [z: t0 + 1 | y: t1 + 1 | x: t2 + 1].
+struct Box {
+  int z0, y0, x0, dz, dy, dx;
+};
+
+__device__ __forceinline__ Box tile_box(const int* offs, int t, int t0,
+                                        int t1, int t2) {
+  const int tx = t % t2;
+  t /= t2;
+  const int ty = t % t1;
+  const int tz = t / t1;
+  const int* zo = offs;
+  const int* yo = zo + t0 + 1;
+  const int* xo = yo + t1 + 1;
+  Box bx;
+  bx.z0 = zo[tz];
+  bx.dz = zo[tz + 1] - bx.z0;
+  bx.y0 = yo[ty];
+  bx.dy = yo[ty + 1] - bx.y0;
+  bx.x0 = xo[tx];
+  bx.dx = xo[tx + 1] - bx.x0;
+  return bx;
+}
+
+// Pass 1. Block (bt * nblk + k, cchunk): the k-th of nblk runs of tile bt's
+// voxels (bt = b * T + t), channel groups [cchunk * GB, + GB). Thread
+// (lane, gl): group g = cchunk * GB + gl, voxels lane, lane + L, ... of the
+// run. Writes part[bt][k][0 | 1][C]: the sums of x and of x^2.
+template <typename T, int V>
+__global__ void __launch_bounds__(STATS_THREADS)
+norm_stats_partial_kernel(const T* __restrict__ x, const int* __restrict__ offs,
+                          float* __restrict__ part, int D, int H, int W, int C,
+                          int t0, int t1, int t2, int nblk) {
+  __shared__ float red[2][V][STATS_THREADS];
+  const int G = C / V;
+  const int GB = min(G, STATS_THREADS);  // channel groups of a block
+  const int L = STATS_THREADS / GB;      // voxels in flight per group
+  const int lane = threadIdx.x / GB;
+  const int gl = threadIdx.x - lane * GB;
+  const int g = blockIdx.y * GB + gl;
+  const int k = blockIdx.x % nblk;
+  const int bt = blockIdx.x / nblk;
+  const int n_tiles = t0 * t1 * t2;
+  const int b = bt / n_tiles;
+  const Box bx = tile_box(offs, bt - b * n_tiles, t0, t1, t2);
+  const int n = bx.dz * bx.dy * bx.dx;
+  const int chunk = (n + nblk - 1) / nblk;
+  const int end = min(n, (k + 1) * chunk);
+  int i = k * chunk + lane;
+  float s1[V], s2[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) s1[j] = s2[j] = 0.f;
+  if (lane < L && g < G && i < end) {
+    // voxel i of the box in (iz, iy, ix); the stride L as (sz, sy, sx),
+    // sx < dx and sy < dy, so one carry per axis keeps them in the box
+    int ix = i % bx.dx;
+    const int r = i / bx.dx;
+    int iy = r % bx.dy;
+    int iz = r / bx.dy;
+    const int sx = L % bx.dx;
+    const int q = L / bx.dx;
+    const int sy = q % bx.dy;
+    const int sz = q / bx.dy;
+    const T* xb = x + (int64_t)b * D * H * W * C + g * V;
+    while (i < end) {
+      float v[STATS_UNROLL][V];
+#pragma unroll
+      for (int u = 0; u < STATS_UNROLL; ++u) {
+        if (i < end) {
+          const int64_t vox =
+              ((int64_t)(bx.z0 + iz) * H + (bx.y0 + iy)) * W + bx.x0 + ix;
+          load_vec<T, V>(xb + vox * C, v[u]);
+          ix += sx;
+          iy += sy;
+          iz += sz;
+          if (ix >= bx.dx) {
+            ix -= bx.dx;
+            ++iy;
+          }
+          if (iy >= bx.dy) {
+            iy -= bx.dy;
+            ++iz;
+          }
+          i += L;
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) v[u][j] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < STATS_UNROLL; ++u) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          s1[j] += v[u][j];
+          s2[j] = fmaf(v[u][j], v[u][j], s2[j]);
+        }
+      }
+    }
+  }
+  // the lanes of each group, summed by a fixed tree
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    red[0][j][threadIdx.x] = s1[j];
+    red[1][j][threadIdx.x] = s2[j];
+  }
+  __syncthreads();
+  for (int h = 1; h < L; h *= 2) {
+    if (lane % (2 * h) == 0 && lane + h < L) {
+      const int o = threadIdx.x + h * GB;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        red[0][j][threadIdx.x] += red[0][j][o];
+        red[1][j][threadIdx.x] += red[1][j][o];
+      }
+    }
+    __syncthreads();
+  }
+  if (lane == 0 && g < G) {
+    float* p = part + ((int64_t)bt * nblk + k) * 2 * C + g * V;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      p[j] = red[0][j][threadIdx.x];
+      p[C + j] = red[1][j][threadIdx.x];
+    }
+  }
+}
+
+// Pass 2. Block (bt, cchunk): channels [cchunk * FOLD_CH, + FOLD_CH) of
+// tile bt; stripe st sums the partials k = st, st + FOLD_ST, ... in double,
+// FOLD_BATCH loads in flight, then a fixed tree sums the stripes, and the
+// sums are folded into (a, s).
+__global__ void __launch_bounds__(FOLD_CH * FOLD_ST)
+norm_stats_fold_kernel(const float* __restrict__ part,
+                       const int* __restrict__ offs,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ bias, float* __restrict__ a,
+                       float* __restrict__ s, int C, int t0, int t1, int t2,
+                       int nblk, float eps) {
+  __shared__ double red[2][FOLD_ST][FOLD_CH];
+  const int cl = threadIdx.x % FOLD_CH;
+  const int st = threadIdx.x / FOLD_CH;
+  const int c = blockIdx.y * FOLD_CH + cl;
+  const int bt = blockIdx.x;
+  double d1 = 0.0, d2 = 0.0;
+  if (c < C) {
+    const float* p = part + (int64_t)bt * nblk * 2 * C + c;
+    for (int k0 = st; k0 < nblk; k0 += FOLD_ST * FOLD_BATCH) {
+      float v1[FOLD_BATCH], v2[FOLD_BATCH];
+#pragma unroll
+      for (int u = 0; u < FOLD_BATCH; ++u) {
+        const int k = k0 + u * FOLD_ST;
+        v1[u] = k < nblk ? p[(int64_t)k * 2 * C] : 0.f;
+        v2[u] = k < nblk ? p[(int64_t)k * 2 * C + C] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < FOLD_BATCH; ++u) {
+        d1 += v1[u];
+        d2 += v2[u];
+      }
+    }
+  }
+  red[0][st][cl] = d1;
+  red[1][st][cl] = d2;
+  __syncthreads();
+  for (int h = FOLD_ST / 2; h > 0; h /= 2) {
+    if (st < h) {
+      red[0][st][cl] += red[0][st + h][cl];
+      red[1][st][cl] += red[1][st + h][cl];
+    }
+    __syncthreads();
+  }
+  if (st != 0 || c >= C) return;
+  const Box bx = tile_box(offs, bt % (t0 * t1 * t2), t0, t1, t2);
+  const double n = (double)bx.dz * bx.dy * bx.dx;
+  const double mean = red[0][0][cl] / n;
+  const double var = fmax(red[1][0][cl] / n - mean * mean, 0.0);
+  double av = 1.0 / sqrt(var + (double)eps);
+  if (scale != nullptr) av *= scale[c];
+  double sv = -mean * av;
+  if (bias != nullptr) sv += bias[c];
+  a[(int64_t)bt * C + c] = (float)av;
+  s[(int64_t)bt * C + c] = (float)sv;
+}
+
+template <typename T, int V>
+void launch_partial(dim3 grid, cudaStream_t st, const void* x,
+                    const int* offs, float* part, int D, int H, int W, int C,
+                    int t0, int t1, int t2, int nblk) {
+  norm_stats_partial_kernel<T, V><<<grid, STATS_THREADS, 0, st>>>(
+      static_cast<const T*>(x), offs, part, D, H, W, C, t0, t1, t2, nblk);
+}
+
+}  // namespace
+
+// vec: 16-byte loads (4 f32 or 8 bf16 channels a thread; C a multiple of
+// that and x 16-byte aligned), else one channel a thread. offs: int32 tile
+// boundaries [z: t0 + 1 | y: t1 + 1 | x: t2 + 1]; part: f32 scratch of
+// B * t0 * t1 * t2 * nblk * 2 * C; scale, bias: f32 (C,) or null; a, s:
+// f32 (B, t0, t1, t2, C).
+extern "C" int norm_stats_ndhwc(const void* x, int x_f32, int vec,
+                                const void* offs, void* part,
+                                const void* scale, const void* bias, void* a,
+                                void* s, int B, int D, int H, int W, int C,
+                                int t0, int t1, int t2, int nblk, float eps,
+                                void* stream) {
+  const int64_t voxels = (int64_t)B * D * H * W;
+  if (voxels >= 0x7fffffffLL || nblk < 1 || t0 < 1 || t1 < 1 || t2 < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (voxels == 0 || C == 0) return 0;
+  const int V = vec ? (x_f32 ? 4 : 8) : 1;
+  if (C % V != 0 || (vec && !aligned16(x)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = C / V;
+  const int GB = G < STATS_THREADS ? G : STATS_THREADS;
+  const int64_t tiles = (int64_t)B * t0 * t1 * t2;
+  const int64_t blocks = tiles * nblk;
+  const int chunks = (G + GB - 1) / GB;
+  if (blocks > 0x7fffffffLL || chunks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* op = static_cast<const int*>(offs);
+  auto* pp = static_cast<float*>(part);
+  const dim3 grid1((unsigned)blocks, (unsigned)chunks);
+  if (x_f32) {
+    if (vec)
+      launch_partial<float, 4>(grid1, st, x, op, pp, D, H, W, C, t0, t1, t2,
+                               nblk);
+    else
+      launch_partial<float, 1>(grid1, st, x, op, pp, D, H, W, C, t0, t1, t2,
+                               nblk);
+  } else {
+    if (vec)
+      launch_partial<__nv_bfloat16, 8>(grid1, st, x, op, pp, D, H, W, C, t0,
+                                       t1, t2, nblk);
+    else
+      launch_partial<__nv_bfloat16, 1>(grid1, st, x, op, pp, D, H, W, C, t0,
+                                       t1, t2, nblk);
+  }
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid2((unsigned)tiles, (unsigned)((C + FOLD_CH - 1) / FOLD_CH));
+  norm_stats_fold_kernel<<<grid2, FOLD_CH * FOLD_ST, 0, st>>>(
+      pp, op, static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<float*>(a),
+      static_cast<float*>(s), C, t0, t1, t2, nblk, eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,13 +8,13 @@ kernel of `kernels/conv.py` and keeps its bias. The exit conv stores f32.
 - Batch norm is folded into the convs first (`extract.fold_batchnorm`);
   the activation that follows a conv then runs in the conv's epilogue.
 - Instance norm stays live (the `anatomix-dev` UNet). Its conv keeps
-  `act="none"`; the statistics are torch reductions
-  (`ops/norms.instance_norm_stats`, global or per spatial tile) and the
-  `norm_apply_ndhwc` kernel applies them together with the following
-  activation, as `_following_act` routes it in the JAX package. The
-  statistics and their fold into the affine run in the `record_function`
-  range `unet/norm_stats` (opened only while a profiler runs,
-  `utils/profiling.annotate`).
+  `act="none"`; the `norm_stats_ndhwc` kernel takes the statistics
+  (global or per spatial tile, one read of the conv's output) and folds
+  them into an affine, and the `norm_apply_ndhwc` kernel applies it
+  together with the following activation, as `_following_act` routes it
+  in the JAX package. The statistics and their fold run in the
+  `record_function` range `unet/norm_stats` (opened only while a profiler
+  runs, `utils/profiling.annotate`).
   The norm divides each channel by its std, which would magnify the bf16
   rounding of a conv output whose mean is large against its std, so a
   conv that feeds a live norm stores f32. On a smooth volume the std is
@@ -66,7 +66,7 @@ from anatomix_tpu_torch.kernels.conv import (
     conv3x3x3_ndhwc,
     conv3x3x3_upcat_ndhwc,
 )
-from anatomix_tpu_torch.kernels.norm import norm_apply_ndhwc
+from anatomix_tpu_torch.kernels.norm import norm_apply_ndhwc, norm_stats_ndhwc
 from anatomix_tpu_torch.kernels.resize import upsample2x_trilinear_ndhwc
 from anatomix_tpu_torch.models.unet import (
     UnetPlan,
@@ -87,11 +87,7 @@ from anatomix_tpu_torch.ops.conv import (
     split3,
     split3_weight,
 )
-from anatomix_tpu_torch.ops.norms import (
-    fold_affine,
-    instance_norm_stats,
-    tile_maps,
-)
+from anatomix_tpu_torch.ops.norms import fold_affine, tile_maps
 from anatomix_tpu_torch.ops.pool import avg_pool, max_pool
 from anatomix_tpu_torch.ops.resize import upsample2x
 from anatomix_tpu_torch.utils.profiling import annotate
@@ -239,9 +235,9 @@ def _pack_block(plan, state_dict, conv_idx, norm, act_slope, split, device):
 
 def _norm_apply(feat, p, *, eps, tile_counts, out_dtype, post_res=False):
     """A live norm + its activation (+ the block's residual): the affine
-    of the batch norm's running statistics, or the instance norm's torch
-    statistics (global or per tile), then the norm-apply kernel (which
-    stores the three-term split under `p["split"]`)."""
+    of the batch norm's running statistics, or the instance norm's
+    statistics kernel (global or per tile), then the norm-apply kernel
+    (which stores the three-term split under `p["split"]`)."""
     maps_tiles = (1, 1, 1)
     if "a" in p:
         a = p["a"].reshape(1, 1, 1, 1, -1).expand(
@@ -250,8 +246,8 @@ def _norm_apply(feat, p, *, eps, tile_counts, out_dtype, post_res=False):
     else:
         maps_tiles = tuple(tile_counts or (1, 1, 1))
         with annotate("unet/norm_stats"):
-            mean, var = instance_norm_stats(feat, maps_tiles)
-            a, s = fold_affine(mean, var, eps, p["scale"], p["bias"])
+            a, s = norm_stats_ndhwc(feat, maps_tiles, eps=eps,
+                                    scale=p["scale"], bias=p["bias"])
     maps = tile_maps(feat.shape[1:4], maps_tiles, feat.device)
     return norm_apply_ndhwc(feat, a.contiguous(), s.contiguous(), maps,
                             act=p["act"], slope=p["slope"],

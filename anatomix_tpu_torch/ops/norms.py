@@ -14,9 +14,12 @@ each axis is split into `tile_counts[i]` contiguous chunks by
 its own tile. Statistics never pool over the batch: in `sliding`, the
 windows of one chunk are normalized each on its own.
 
-These are the plain versions. On the card, the fused forward computes the
-statistics here (`instance_norm_stats`, torch reductions) and applies them
-with the `norm_apply_ndhwc` kernel (`kernels/norm.py`).
+These are the plain versions. On the card, the fused forward takes the
+statistics and their fold with the `norm_stats_ndhwc` kernel and applies
+them with the `norm_apply_ndhwc` kernel (`kernels/norm.py`), whose plain
+versions are `instance_norm_stats` + `fold_affine` and `expand_tiles`
+here. The sharded forward, the ViT and the plain UNet keep the torch
+statistics of `instance_norm_stats`.
 """
 
 from __future__ import annotations

@@ -197,6 +197,9 @@ chip_parallel.json`);
 `--dev-train`
 runs phase 1, the backward kernels at the dev widths, then phase 7b and
 phase 11's dev part alone (with `--profile`: the dev profiles alone);
+`--norm-stats` runs phase 1, then the statistics kernel's rows alone
+(`norm_stats_ndhwc` against its torch version at the dev paths' shapes,
+both timed from DRAM, and two launches' max|diff|);
 `--dgrad-split`
 runs phase 1, then times the 6M step's 19 reflect input gradients apart
 into conv, fold and glue, and the step itself in rounds
@@ -382,6 +385,31 @@ def cold_ms(fn, *, reps: int = 50) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(torch, fn, name: str, *, reps: int = 20) -> dict:
+    """Mean device ms a call of each kernel whose name holds `name`, from
+    torch.profiler's records over `reps` calls of `fn()`, the L2 cache
+    emptied before each (as `cold_ms`): the parts of a call that launches
+    several kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and name in e.name:
+            key = e.name[e.name.index(name):].split("(")[0][:48]
+            out[key] = out.get(key, 0.0) + (
+                e.time_range.end - e.time_range.start) * 1e-3 / reps
+    return out
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -733,6 +761,62 @@ def check_norm_apply(kn, norms, torch, dev, gen, B, S, C, tiles, act,
         max_abs_err=err, rel_err=rel, tol=tol, ok=rel < tol, ms=ms,
         plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
     )
+
+
+def check_norm_stats(kn, torch, dev, gen, B, spatial, C, tiles,
+                     dtype="float32"):
+    """norm_stats_ndhwc (a live norm's statistics folded into D1's (a, s),
+    eps 1e-2) against its plain version (`instance_norm_stats` then
+    `fold_affine`, torch reductions), on an input whose channel means sit
+    about one std off zero, as a conv's biases put them; both timed from
+    DRAM (`cold_ms`), the kernel's two launches compared bit for bit. The
+    bound: one read of x and the (a, s) store, at three flops an element."""
+    x = (torch.randn((B,) + tuple(spatial) + (C,), generator=gen, device=dev)
+         + torch.randn((C,), generator=gen, device=dev)).to(
+        getattr(torch, dtype))
+
+    def run():
+        return kn.norm_stats_ndhwc(x, tiles, eps=1e-2)
+
+    def plain():
+        return kn.norm_stats_ndhwc_plain(x, tiles, eps=1e-2)
+
+    got, again, ref = run(), run(), plain()
+    torch.cuda.synchronize()
+    errs = [rel_err(g, r) for g, r in zip(got, ref)]
+    err, rel = max(errs, key=lambda e: e[1])
+    repeat = max((g - a).abs().max().item() for g, a in zip(got, again))
+    ms = cold_ms(run)
+    plain_ms = cold_ms(plain)
+    passes = kernel_ms(torch, run, "norm_stats")
+    nbytes = x.numel() * x.element_size() + 8.0 * got[0].numel()
+    b_ms, b_by = bound(3.0 * x.numel(), nbytes, PEAK_F32_FLOPS)
+    shape = (f"B{B} {'x'.join(map(str, spatial))}x{C} {dtype} tiles "
+             f"{tiles}")
+    log(f"[norm-stats] {shape}: two launches max|diff| {repeat}; device "
+        f"ms by kernel " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                     passes.items()))
+    return dict(
+        shape=shape, max_abs_err=err, rel_err=rel, tol=TOL_CONV_F32,
+        ok=rel < TOL_CONV_F32 and repeat == 0.0, ms=ms, plain_ms=plain_ms,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, pass_ms=passes,
+    )
+
+
+def norm_stats_checks(kn, torch, dev, gen) -> list:
+    """The statistics kernel's rows: each level of the dev `sliding` path
+    (B 2 windows of 128^3, f32 conv outputs), `full_tiled` at 256^3 with
+    2x2x2 tiles, uneven tiles, bf16 input."""
+    rows = [check_norm_stats(kn, torch, dev, gen, 2, (S,) * 3, C, (1, 1, 1))
+            for S, C in ((128, 32), (64, 64), (32, 128), (16, 256),
+                         (8, 512), (4, 1024))]
+    rows.append(check_norm_stats(kn, torch, dev, gen, 1, (256,) * 3, 32,
+                                 (2, 2, 2)))
+    rows.append(check_norm_stats(kn, torch, dev, gen, 1, (88, 64, 40), 32,
+                                 (3, 2, 3)))
+    rows.append(check_norm_stats(kn, torch, dev, gen, 2, (128,) * 3, 32,
+                                 (1, 1, 1), "bfloat16"))
+    return rows
 
 
 def check_conv_down(kc, kd, torch, F, dev, gen, B, S, ci, co):
@@ -1690,6 +1774,20 @@ def main(argv) -> int:
         print(json.dumps({"conv_time": report["conv_time"]}), flush=True)
         return 0
 
+    if "--norm-stats" in argv:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        report["checks"] = {"norm_stats_ndhwc": norm_stats_checks(
+            kn, torch, dev, gen)}
+        failed = log_kernel_rows(report["checks"])
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_norm_stats.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        if failed:
+            raise RuntimeError(f"kernel disagrees with its plain version: "
+                               f"{failed}")
+        return 0
+
     if "--dgrad-split" in argv:
         report["dgrad_split"] = run_dgrad_split(torch, kt, dev)
         out_dir = os.path.join(ROOT, "chiprun_out")
@@ -1705,6 +1803,7 @@ def main(argv) -> int:
         "conv3x3x3_cat_ndhwc": kc.conv3x3x3_cat_ndhwc,
         "upsample2x_trilinear_ndhwc": kr.upsample2x_trilinear_ndhwc,
         "norm_apply_ndhwc": kn.norm_apply_ndhwc,
+        "norm_stats_ndhwc": kn.norm_stats_ndhwc,
         "conv_down2_ndhwc": kd.conv_down2_ndhwc,
         "flash_attention": ka.flash_attention,
         "depth_to_space8_ndhwc": kr8.depth_to_space8_ndhwc,
@@ -1895,6 +1994,7 @@ def main(argv) -> int:
     ]:
         checks["norm_apply_ndhwc"].append(check_norm_apply(
             kn, norms, torch, dev, gen, B, S, 32, tiles, act))
+    checks["norm_stats_ndhwc"] = norm_stats_checks(kn, torch, dev, gen)
     # the ViT tokenizer's IN + residual + lrelu(0.01), stage 0
     checks["norm_apply_ndhwc"].append(check_norm_apply(
         kn, norms, torch, dev, gen, 2, 64, 64, (1, 1, 1), "lrelu",
@@ -2258,6 +2358,8 @@ def main(argv) -> int:
             "upsample2x_trilinear_block_pallas"),
         "norm_apply_ndhwc": "anatomix_tpu/ops/pallas/norm_apply.py:46 "
                             "norm_apply_block",
+        "norm_stats_ndhwc": ("no Pallas kernel: the statistics XLA reduces "
+                             "in anatomix_tpu/ops/norms.py"),
         "conv_down2_ndhwc": "anatomix_tpu/ops/pallas/conv_down.py:178 "
                             "conv_down2_block",
         "flash_attention": "anatomix_tpu/models/vit3d/primus.py:322 "
@@ -2305,6 +2407,7 @@ def main(argv) -> int:
         "conv3x3x3_cat_ndhwc": csrc + "conv3d.cu",
         "upsample2x_trilinear_ndhwc": csrc + "upsample.cu",
         "norm_apply_ndhwc": csrc + "norm_apply.cu",
+        "norm_stats_ndhwc": csrc + "norm_apply.cu",
         "conv_down2_ndhwc": csrc + "conv3d.cu",
         "flash_attention": csrc + "flash_attention.cu",
         "depth_to_space8_ndhwc": csrc + "depth_to_space8.cu",
@@ -2323,8 +2426,8 @@ def main(argv) -> int:
     # the line reports each kernel at its dominant main-path shape: the
     # 16-channel 128^3 conv, the 48->16 decoder conv, the ViT's bf16 stitch
     # chunk, the dev split [96+192]->32 decoder conv, the split 64^3 ->
-    # 128^3 upsample, the split global norm of a 128^3 window pair, the ViT's
-    # first split stride-2 stage, its attention at B2 and the block-space
+    # 128^3 upsample, the split global norm of a 128^3 window pair and its
+    # statistics, the ViT's first split stride-2 stage, its attention at B2 and the block-space
     # exit with the demean subtract, the backward of the 16-channel 128^3
     # conv, the first pool's space-to-depth and the last upsample's
     # depth-to-space, the ViT step's attention backward, the ViT window's
@@ -2334,7 +2437,7 @@ def main(argv) -> int:
     headline = {"conv3x3x3_ndhwc": 1, "conv3x3x3_upcat_ndhwc": 3,
                 "blend_scatter": 2, "conv3x3x3_cat_ndhwc": 0,
                 "upsample2x_trilinear_ndhwc": 0, "norm_apply_ndhwc": 0,
-                "conv_down2_ndhwc": 0, "flash_attention": 0,
+                "norm_stats_ndhwc": 0, "conv_down2_ndhwc": 0, "flash_attention": 0,
                 "depth_to_space8_ndhwc": 0, "conv3x3x3_wgrad_ndhwc": 0,
                 "conv3x3x3_dgrad_ndhwc": 0, "space_to_depth2_ndhwc": 0,
                 "depth_to_space2_ndhwc": 0, "flash_attention_bwd_dkv": 0,
@@ -2377,7 +2480,8 @@ def run_dev(torch, dev, make_feature_extractor, wrappers, paths, dplan,
     num_downs 5, instance norm eps 1e-2, Avg pool, trilinear) at full width
     and depth with seeded weights, on each of its paths."""
     dev_needed = ["conv3x3x3_ndhwc", "conv3x3x3_cat_ndhwc",
-                  "upsample2x_trilinear_ndhwc", "norm_apply_ndhwc"]
+                  "upsample2x_trilinear_ndhwc", "norm_apply_ndhwc",
+                  "norm_stats_ndhwc"]
     dsd = {k: v.to(dev) for k, v in
            init_params(dplan, torch.Generator().manual_seed(0)).items()}
     n_params = sum(v.numel() for v in dsd.values())
@@ -4965,7 +5069,7 @@ DEV_SEG_GATE_SIZE = 160
 # norms' D1 and the stitch
 DEV_VAL_KERNELS = ("conv3x3x3_ndhwc", "conv3x3x3_cat_ndhwc",
                    "upsample2x_trilinear_ndhwc", "norm_apply_ndhwc",
-                   "blend_scatter")
+                   "norm_stats_ndhwc", "blend_scatter")
 
 
 def dev_seg_model(torch, dev, pth, lr=SEG_LR, plain=False):

@@ -29,6 +29,8 @@ from anatomix_tpu_torch.kernels.conv_down import (
 from anatomix_tpu_torch.kernels.norm import (
     norm_apply_ndhwc,
     norm_apply_ndhwc_plain,
+    norm_stats_ndhwc,
+    norm_stats_ndhwc_plain,
 )
 from anatomix_tpu_torch.kernels.reshuffle import (
     depth_to_space8_ndhwc,
@@ -42,7 +44,7 @@ from anatomix_tpu_torch.kernels.scatter import (
     blend_scatter,
     blend_scatter_plain,
 )
-from anatomix_tpu_torch.ops.norms import tile_maps
+from anatomix_tpu_torch.ops.norms import _tile_sums, tile_maps, tile_sizes
 from anatomix_tpu_torch.ops.sliding_window import gaussian_importance_axes
 
 
@@ -162,6 +164,94 @@ def test_norm_apply_kernel_matches_plain(cuda, shape, tiles, act, dtype):
     ref = norm_apply_ndhwc_plain(x, a, s, maps, act=act, slope=0.3)
     torch.cuda.synchronize()
     assert _maxrel(got.float().cpu(), ref.float().cpu()) < 1e-2
+
+
+def _norm_stats_f64(x, tiles, eps, scale, bias):
+    """(a, s) of `norm_stats_ndhwc` in float64."""
+    sizes = tile_sizes(x.shape[1:4], tiles)
+    x64 = x.double()
+    counts = torch.tensor([float(d * h * w) for d in sizes[0]
+                           for h in sizes[1] for w in sizes[2]],
+                          dtype=torch.float64, device=x.device)
+    counts = counts.reshape(1, *map(len, sizes), 1)
+    mean = _tile_sums(x64, sizes) / counts
+    var = (_tile_sums(x64.square(), sizes) / counts - mean.square()).clamp(
+        min=0.0)
+    a = torch.rsqrt(var + eps)
+    if scale is not None:
+        a = a * scale.double()
+    s = -mean * a
+    if bias is not None:
+        s = s + bias.double()
+    return a, s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,tiles,dtype,affine", [
+    ((2, 128, 128, 128, 32), (1, 1, 1), torch.float32, False),  # dev level 1
+    ((2, 4, 4, 4, 1024), (1, 1, 1), torch.float32, True),  # its bottleneck
+    ((1, 88, 64, 40, 32), (3, 2, 3), torch.float32, True),  # uneven tiles
+    ((2, 64, 64, 64, 64), (1, 1, 1), torch.bfloat16, True),
+    ((2, 6, 5, 7, 12), (2, 1, 3), torch.float32, False),  # C % 4 != 0
+    ((2, 6, 5, 7, 12), (2, 1, 3), torch.bfloat16, False),
+])
+def test_norm_stats_kernel_matches_plain(cuda, shape, tiles, dtype, affine):
+    """The statistics kernel against its plain version and a float64
+    witness (a conv output's spread: a channel's mean up to ~3 std), and
+    two launches on one input equal bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    C = shape[-1]
+    x = (torch.randn(shape, generator=g, device=cuda)
+         + torch.randn((C,), generator=g, device=cuda)).to(dtype)
+    scale = bias = None
+    if affine:
+        scale = torch.rand((C,), generator=g, device=cuda) + 0.5
+        bias = torch.randn((C,), generator=g, device=cuda)
+    kw = dict(eps=1e-2, scale=scale, bias=bias)
+    before = norm_stats_ndhwc.launches
+    got = norm_stats_ndhwc(x, tiles, **kw)
+    again = norm_stats_ndhwc(x, tiles, **kw)
+    plain = norm_stats_ndhwc_plain(x, tiles, **kw)
+    witness = _norm_stats_f64(x, tiles, **kw)
+    torch.cuda.synchronize()
+    assert norm_stats_ndhwc.launches == before + 2
+    for k, a, p, w in zip(got, again, plain, witness):
+        assert k.dtype == torch.float32 and k.shape == p.shape
+        assert torch.equal(k, a)
+        assert _maxrel(k.cpu(), w.cpu()) < 1e-5
+        assert _maxrel(k.cpu(), p.cpu()) < 1e-4
+
+
+@pytest.mark.gpu
+def test_norm_stats_kernel_runs_once_a_live_norm(cuda):
+    """One dev fused forward takes the statistics kernel once for each of
+    its 23 live instance norms; the 6M forward (batch norms folded) never."""
+    from anatomix_tpu_torch.extract import make_feature_extractor
+    from anatomix_tpu_torch.models.load import load_model
+    from anatomix_tpu_torch.models.registry import ANATOMIX_VARIANTS
+    from anatomix_tpu_torch.models.unet import (
+        UnetConfig,
+        build_plan,
+        init_params,
+    )
+
+    plan = build_plan(UnetConfig(
+        **ANATOMIX_VARIANTS["anatomix-dev"]["unet_kwargs"]))
+    sd = {k: v.to(cuda) for k, v in init_params(
+        plan, torch.Generator().manual_seed(0)).items()}
+    x = torch.rand((1, 64, 64, 64, 1), device=cuda)
+    dev_fwd = make_feature_extractor(plan, sd, strategy="full", device=cuda)
+    n = (norm_stats_ndhwc.launches, norm_apply_ndhwc.launches)
+    y = dev_fwd(x)
+    torch.cuda.synchronize()
+    assert y.shape == (1, 64, 64, 64, 32) and bool(torch.isfinite(y).all())
+    assert norm_stats_ndhwc.launches == n[0] + 23
+    assert norm_apply_ndhwc.launches == n[1] + 23
+    plan6, sd6 = load_model("scratch", allow_scratch=True, device=cuda)
+    n = norm_stats_ndhwc.launches
+    make_feature_extractor(plan6, sd6, strategy="full", device=cuda)(x)
+    torch.cuda.synchronize()
+    assert norm_stats_ndhwc.launches == n
 
 
 @pytest.mark.gpu
@@ -1192,14 +1282,18 @@ def test_dvalid_conv_kernel_matches_plain(cuda, ci, co, pad, act, B, dl):
 
 
 @pytest.mark.gpu
-def test_one_rank_nccl_group_and_halo_exchange(cuda):
+def test_one_rank_nccl_group_and_halo_exchange(cuda, monkeypatch):
     """A world of one on NCCL: the halo exchange of CUDA tensors is the
     padding alone (reflect, replicate, zeros), the autograd all-reduce is
     the identity forward and backward, and the sharded forward equals
-    `full` bit for bit."""
+    `full` bit for bit on the same instance-norm statistics: the sharded
+    forward keeps the torch statistics (its all-reduce sits between the
+    sums and the fold), so `full` takes them too, in place of its
+    statistics kernel, which sums in another order."""
     import torch.distributed as dist
 
     from anatomix_tpu_torch.extract import make_feature_extractor
+    from anatomix_tpu_torch.models import unet_fused
     from anatomix_tpu_torch.models.unet import (
         UnetConfig,
         build_plan,
@@ -1236,6 +1330,8 @@ def test_one_rank_nccl_group_and_halo_exchange(cuda):
                                      interp="trilinear", norm_eps=1e-2))
         sd = init_params(plan, torch.Generator().manual_seed(0))
         vol = torch.rand((1, 16, 16, 16, 1), device=dev)
+        monkeypatch.setattr(unet_fused, "norm_stats_ndhwc",
+                            norm_stats_ndhwc_plain)
         full = make_feature_extractor(plan, sd, strategy="full", device=dev)
         sharded = make_feature_extractor(plan, sd, strategy="full",
                                          device=dev, mesh=mesh)

@@ -33,8 +33,18 @@ from anatomix_tpu_torch.kernels.conv import (
     conv3x3x3_ndhwc_plain,
     conv3x3x3_upcat_ndhwc,
 )
+from anatomix_tpu_torch.kernels.norm import (
+    norm_stats_ndhwc,
+    norm_stats_ndhwc_plain,
+    stats_plan,
+)
 from anatomix_tpu_torch.kernels.scatter import blend_scatter
 from anatomix_tpu_torch.ops.conv import dhwio_to_torch, pack_conv_weight
+from anatomix_tpu_torch.ops.norms import (
+    fold_affine,
+    instance_norm_stats,
+    tile_sizes,
+)
 from anatomix_tpu_torch.ops.sliding_window import gaussian_importance_axes
 
 
@@ -222,3 +232,124 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     # and the block-layout permutations of its train walk
     depth_to_space2_ndhwc(space_to_depth2_ndhwc(x))
     assert [f.launches for f in wrappers] == counts
+
+
+# -----------------------------------------------------------------------------
+# the instance-norm statistics and their affine fold (`norm_stats_ndhwc`)
+
+def _stats_f64(x, tiles, eps, scale, bias):
+    """(a, s) of each (sample, tile, channel) in float64, from the tile's
+    own voxels of the sample's own window."""
+    x = x.double().numpy()
+    B, C = x.shape[0], x.shape[-1]
+    sizes = tile_sizes(x.shape[1:4], tiles)
+    a = np.empty((B,) + tuple(map(len, sizes)) + (C,))
+    s = np.empty_like(a)
+    edges = [np.concatenate([[0], np.cumsum(sz)]) for sz in sizes]
+    for b in range(B):
+        for tz in range(len(sizes[0])):
+            for ty in range(len(sizes[1])):
+                for tx in range(len(sizes[2])):
+                    box = x[b, edges[0][tz]:edges[0][tz + 1],
+                            edges[1][ty]:edges[1][ty + 1],
+                            edges[2][tx]:edges[2][tx + 1]].reshape(-1, C)
+                    inv = 1.0 / np.sqrt(box.var(axis=0) + eps)
+                    if scale is not None:
+                        inv = inv * scale.double().numpy()
+                    shift = -box.mean(axis=0) * inv
+                    if bias is not None:
+                        shift = shift + bias.double().numpy()
+                    a[b, tz, ty, tx], s[b, tz, ty, tx] = inv, shift
+    return a, s
+
+
+@pytest.mark.parametrize("shape,tiles,affine,dtype", [
+    ((2, 8, 8, 8, 16), (1, 1, 1), False, torch.float32),   # global, B=2
+    ((2, 8, 8, 8, 16), (1, 1, 1), True, torch.bfloat16),
+    ((2, 8, 12, 8, 32), (2, 2, 2), True, torch.float32),   # even tiles
+    ((1, 88, 6, 5, 8), (3, 1, 2), False, torch.float32),   # 88 in 3 tiles
+    ((1, 88, 6, 5, 8), (3, 1, 2), True, torch.bfloat16),
+    ((2, 6, 5, 7, 12), (2, 1, 3), False, torch.bfloat16),  # C % 8 != 0
+])
+def test_norm_stats_plain_and_cpu_wrapper(shape, tiles, affine, dtype):
+    """`norm_stats_ndhwc_plain` is `instance_norm_stats` then `fold_affine`;
+    on a CPU tensor the wrapper returns it and counts no launch. Each
+    window of the batch (another offset and scale a sample) is normalised
+    on its own, as float64 statistics of its own tiles say."""
+    rng = np.random.default_rng(11)
+    B, C = shape[0], shape[-1]
+    x = rng.standard_normal(shape) * (1.0 + np.arange(B)).reshape(
+        -1, 1, 1, 1, 1) + rng.standard_normal((B, 1, 1, 1, C)) * 3.0
+    x = torch.from_numpy(x.astype(np.float32)).to(dtype)
+    scale = bias = None
+    if affine:
+        scale = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32))
+        bias = torch.from_numpy(rng.standard_normal(C).astype(np.float32))
+    eps = 1e-2
+    mean, var = instance_norm_stats(x, tiles)
+    want = fold_affine(mean, var, eps, scale, bias)
+    plain = norm_stats_ndhwc_plain(x, tiles, eps=eps, scale=scale, bias=bias)
+    before = norm_stats_ndhwc.launches
+    got = norm_stats_ndhwc(x, tiles, eps=eps, scale=scale, bias=bias)
+    assert norm_stats_ndhwc.launches == before
+    n_tiles = tuple(map(len, tile_sizes(shape[1:4], tiles)))
+    for w, p, g, r in zip(want, plain, got,
+                          _stats_f64(x, tiles, eps, scale, bias)):
+        assert w.dtype == torch.float32
+        assert w.shape == (B,) + n_tiles + (C,)
+        assert torch.equal(p, w) and torch.equal(g, w)
+        assert _maxrel(w, r) < 1e-5
+
+
+@pytest.mark.parametrize("B,spatial,C,tiles,width", [
+    (2, (128, 128, 128), 32, (1, 1, 1), 4),   # the dev path's first level
+    (2, (4, 4, 4), 1024, (1, 1, 1), 4),       # its bottleneck
+    (1, (88, 20, 22), 32, (3, 2, 3), 4),      # uneven tiles
+    (1, (40, 40, 40), 32, (3, 3, 3), 8),      # bf16
+    (2, (6, 5, 7), 12, (2, 1, 3), 1),         # one channel a thread
+    (1, (9, 3, 2), 2048, (2, 1, 1), 4),       # two channel chunks
+])
+def test_norm_stats_walk_covers_each_voxel_once(B, spatial, C, tiles, width):
+    """Pass 1's walk (`csrc/norm_apply.cu` norm_stats_partial_kernel),
+    replayed for every thread at once: each voxel of each tile is read
+    once, inside its tile, and the grid fills an H100's 132 SMs wherever
+    the tiles hold enough voxels."""
+    sizes = tile_sizes(spatial, tiles)
+    edges = [np.concatenate([[0], np.cumsum(sz)]) for sz in sizes]
+    n_tiles = len(sizes[0]) * len(sizes[1]) * len(sizes[2])
+    nblk = stats_plan(C, B * n_tiles,
+                      min(sizes[0]) * min(sizes[1]) * min(sizes[2]), width,
+                      132)
+    groups = C // width
+    per_block = min(groups, 256)
+    lanes = 256 // per_block
+    chunks = -(-groups // per_block)
+    if B * n_tiles * min(sizes[0]) * min(sizes[1]) * min(sizes[2]) >= 2**20:
+        assert B * n_tiles * nblk * chunks >= 132 * 8
+    seen = np.zeros((B,) + tuple(spatial), np.int64)
+    for t in range(n_tiles):
+        tz, ty, tx = np.unravel_index(t, tuple(map(len, sizes)))
+        z0, y0, x0 = edges[0][tz], edges[1][ty], edges[2][tx]
+        dz, dy, dx = sizes[0][tz], sizes[1][ty], sizes[2][tx]
+        n = dz * dy * dx
+        chunk = -(-n // nblk)
+        k, lane = np.meshgrid(np.arange(nblk), np.arange(lanes),
+                              indexing="ij")
+        i = (k * chunk + lane).ravel()
+        end = np.minimum(n, (k.ravel() + 1) * chunk)
+        ix, r = i % dx, i // dx
+        iy, iz = r % dy, r // dy
+        sx, q = lanes % dx, lanes // dx
+        sy, sz = q % dy, q // dy
+        while (live := i < end).any():
+            assert (ix[live] < dx).all() and (iy[live] < dy).all()
+            assert (iz[live] < dz).all()
+            np.add.at(seen, (slice(None), z0 + iz[live], y0 + iy[live],
+                             x0 + ix[live]), 1)
+            ix, iy, iz = ix + sx, iy + sy, iz + sz
+            wrap = ix >= dx
+            ix, iy = ix - wrap * dx, iy + wrap
+            wrap = iy >= dy
+            iy, iz = iy - wrap * dy, iz + wrap
+            i = i + lanes
+    assert (seen == 1).all()
