@@ -55,7 +55,12 @@ RoPE is the interleaved form (`_apply_rope`, pairs (2i, 2i+1)); the JAX
 package's rotate-half form on permuted q/k channels gives the same scores.
 `forward`'s `record` hook receives each stage's output (the tokenizer grid,
 each block's residual stream, the final norm, each decoder GEMM), which
-`chip_smoke.py` reads to bisect the bf16 path's error.
+`chip_smoke.py` reads to bisect the bf16 path's error. `record_function`
+ranges (opened only while a profiler runs, `utils/profiling.annotate`):
+`vit/tokenizer` around the tokenizer, per block `vit/attention` (norm1, the
+projections, qk-norm, RoPE, V3, the inner norm and proj) and `vit/mlp`
+(norm2 and the SwiGLU MLP), and `vit/decoder` around the decoder and its
+exit.
 """
 
 from __future__ import annotations
@@ -117,6 +122,7 @@ from anatomix_tpu_torch.ops.norms import (
     instance_norm_stats,
     tile_maps,
 )
+from anatomix_tpu_torch.utils.profiling import annotate
 
 PRIMUS_CONFIGS = {
     "S": {"eva_depth": 12, "eva_numheads": 6, "embed_dim": 396},
@@ -630,10 +636,12 @@ class Primus(nn.Module):
     def _block(self, blk, tokens, ops, cd):
         """One EVA block on the f32 residual stream."""
         gamma = self.cfg.init_values is not None
-        a = self._attention(blk, blk.norm1(tokens), ops, cd)
+        with annotate("vit/attention"):
+            a = self._attention(blk, blk.norm1(tokens), ops, cd)
         tokens = tokens + (a * blk.gamma1 if gamma else a)
-        h = blk.norm2(tokens)
-        m = blk.mlp_w3(F.silu(blk.mlp_w1(h)) * blk.mlp_w2(h))
+        with annotate("vit/mlp"):
+            h = blk.norm2(tokens)
+            m = blk.mlp_w3(F.silu(blk.mlp_w1(h)) * blk.mlp_w2(h))
         return tokens + (m * blk.gamma2 if gamma else m)
 
     def _unembed(self, tokens):
@@ -666,8 +674,9 @@ class Primus(nn.Module):
         cd = compute_dtype
         p = self._pack(cd)
         x = x.float().contiguous()
-        grid = (self._tokenizer(x, p, ops, cd) if cfg.version == "v2"
-                else self._tokenizer_v1(x, p, ops))
+        with annotate("vit/tokenizer"):
+            grid = (self._tokenizer(x, p, ops, cd) if cfg.version == "v2"
+                    else self._tokenizer_v1(x, p, ops))
         if record is not None:
             record("tokenizer", grid)
         tokens = self._embed(grid)
@@ -678,7 +687,8 @@ class Primus(nn.Module):
         grid = self._unembed(tokens)
         if record is not None:
             record("final norm", grid)
-        return self._decoder(grid, p, ops, cd, emit, record)
+        with annotate("vit/decoder"):
+            return self._decoder(grid, p, ops, cd, emit, record)
 
 
 def primus_apply(cfg: PrimusConfig, state_dict: dict[str, torch.Tensor],

@@ -12,8 +12,10 @@ A window function may return its windows as the folded rows `(B, r0, r1,
 r2 C / 128, 128)` (the ViT's fold exit, f32 or bf16): they are the same
 bytes as `(B, r0, r1, r2, C)`, taken as a view. `record_function` ranges
 (opened only while a profiler runs, `utils/profiling.annotate`):
-`sliding/setup` (the pad to roi, window starts, the Gaussian maps, the
-blend weight map, the copies to the device and the canvas), then per chunk
+`sliding/setup` (the pad to roi, window starts, the blend weight map, the
+copies to the device and the canvas; the Gaussian maps are made once per
+roi, sigma, mode and device, `importance_tables`, as the JAX package makes
+them once per trace), then per chunk
 `sliding/gather` (the stack of its windows) and `sliding/stitch` (the cast
 and `blend_scatter`), and `sliding/finish` (the all-reduce on a mesh,
 `acc / weight` and the crop); the window function runs outside them.
@@ -21,6 +23,7 @@ and `blend_scatter`), and `sliding/finish` (the all-reduce on a mesh,
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable
 
@@ -60,6 +63,31 @@ def gaussian_importance_map(roi_size, sigma_scale: float = 0.25) -> np.ndarray:
     return np.clip(m, minv, None).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=4)
+def importance_tables(roi_size: tuple, sigma_scale: float, mode: str,
+                      device: torch.device):
+    """The blend's tables for one roi, shared by every call that asks for
+    them (read only): the importance map (f32 on `device`), its per-axis
+    factors (f32 on `device`) and the clamp floor. Building the 128^3 map
+    on the host takes tens of ms, the larger part of a window loop's
+    host-only set-up."""
+    if mode == "gaussian":
+        axes, minv = gaussian_importance_axes(roi_size, sigma_scale)
+        imp = gaussian_importance_map(roi_size, sigma_scale)
+    elif mode == "constant":
+        axes, minv = [np.ones(r) for r in roi_size], 0.0
+        imp = np.ones(roi_size, np.float32)
+    else:
+        raise ValueError(f"Unsupported blend mode: {mode}")
+    # normal tensors even when the first caller runs in inference mode, so
+    # that a later caller under autograd may use them too
+    with torch.inference_mode(False):
+        factors = tuple(torch.as_tensor(a, dtype=torch.float32,
+                                        device=device) for a in axes)
+        return (torch.as_tensor(imp, dtype=torch.float32, device=device),
+                factors, minv)
+
+
 def compute_window_starts(image_size, roi_size, overlap: float) -> np.ndarray:
     """Dense window starts, MONAI `dense_patch_slices` semantics: per axis
     interval int(roi * (1 - overlap)) (roi if <= 0), ceil((img - roi) /
@@ -79,7 +107,8 @@ def compute_window_starts(image_size, roi_size, overlap: float) -> np.ndarray:
     return np.stack([g.reshape(-1) for g in grid], axis=-1).astype(np.int32)
 
 
-def blend_weight_map(image_size, starts: np.ndarray, imp: np.ndarray,
+def blend_weight_map(image_size, starts: np.ndarray,
+                     imp: np.ndarray | torch.Tensor,
                      device="cpu") -> torch.Tensor:
     """Sum of importance maps over all window placements (f32, in window
     order, on `device`)."""
@@ -147,18 +176,12 @@ def sliding_window_inference(
         spatial = tuple(padded.shape[1:4])
 
         starts_np = compute_window_starts(spatial, roi_size, overlap)
-        if mode == "gaussian":
-            axes, minv = gaussian_importance_axes(roi_size, sigma_scale)
-            imp_np = gaussian_importance_map(roi_size, sigma_scale)
-        elif mode == "constant":
-            axes, minv = [np.ones(r) for r in roi_size], 0.0
-            imp_np = np.ones(roi_size, np.float32)
-        else:
-            raise ValueError(f"Unsupported blend mode: {mode}")
+        imp, (gd, gh, gw), minv = importance_tables(
+            roi_size, float(sigma_scale), mode, dev)
         hi = np.asarray(spatial) - np.asarray(roi_size)
         if (starts_np < 0).any() or (starts_np > hi).any():
             raise ValueError("window starts out of bounds")
-        weight = blend_weight_map(spatial, starts_np, imp_np, device=dev)
+        weight = blend_weight_map(spatial, starts_np, imp, device=dev)
 
         n_real = len(starts_np)
         group, n_shards, shard = None, 1, 0
@@ -180,9 +203,6 @@ def sliding_window_inference(
         mask_all[:n_real] = 1
         starts_dev = torch.from_numpy(starts_all).to(dev)
         mask_dev = torch.from_numpy(mask_all).to(dev)
-        gd, gh, gw = (
-            torch.as_tensor(a, dtype=torch.float32, device=dev) for a in axes
-        )
 
         r0, r1, r2 = roi_size
         vol3d = padded[0]

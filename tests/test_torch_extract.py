@@ -95,6 +95,35 @@ def test_sliding_window_inference_matches_jax_toy_model():
                                rtol=1e-4)
 
 
+def test_importance_tables_are_made_once_and_shared():
+    """The Gaussian tables a window loop blends with are built once per
+    roi, sigma, mode and device, equal the uncached maps, and stay normal
+    tensors when the first call ran in inference mode."""
+    roi = (12, 10, 8)
+    sw.importance_tables.cache_clear()
+    vol = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (1, 20, 17, 8, 1)).astype(np.float32))
+    kw = dict(roi_size=roi, sw_batch_size=2, overlap=0.5, mode="gaussian")
+    with torch.inference_mode():
+        first = sw.sliding_window_inference(vol, torch.tanh, 1, **kw)
+    second = sw.sliding_window_inference(vol, torch.tanh, 1, **kw)
+    assert torch.equal(first, second)
+    info = sw.importance_tables.cache_info()
+    assert (info.misses, info.hits) == (1, 1)
+    imp, factors, minv = sw.importance_tables(roi, 0.25, "gaussian",
+                                              torch.device("cpu"))
+    np.testing.assert_array_equal(imp.numpy(),
+                                  sw.gaussian_importance_map(roi, 0.25))
+    axes, ref_minv = sw.gaussian_importance_axes(roi, 0.25)
+    for f, a in zip(factors, axes):
+        np.testing.assert_array_equal(f.numpy(), a.astype(np.float32))
+    assert minv == ref_minv
+    assert not imp.is_inference()
+    w = torch.ones(roi[2], requires_grad=True)
+    (factors[2] * w).sum().backward()
+    np.testing.assert_array_equal(w.grad.numpy(), axes[2].astype(np.float32))
+
+
 def test_normalizations_match_jax():
     rng = np.random.default_rng(2)
     arr = rng.uniform(-100, 900, (6, 5, 4)).astype(np.float32)

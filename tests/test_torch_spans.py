@@ -102,3 +102,35 @@ def test_no_range_without_a_profiler(case, monkeypatch):
     with profiling.annotate(OUTER):
         untraced = fn(_volume())
     assert torch.equal(untraced, traced)
+
+
+def test_vit_forward_spans():
+    """A small ViT forward opens `vit/tokenizer`, then `vit/attention` and
+    `vit/mlp` once a block, then `vit/decoder`; with no profiler running,
+    `annotate` hands out the shared no-op and the output is the same."""
+    from anatomix_tpu_torch.models.vit3d import (
+        Primus,
+        PrimusConfig,
+        init_primus_params,
+    )
+
+    cfg = PrimusConfig(embed_dim=24, eva_depth=2, eva_numheads=2,
+                       input_shape=(16, 16, 16), num_register_tokens=2,
+                       num_classes=8, tokenizer_base_features=4,
+                       qk_norm=True, scale_attn_inner=True,
+                       out_norm="demean")
+    model = Primus.from_state_dict(
+        cfg, init_primus_params(cfg, torch.Generator().manual_seed(0)),
+        device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).random(
+        (1, 16, 16, 16, 1)).astype(np.float32))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = model(x, compute_dtype=torch.float32)
+    order = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.name.startswith("vit/")]
+    assert order == (["vit/tokenizer"]
+                     + ["vit/attention", "vit/mlp"] * cfg.eva_depth
+                     + ["vit/decoder"])
+    assert profiling.annotate("vit/attention") is profiling._OFF
+    assert torch.equal(model(x, compute_dtype=torch.float32), traced)
