@@ -17,6 +17,12 @@ the public functions: q, k, v and dO are `(B, H, N, hd)` bf16, the output
 ragged tail is masked in the kernels), any even hd up to 128 forward and up
 to 80 backward (zero-filled to a multiple of 16 in shared memory).
 
+`qkv_prologue` feeds the forward in the ViT's EVA blocks: from the f32
+(B, N, H hd) q/k/v projections it takes the per-head q/k LayerNorm and the
+interleaved RoPE in f32 and stores the three bf16 (B, H, N, hd) operands in
+one launch (`csrc/flash_attention.cu`, `qkv_prologue_kernel`); it replaces
+no Pallas kernel, since the JAX package leaves that work to XLA.
+
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain version (f32 arithmetic on the same inputs, rounded where
 the kernel rounds). Each wrapper counts its launches in `.launches`.
@@ -32,11 +38,15 @@ import contextlib
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from anatomix_tpu_torch.kernels import build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    # q, k, v, q_w, q_b, k_w, k_b, cos, sin, qo, ko, vo; B, N, H, hd, R;
+    # eps; stream
+    "qkv_prologue": [_P] * 12 + [_I] * 5 + [_F, _P],
     # q, k, v, out, lse; BH, N, hd; scale; stream
     "flash_attention": [_P] * 5 + [_I] * 3 + [_F, _P],
     # q, k, v, dout, lse, di, dk, dv; BH, N, hd; scale; stream
@@ -119,6 +129,33 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
     di = attention_di(o, do)
     dk, dv = flash_attention_bwd_dkv_plain(q, k, v, lse, do, di, scale)
     return flash_attention_bwd_dq_plain(q, k, v, lse, do, di, scale), dk, dv
+
+
+def qkv_prologue_plain(q, k, v, heads: int, *, q_norm=None, k_norm=None,
+                       rope=None, registers: int = 0, eps: float = 1e-5,
+                       out_dtype: torch.dtype = torch.bfloat16):
+    """The EVA block's attention prologue in torch, as the ViT composed it
+    before `qkv_prologue`: q, k and v (B, N, heads hd) f32 from the
+    projections -> `(q, k, v)` (B, heads, N, hd) in `out_dtype`,
+    contiguous. q and k take the per-head LayerNorm when `q_norm` and
+    `k_norm` give its (weight, bias) over hd (eps `eps`), then, with `rope =
+    (cos, sin)` (each (N - registers, hd / 2)), the interleaved RoPE of
+    every token after the first `registers`; f32 arithmetic, one rounding."""
+    # the model's module imports this one
+    from anatomix_tpu_torch.models.vit3d.primus import _apply_rope
+
+    B, N, D = q.shape
+    hd = D // heads
+    q, k, v = (t.view(B, N, heads, hd) for t in (q, k, v))
+    if q_norm is not None:
+        q = F.layer_norm(q, (hd,), *q_norm, eps)
+        k = F.layer_norm(k, (hd,), *k_norm, eps)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, N, hd)
+    if rope is not None:
+        R = registers
+        q = torch.cat([q[:, :, :R], _apply_rope(q[:, :, R:], *rope)], dim=2)
+        k = torch.cat([k[:, :, :R], _apply_rope(k[:, :, R:], *rope)], dim=2)
+    return tuple(t.to(out_dtype).contiguous() for t in (q, k, v))
 
 
 # -----------------------------------------------------------------------------
@@ -225,6 +262,87 @@ def flash_attention_bwd_dq(q, k, v, lse, do, di, scale: float):
 
 
 flash_attention_bwd_dq.launches = 0
+
+
+def _check_prologue(q, k, v, heads, q_norm, k_norm, rope, registers,
+                    out_dtype):
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"the kernel stores bf16, not {out_dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (t.device != q.device or t.dtype != torch.float32
+                or t.dim() != 3 or t.shape != q.shape
+                or not t.is_contiguous() or t.data_ptr() % 8):
+            raise ValueError(
+                f"{name} must be a contiguous 8-byte aligned f32 (B, N, D) "
+                f"tensor of q's shape {tuple(q.shape)} on {q.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    B, N, D = q.shape
+    hd = D // heads if heads > 0 else 0
+    if heads < 1 or hd * heads != D or hd % 2 or not 2 <= hd <= 128:
+        raise ValueError(f"the kernel takes D = heads hd with an even hd <= "
+                         f"128; got D {D}, heads {heads}")
+    if not 0 <= registers <= N:
+        raise ValueError(f"registers must lie in [0, N = {N}], got "
+                         f"{registers}")
+    if (q_norm is None) != (k_norm is None):
+        raise ValueError("q_norm and k_norm come together")
+    named = [(f"{n}_norm {part}", t, (hd,))
+             for n, pair in (("q", q_norm), ("k", k_norm)) if pair is not None
+             for part, t in zip(("weight", "bias"), pair)]
+    if rope is not None:
+        named += [(name, t, (N - registers, hd // 2))
+                  for name, t in zip(("cos", "sin"), rope)]
+    for name, t, shape in named:
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.data_ptr() % 8):
+            raise ValueError(
+                f"{name} must be a contiguous 8-byte aligned f32 {shape} "
+                f"tensor on {q.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+
+
+def qkv_prologue(
+    q: torch.Tensor,  # (B, N, heads hd) f32
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    *,
+    q_norm=None,
+    k_norm=None,
+    rope=None,
+    registers: int = 0,
+    eps: float = 1e-5,
+    out_dtype: torch.dtype = torch.bfloat16,
+):
+    """`qkv_prologue_plain` in one launch: the LayerNorms and the rotation in
+    f32, each of q, k and v rounded once into the contiguous bf16 (B, heads,
+    N, hd) that `flash_attention` takes (bf16 is the only `out_dtype` the
+    kernel stores)."""
+    kw = dict(q_norm=q_norm, k_norm=k_norm, rope=rope, registers=registers,
+              eps=eps, out_dtype=out_dtype)
+    if q.device.type == "cpu":
+        return qkv_prologue_plain(q, k, v, heads, **kw)
+    _check_prologue(q, k, v, heads, q_norm, k_norm, rope, registers,
+                    out_dtype)
+    B, N, D = q.shape
+    hd = D // heads
+    outs = tuple(torch.empty((B, heads, N, hd), dtype=torch.bfloat16,
+                             device=q.device) for _ in range(3))
+    (q_w, q_b), (k_w, k_b) = (
+        (p if p is not None else (None, None)) for p in (q_norm, k_norm))
+    cos, sin = rope if rope is not None else (None, None)
+    ptrs = [t.data_ptr() if t is not None else None
+            for t in (q, k, v, q_w, q_b, k_w, k_b, cos, sin, *outs)]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _fn("qkv_prologue")(*ptrs, B, N, heads, hd, registers, float(eps),
+                             stream)
+    build.check(rc, "qkv_prologue")
+    qkv_prologue.launches += 1
+    return outs
+
+
+qkv_prologue.launches = 0
 
 
 # -----------------------------------------------------------------------------

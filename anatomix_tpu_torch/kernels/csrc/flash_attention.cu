@@ -1,6 +1,8 @@
 // Non-causal attention softmax(q k^T * scale) v over (B, H, N, hd) bf16 and
 // its backward, written by hand for Hopper (sm_90a), with a plain C
-// interface for ctypes.
+// interface for ctypes; beside them the ViT's attention prologue (the
+// per-head q/k LayerNorm, RoPE and the bf16 (B, H, N, hd) pack of q, k and
+// v: `qkv_prologue`, at the end of the file).
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   V3      anatomix_tpu/models/vit3d/primus.py  _flash_attention
@@ -805,6 +807,166 @@ bool bad_bwd_shape(int BH, int N, int hd) {
   return N <= 0 || hd <= 0 || hd % 2 || hd > 80 || BH <= 0 || BH > 65535;
 }
 
+
+// ---------------------------------------------------------------------------
+// The attention prologue of an EVA block, between the q/k/v projections and
+// the forward above. It replaces no Pallas kernel: the JAX package leaves
+// the per-head q/k LayerNorm, the rotary embedding and the cast to XLA.
+// The projections leave q, k and v as (B, N, H hd) f32, which is (rows, hd)
+// with a row per (sample, token, head). Per row, in f32: for q and k, the
+// LayerNorm over hd (biased variance, eps, affine) when given its
+// parameters, then, when given the tables and the token n is not one of
+// the first R (the registers), the rotation of the interleaved pairs
+// (2i, 2i + 1) by the cos/sin row of token n - R, its products and sums in
+// the plain version's order (x0 c - x1 s, x0 s + x1 c; no contraction into
+// FMAs); v only moves. Each row is rounded once to bf16 and stored into
+// (B, H, N, hd), the layout the forward reads.
+//
+// What bounds it: bytes. At B2 N4104 H6 hd66 a call reads 39 MB of f32 and
+// writes 19.5 MB of bf16 (17.5 us at 3.35 TB/s); the arithmetic is a few
+// flops a byte. So the design is one pass with every load in flight early:
+// a warp owns PRO_RW consecutive rows (consecutive heads of a token: 1056
+// contiguous bytes at hd 66), lane l holds pairs l and l + 32 (hd <= 128)
+// as 8-byte float2 loads (a row starts at an even float, so every pair is
+// 8-byte aligned), all issued before any arithmetic. The mean and the
+// variance come from registers by xor shuffles (every lane ends with the
+// same bits), two passes over the registers, the rows' shuffles side by
+// side so that their latencies overlap; no atomics, so two launches give
+// the same bits. Each lane stores one bf16x2 a pair. The affines are read
+// once a warp; the tables (1.1 MB at the cell's shape) stay in L2.
+// blockIdx.y picks q, k or v, so the branches on the norm and the rotation
+// are uniform in a block.
+constexpr int PRO_THREADS = 256;
+constexpr int PRO_RW = 4;  // rows a warp
+
+// Fields by name, picked by blockIdx.y through selects: an array indexed
+// by it would copy the whole argument block to each thread's stack.
+struct PrologueArgs {
+  const float *q, *k, *v;       // (rows, hd) f32
+  __nv_bfloat16 *qo, *ko, *vo;  // (B, H, N, hd) bf16
+  const float *q_w, *q_b;       // q_norm weight and bias (hd): null: no norm
+  const float *k_w, *k_b;
+  const float* cos;             // (N - R, hd / 2) f32: null: no rotation
+  const float* sin;
+  int64_t rows;                 // B N H
+  int N, H, hd, R;
+  float eps;
+};
+
+__global__ void __launch_bounds__(PRO_THREADS)
+qkv_prologue_kernel(const PrologueArgs a) {
+  const int t = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int np = a.hd >> 1;
+  const int64_t row0 =
+      ((int64_t)blockIdx.x * (PRO_THREADS / 32) + (threadIdx.x >> 5)) *
+      PRO_RW;
+  const float2* src =
+      reinterpret_cast<const float2*>(t == 0 ? a.q : t == 1 ? a.k : a.v);
+  // slot s of a row: pair lane + 32 s; rows past the last hold zeros,
+  // which normalize to finite values and are not stored
+  bool slot[2];
+  float2 x[PRO_RW][2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) slot[s] = lane + 32 * s < np;
+#pragma unroll
+  for (int j = 0; j < PRO_RW; ++j) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      x[j][s] = row0 + j < a.rows && slot[s]
+                    ? __ldg(src + (row0 + j) * np + lane + 32 * s)
+                    : make_float2(0.f, 0.f);
+    }
+  }
+  if (t < 2 && a.q_w != nullptr) {
+    const float2* w = reinterpret_cast<const float2*>(t ? a.k_w : a.q_w);
+    const float2* b = reinterpret_cast<const float2*>(t ? a.k_b : a.q_b);
+    float2 wp[2], bp[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      wp[s] = slot[s] ? __ldg(w + lane + 32 * s) : make_float2(0.f, 0.f);
+      bp[s] = slot[s] ? __ldg(b + lane + 32 * s) : make_float2(0.f, 0.f);
+    }
+    // the rows' sums side by side, so their shuffles overlap
+    float mean[PRO_RW], m2[PRO_RW];
+#pragma unroll
+    for (int j = 0; j < PRO_RW; ++j) {
+      mean[j] = (x[j][0].x + x[j][0].y) + (x[j][1].x + x[j][1].y);
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+#pragma unroll
+      for (int j = 0; j < PRO_RW; ++j) {
+        mean[j] += __shfl_xor_sync(0xffffffffu, mean[j], m);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < PRO_RW; ++j) {
+      mean[j] = __fdiv_rn(mean[j], (float)a.hd);
+      m2[j] = 0.f;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (slot[s]) {
+          const float d0 = x[j][s].x - mean[j], d1 = x[j][s].y - mean[j];
+          m2[j] += d0 * d0 + d1 * d1;
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) {
+#pragma unroll
+      for (int j = 0; j < PRO_RW; ++j) {
+        m2[j] += __shfl_xor_sync(0xffffffffu, m2[j], m);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < PRO_RW; ++j) {
+      const float rstd = __frsqrt_rn(
+          __fadd_rn(__fdiv_rn(m2[j], (float)a.hd), a.eps));
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        x[j][s].x = __fadd_rn(
+            __fmul_rn(__fmul_rn(__fsub_rn(x[j][s].x, mean[j]), rstd),
+                      wp[s].x),
+            bp[s].x);
+        x[j][s].y = __fadd_rn(
+            __fmul_rn(__fmul_rn(__fsub_rn(x[j][s].y, mean[j]), rstd),
+                      wp[s].y),
+            bp[s].y);
+      }
+    }
+  }
+  const bool rope = t < 2 && a.cos != nullptr;
+  __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(
+      t == 0 ? a.qo : t == 1 ? a.ko : a.vo);
+  // (sample, token, head) of the first row, by one 32-bit division each
+  // (rows < 2^31); the next rows step the head
+  const int r0 = (int)row0;
+  int h = r0 % a.H, n = (r0 / a.H) % a.N, bi = r0 / a.H / a.N;
+#pragma unroll
+  for (int j = 0; j < PRO_RW; ++j) {
+    if (row0 + j >= a.rows) break;  // the same for the whole warp
+    if (j > 0 && ++h == a.H) {
+      h = 0;
+      if (++n == a.N) n = 0, ++bi;
+    }
+    __nv_bfloat162* dst = out + (((int64_t)bi * a.H + h) * a.N + n) * np;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if (!slot[s]) continue;
+      const int p = lane + 32 * s;
+      float y0 = x[j][s].x, y1 = x[j][s].y;
+      if (rope && n >= a.R) {
+        const int64_t i = (int64_t)(n - a.R) * np + p;
+        const float c = __ldg(a.cos + i), sn = __ldg(a.sin + i);
+        y0 = __fsub_rn(__fmul_rn(x[j][s].x, c), __fmul_rn(x[j][s].y, sn));
+        y1 = __fadd_rn(__fmul_rn(x[j][s].x, sn), __fmul_rn(x[j][s].y, c));
+      }
+      dst[p] = __floats2bfloat162_rn(y0, y1);
+    }
+  }
+}
+
 }  // namespace
 
 // q, k, v, out: contiguous (BH, N, hd) bf16, hd even and at most 128;
@@ -861,4 +1023,51 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
   }
   BwdArgs a{q, k, v, dout, lse, di, dq, nullptr, nullptr, BH, N, hd, scale};
   return static_cast<int>(dispatch_dq(a, static_cast<cudaStream_t>(stream)));
+}
+
+// The attention prologue (above `qkv_prologue_kernel`): q, k, v contiguous
+// (B, N, H hd) f32, 8-byte aligned; qo, ko, vo contiguous (B, H, N, hd)
+// bf16; hd even and at most 128. q_w, q_b, k_w, k_b: the (hd) f32 affines
+// of the per-head LayerNorms, all null for none; cos, sin: (N - R, hd / 2)
+// f32 rotary tables, both null for no rotation; R in [0, N] register tokens
+// come first and are not rotated.
+extern "C" int qkv_prologue(const void* q, const void* k, const void* v,
+                            const void* q_w, const void* q_b,
+                            const void* k_w, const void* k_b,
+                            const void* cos, const void* sin, void* qo,
+                            void* ko, void* vo, int B, int N, int H, int hd,
+                            int R, float eps, void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0 || hd <= 0 || hd % 2 || hd > 128 ||
+      R < 0 || R > N || (q_w == nullptr) != (k_w == nullptr) ||
+      (cos == nullptr) != (sin == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PrologueArgs a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.qo = static_cast<__nv_bfloat16*>(qo);
+  a.ko = static_cast<__nv_bfloat16*>(ko);
+  a.vo = static_cast<__nv_bfloat16*>(vo);
+  a.q_w = static_cast<const float*>(q_w);
+  a.q_b = static_cast<const float*>(q_b);
+  a.k_w = static_cast<const float*>(k_w);
+  a.k_b = static_cast<const float*>(k_b);
+  a.cos = static_cast<const float*>(cos);
+  a.sin = static_cast<const float*>(sin);
+  a.rows = (int64_t)B * N * H;
+  a.N = N;
+  a.H = H;
+  a.hd = hd;
+  a.R = R;
+  a.eps = eps;
+  // the kernel's (sample, token, head) arithmetic is 32-bit
+  if (a.rows > 2147483647 - 64) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int per_block = PRO_THREADS / 32 * PRO_RW;
+  dim3 grid(static_cast<unsigned>((a.rows + per_block - 1) / per_block), 3);
+  qkv_prologue_kernel<<<grid, PRO_THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

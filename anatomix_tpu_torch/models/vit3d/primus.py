@@ -33,9 +33,12 @@ torch layouts (`convert.from_jax_primus_params`). Its forward runs, in
   f32 volume: the LayerNorm divides out each patch's mean, so on a smooth
   volume what is left is the small variation within a patch, against which
   a bf16 rounding of the input (relative to the mean) would not be small;
-- attention on `flash_attention` (V3), with q, k and v cast to the compute
-  dtype as the JAX package does; the residual stream, the linears, the
-  LayerNorms, RoPE and the MLP are f32 torch glue, as they are XLA in JAX;
+- attention on `flash_attention` (V3), fed by `qkv_prologue`, which takes
+  the f32 q/k/v projections through the per-head q/k LayerNorm and RoPE in
+  f32 and stores q, k and v once in the compute dtype, in V3's (B, H, N,
+  hd) layout (the JAX package casts them as well); the residual stream,
+  the linears, the other LayerNorms and the MLP are f32 torch glue, as they
+  are XLA in JAX;
 - the decoder's GEMMs on `torch.matmul` in the compute dtype. With three
   stages and `emit="spatial"` it runs in block space (the JAX package's
   `_decoder_block_space`) and exits on `depth_to_space8_ndhwc` (V1), which
@@ -58,7 +61,7 @@ each block's residual stream, the final norm, each decoder GEMM), which
 `chip_smoke.py` reads to bisect the bf16 path's error. `record_function`
 ranges (opened only while a profiler runs, `utils/profiling.annotate`):
 `vit/tokenizer` around the tokenizer, per block `vit/attention` (norm1, the
-projections, qk-norm, RoPE, V3, the inner norm and proj) and `vit/mlp`
+projections, the prologue, V3, the inner norm and proj) and `vit/mlp`
 (norm2 and the SwiGLU MLP), and `vit/decoder` around the decoder and its
 exit.
 """
@@ -79,6 +82,8 @@ from anatomix_tpu_torch.device import resolve_device
 from anatomix_tpu_torch.kernels.attention import (
     flash_attention,
     flash_attention_plain,
+    qkv_prologue,
+    qkv_prologue_plain,
 )
 from anatomix_tpu_torch.kernels.conv import (
     conv3x3x3_ndhwc,
@@ -137,6 +142,7 @@ TOKENIZER_LRELU_SLOPE = 0.01
 
 _KERNELS = SimpleNamespace(conv=conv3x3x3_ndhwc, down=conv_down2_ndhwc,
                            norm=norm_apply_ndhwc, attn=flash_attention,
+                           prologue=qkv_prologue,
                            d2s8=depth_to_space8_ndhwc,
                            d2s2=depth_to_space2_ndhwc,
                            s2d2=space_to_depth2_ndhwc,
@@ -147,6 +153,7 @@ _PLAIN = SimpleNamespace(conv=conv3x3x3_ndhwc_plain,
                          down=conv_down2_ndhwc_plain,
                          norm=norm_apply_ndhwc_plain,
                          attn=flash_attention_plain,
+                         prologue=qkv_prologue_plain,
                          d2s8=depth_to_space8_ndhwc_plain,
                          d2s2=depth_to_space2_ndhwc_plain,
                          s2d2=space_to_depth2_ndhwc_plain,
@@ -517,21 +524,16 @@ class Primus(nn.Module):
     def _attention(self, blk, h, ops, cd):
         cfg = self.cfg
         B, N, D = h.shape
-        H, hd, R = cfg.eva_numheads, cfg.head_dim, cfg.num_register_tokens
-        q = blk.q_proj(h).view(B, N, H, hd)
-        k = blk.k_proj(h).view(B, N, H, hd)
-        v = blk.v_proj(h).view(B, N, H, hd)
-        if cfg.qk_norm:
-            q, k = blk.q_norm(q), blk.k_norm(k)
-        q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, N, hd)
-        if cfg.use_rot_pos_emb:
-            cos, sin = self.rope_cos, self.rope_sin
-            q = torch.cat([q[:, :, :R], _apply_rope(q[:, :, R:], cos, sin)],
-                          dim=2)
-            k = torch.cat([k[:, :, :R], _apply_rope(k[:, :, R:], cos, sin)],
-                          dim=2)
-        o = ops.attn(*(t.to(cd).contiguous() for t in (q, k, v)),
-                     1.0 / math.sqrt(hd))
+        qk = (dict(q_norm=(blk.q_norm.weight, blk.q_norm.bias),
+                   k_norm=(blk.k_norm.weight, blk.k_norm.bias),
+                   eps=blk.q_norm.eps) if cfg.qk_norm else {})
+        rope = ((self.rope_cos, self.rope_sin) if cfg.use_rot_pos_emb
+                else None)
+        # the (B, H, N, hd) operands of V3 in the compute dtype
+        q, k, v = ops.prologue(
+            blk.q_proj(h), blk.k_proj(h), blk.v_proj(h), cfg.eva_numheads,
+            rope=rope, registers=cfg.num_register_tokens, out_dtype=cd, **qk)
+        o = ops.attn(q, k, v, 1.0 / math.sqrt(cfg.head_dim))
         o = o.transpose(1, 2).reshape(B, N, D).float()
         if cfg.scale_attn_inner:
             o = blk.attn_inner_norm(o)

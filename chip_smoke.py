@@ -200,6 +200,11 @@ phase 11's dev part alone (with `--profile`: the dev profiles alone);
 `--norm-stats` runs phase 1, then the statistics kernel's rows alone
 (`norm_stats_ndhwc` against its torch version at the dev paths' shapes,
 both timed from DRAM, and two launches' max|diff|);
+`--qkv-prologue` runs phase 1, then the attention prologue's rows alone
+(`qkv_prologue` at the ViT cell's call and at hd 72 against its torch
+version, both timed from DRAM beside the bytes bound, the kernel's device
+time from the profiler, two launches compared bit for bit;
+`chiprun_out/chip_qkv_prologue.json`);
 `--dgrad-split`
 runs phase 1, then times the 6M step's 19 reflect input gradients apart
 into conv, fold and glue, and the step itself in rounds
@@ -817,6 +822,89 @@ def norm_stats_checks(kn, torch, dev, gen) -> list:
     rows.append(check_norm_stats(kn, torch, dev, gen, 2, (128,) * 3, 32,
                                  (1, 1, 1), "bfloat16"))
     return rows
+
+
+def check_qkv_prologue(ka, torch, dev, gen, B, N, heads, hd, R,
+                       qk_norm=True, rope=True):
+    """qkv_prologue on (B, N, heads hd) f32 projections (a per-channel
+    offset, as the biases give) against its plain version on the card:
+    torch's LayerNorm, the rotation, the cats and the cast, the composition
+    the ViT ran before the kernel, so `plain_ms` is torch's time for the
+    same prologue. Both timed from DRAM (`cold_ms`), the kernel's device time
+    from the profiler; v bit for bit, q and k within one bf16 ulp (or four
+    f32 ulps of the largest value, near zero) with under 0.1 % of the
+    elements differing, two launches bit for bit. The bound:
+    one read of the three f32 projections, one bf16 store of each (the
+    tables and affines stay in L2); 58.5 MB at the ViT cell's shape."""
+    D = heads * hd
+    q, k, v = (torch.randn((B, N, D), generator=gen, device=dev) * 1.5
+               + torch.randn((D,), generator=gen, device=dev) * 0.5
+               for _ in range(3))
+    kw = dict(registers=R)
+    if qk_norm:
+        kw["q_norm"], kw["k_norm"] = (
+            (1 + 0.1 * torch.randn((hd,), generator=gen, device=dev),
+             0.05 * torch.randn((hd,), generator=gen, device=dev))
+            for _ in range(2))
+    if rope:
+        angles = torch.rand((N - R, hd // 2), generator=gen,
+                            device=dev) * 6.3 - 3.15
+        kw["rope"] = (torch.cos(angles), torch.sin(angles))
+
+    def run():
+        return ka.qkv_prologue(q, k, v, heads, **kw)
+
+    def plain():
+        return ka.qkv_prologue_plain(q, k, v, heads, **kw)
+
+    got, again, ref = run(), run(), plain()
+    torch.cuda.synchronize()
+    repeats = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    v_equal = bool(torch.equal(got[2], ref[2]))
+    # one bf16 ulp of each element, or four f32 ulps of the largest value
+    # where the rotation's difference leaves an element near zero
+    within_ulp, flips, beyond = True, 0.0, []
+    for a, r in zip(got[:2], ref[:2]):
+        a, r = a.float(), r.float()
+        big = torch.maximum(a.abs(), r.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+        excess = (a - r).abs() - ulp
+        beyond += [int((excess > 0).sum()), float(excess.max())]
+        f32 = 2.0 ** -22 * float(r.abs().max())
+        within_ulp = within_ulp and bool((excess <= f32).all())
+        flips = max(flips, float((a != r).float().mean()))
+    err, rel = max((rel_err(a, r) for a, r in zip(got, ref)),
+                   key=lambda e: e[1])
+    ms = cold_ms(run)
+    plain_ms = cold_ms(plain)
+    device = kernel_ms(torch, run, "qkv_prologue")
+    nbytes = 3 * B * N * D * (4 + 2)
+    b_ms, b_by = bound(0.0, nbytes)
+    shape = (f"B{B} N{N} H{heads} hd{hd} R{R}"
+             + (" qk-norm" if qk_norm else "") + (" rope" if rope else ""))
+    log(f"[qkv-prologue] {shape}: {nbytes / 1e6:.1f} MB, bound "
+        f"{b_ms * 1e3:.2f} us; kernel {ms * 1e3:.2f} us from events, device "
+        + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in device.items())
+        + f"; torch {plain_ms * 1e3:.2f} us; v bit-equal {v_equal}, q/k "
+        f"within one ulp {within_ulp} (past one bf16 ulp, q and k: count, "
+        f"largest excess {beyond}), differing {100 * flips:.4f} %, two "
+        f"launches bit-equal {repeats}")
+    return dict(
+        shape=shape, max_abs_err=err, rel_err=rel, tol=TOL_CONV_BF16,
+        ok=(rel < TOL_CONV_BF16 and repeats and v_equal and within_ulp
+            and flips < 1e-3),
+        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+        bound_by=b_by, device_ms=device, differing=flips,
+    )
+
+
+def qkv_prologue_checks(ka, torch, dev, gen) -> list:
+    """The prologue's rows: the ViT cell's call (B 2 windows, 4104 tokens
+    with 8 registers, 6 heads of 66, qk-norm and RoPE), then hd 72 with no
+    registers and no qk-norm (the `M` preset's head)."""
+    return [check_qkv_prologue(ka, torch, dev, gen, 2, 4104, 6, 66, 8),
+            check_qkv_prologue(ka, torch, dev, gen, 2, 4096, 6, 72, 0,
+                               qk_norm=False)]
 
 
 def check_conv_down(kc, kd, torch, F, dev, gen, B, S, ci, co):
@@ -1788,6 +1876,20 @@ def main(argv) -> int:
                                f"{failed}")
         return 0
 
+    if "--qkv-prologue" in argv:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        report["checks"] = {"qkv_prologue": qkv_prologue_checks(
+            ka, torch, dev, gen)}
+        failed = log_kernel_rows(report["checks"])
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_qkv_prologue.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        if failed:
+            raise RuntimeError(f"kernel disagrees with its plain version: "
+                               f"{failed}")
+        return 0
+
     if "--dgrad-split" in argv:
         report["dgrad_split"] = run_dgrad_split(torch, kt, dev)
         out_dir = os.path.join(ROOT, "chiprun_out")
@@ -1806,6 +1908,7 @@ def main(argv) -> int:
         "norm_stats_ndhwc": kn.norm_stats_ndhwc,
         "conv_down2_ndhwc": kd.conv_down2_ndhwc,
         "flash_attention": ka.flash_attention,
+        "qkv_prologue": ka.qkv_prologue,
         "depth_to_space8_ndhwc": kr8.depth_to_space8_ndhwc,
         "conv3x3x3_wgrad_ndhwc": kt.conv3x3x3_wgrad_ndhwc,
         "conv3x3x3_dgrad_ndhwc": kt.conv3x3x3_dgrad_ndhwc,
@@ -2008,6 +2111,7 @@ def main(argv) -> int:
     for B, H, N, hd in [(2, 6, 4104, 66), (1, 6, 4104, 66)]:
         checks["flash_attention"].append(
             check_attention(ka, torch, F, dev, gen, B, H, N, hd))
+    checks["qkv_prologue"] = qkv_prologue_checks(ka, torch, dev, gen)
     # the ViT step: the forward with its lse, then dkv and dq, at the step's
     # shape and at a ragged N (two keys past a tile)
     checks["flash_attention"].append(
@@ -2364,6 +2468,9 @@ def main(argv) -> int:
                             "conv_down2_block",
         "flash_attention": "anatomix_tpu/models/vit3d/primus.py:322 "
                            "_flash_attention",
+        "qkv_prologue": ("no Pallas kernel: the per-head q/k LayerNorm, "
+                         "RoPE and the cast XLA runs in "
+                         "anatomix_tpu/models/vit3d/primus.py"),
         "depth_to_space8_ndhwc": "anatomix_tpu/ops/pallas/reshuffle.py:478 "
                                  "depth_to_space8",
         "conv3x3x3_wgrad_ndhwc": (
@@ -2410,6 +2517,7 @@ def main(argv) -> int:
         "norm_stats_ndhwc": csrc + "norm_apply.cu",
         "conv_down2_ndhwc": csrc + "conv3d.cu",
         "flash_attention": csrc + "flash_attention.cu",
+        "qkv_prologue": csrc + "flash_attention.cu",
         "depth_to_space8_ndhwc": csrc + "depth_to_space8.cu",
         "conv3x3x3_wgrad_ndhwc": csrc + "conv3d_wgrad.cu",
         "conv3x3x3_dgrad_ndhwc": csrc + "conv3d.cu",
@@ -2427,7 +2535,8 @@ def main(argv) -> int:
     # 16-channel 128^3 conv, the 48->16 decoder conv, the ViT's bf16 stitch
     # chunk, the dev split [96+192]->32 decoder conv, the split 64^3 ->
     # 128^3 upsample, the split global norm of a 128^3 window pair and its
-    # statistics, the ViT's first split stride-2 stage, its attention at B2 and the block-space
+    # statistics, the ViT's first split stride-2 stage, its attention
+    # prologue and attention at B2 and the block-space
     # exit with the demean subtract, the backward of the 16-channel 128^3
     # conv, the first pool's space-to-depth and the last upsample's
     # depth-to-space, the ViT step's attention backward, the ViT window's
@@ -2438,6 +2547,7 @@ def main(argv) -> int:
                 "blend_scatter": 2, "conv3x3x3_cat_ndhwc": 0,
                 "upsample2x_trilinear_ndhwc": 0, "norm_apply_ndhwc": 0,
                 "norm_stats_ndhwc": 0, "conv_down2_ndhwc": 0, "flash_attention": 0,
+                "qkv_prologue": 0,
                 "depth_to_space8_ndhwc": 0, "conv3x3x3_wgrad_ndhwc": 0,
                 "conv3x3x3_dgrad_ndhwc": 0, "space_to_depth2_ndhwc": 0,
                 "depth_to_space2_ndhwc": 0, "flash_attention_bwd_dkv": 0,
@@ -2588,7 +2698,7 @@ def run_vit(torch, dev, make_feature_extractor, wrappers, paths, cfg,
     `cfg.input_shape` (128^3), as the JAX package's does, and its windows
     take the stage-wise decoder's fold exit straight into the stitch."""
     vit_needed = ["conv3x3x3_ndhwc", "norm_apply_ndhwc", "conv_down2_ndhwc",
-                  "flash_attention", "depth_to_space2_ndhwc",
+                  "qkv_prologue", "flash_attention", "depth_to_space2_ndhwc",
                   "depth_to_space_fold_ndhwc", "blend_scatter"]
     vsd = {k: v.to(dev) for k, v in init_primus_params(
         cfg, torch.Generator().manual_seed(0)).items()}
@@ -2708,7 +2818,7 @@ def run_vit1(torch, dev, make_feature_extractor, wrappers, paths, vit_kw,
     model = Primus.from_state_dict(cfg, vsd, device=dev)
     C = cfg.num_classes
     needed = ["space_to_depth_c1_ndhwc", "space_to_depth2_ndhwc",
-              "flash_attention", "depth_to_space2_ndhwc"]
+              "qkv_prologue", "flash_attention", "depth_to_space2_ndhwc"]
     if patch == 8:
         kw = dict(overlap=0.8, mode="gaussian", sigma_scale=0.25,
                   sw_batch_size=1)
@@ -3586,12 +3696,13 @@ def run_vit_train(torch, dev, wrappers, paths, ka):
     depth = vcfg.eva_depth
     # K1 for the stride-1 convs; T-w for every conv, T-x for every conv but
     # the stem (its input is the data; zero padding, so no shell pass); V2
-    # for the stride-2 convs; V3, dkv and dq once per block; V1 once
+    # for the stride-2 convs; V3, dkv and dq once per block; V1 once; the
+    # differentiable attention prologue stays in torch
     want = {"conv3x3x3_ndhwc": n_conv,
             "conv3x3x3_wgrad_ndhwc": n_conv + n_stages,
             "conv3x3x3_dgrad_ndhwc": n_conv - 1 + n_stages,
             "conv_down2_ndhwc": n_stages, "flash_attention": depth,
-            "pad_shell_ndhwc": 0,
+            "qkv_prologue": 0, "pad_shell_ndhwc": 0,
             "flash_attention_bwd_dkv": depth, "flash_attention_bwd_dq": depth,
             "depth_to_space8_ndhwc": 1}
     if any(c[k] != v for k, v in want.items()):
@@ -3756,6 +3867,7 @@ def run_vit1_train(torch, dev, wrappers, paths, ka, patch):
     # block; patch 8: the V1 exit; otherwise log2(p) - 1 depth-to-space L
     # and the L-il exit forward, their space-to-depth L backward
     want = {"space_to_depth_c1_ndhwc": 1, "flash_attention": depth,
+            "qkv_prologue": 0,
             "flash_attention_bwd_dkv": depth, "flash_attention_bwd_dq": depth,
             "conv3x3x3_ndhwc": 0, "conv_down2_ndhwc": 0,
             "conv3x3x3_wgrad_ndhwc": 0, "conv3x3x3_dgrad_ndhwc": 0}

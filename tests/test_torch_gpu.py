@@ -13,6 +13,8 @@ import torch
 from anatomix_tpu_torch.kernels.attention import (
     flash_attention,
     flash_attention_plain,
+    qkv_prologue,
+    qkv_prologue_plain,
 )
 from anatomix_tpu_torch.kernels.conv import (
     conv3x3x3_cat_ndhwc,
@@ -363,6 +365,116 @@ def test_flash_attention_kernel_matches_plain(cuda, B, H, N, hd):
     assert got.shape == ref.shape and got.dtype == torch.bfloat16
     assert torch.equal(got, again)
     assert _maxrel(got.float().cpu(), ref.float().cpu()) < 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,heads,hd,R,qk_norm,rope", [
+    (2, 4104, 6, 66, 8, True, True),     # the ViT cell's call
+    (2, 4096, 6, 72, 0, False, True),    # hd 72, no registers, no qk-norm
+    (1, 77, 2, 12, 3, True, False),      # rows past the last full block
+    (1, 9, 1, 128, 9, True, True),       # the widest hd; registers only
+])
+def test_qkv_prologue_kernel_matches_plain(cuda, B, N, heads, hd, R,
+                                           qk_norm, rope):
+    """The prologue kernel against its plain version (torch's LayerNorm
+    and the rotation on the card): v bit for bit; q and k within one bf16
+    ulp elementwise, differing on under 0.1 % of the elements (the f32 sums
+    in another order flip a rounding now and then); a second launch gives
+    the same bits. An ulp of a value that the rotation's difference leaves
+    near zero is far under the f32 rounding of its O(1) terms, so each
+    element may also differ by four f32 ulps of the largest value."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    D = heads * hd
+    q, k, v = (torch.randn((B, N, D), generator=g, device=cuda) * 1.5
+               + torch.randn((D,), generator=g, device=cuda) * 0.5
+               for _ in range(3))
+    kw = dict(registers=R)
+    if qk_norm:
+        kw["q_norm"], kw["k_norm"] = (
+            (1 + 0.1 * torch.randn((hd,), generator=g, device=cuda),
+             0.05 * torch.randn((hd,), generator=g, device=cuda))
+            for _ in range(2))
+    if rope:
+        angles = torch.rand((N - R, hd // 2), generator=g,
+                            device=cuda) * 6.3 - 3.15
+        kw["rope"] = (torch.cos(angles), torch.sin(angles))
+    n = qkv_prologue.launches
+    got = qkv_prologue(q, k, v, heads, **kw)
+    again = qkv_prologue(q, k, v, heads, **kw)
+    ref = qkv_prologue_plain(q, k, v, heads, **kw)
+    torch.cuda.synchronize()
+    assert qkv_prologue.launches == n + 2
+    for a, b, r in zip(got, again, ref):
+        assert a.shape == (B, heads, N, hd) and a.dtype == torch.bfloat16
+        assert a.is_contiguous() and torch.equal(a, b)
+    assert torch.equal(got[2], ref[2])
+    for a, r in zip(got[:2], ref[:2]):
+        a, r = a.float(), r.float()
+        big = torch.maximum(a.abs(), r.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+        f32 = 2.0 ** -22 * float(r.abs().max())
+        assert bool(((a - r).abs() <= ulp + f32).all())
+        assert float((a != r).float().mean()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_qkv_prologue_runs_once_a_vit_block(cuda):
+    """One `anatomix-dev-vit` forward takes the prologue kernel once a
+    block (12); a dev UNet forward and a ViT pretraining step (whose
+    differentiable prologue stays in torch) never."""
+    from anatomix_tpu_torch.extract import make_feature_extractor
+    from anatomix_tpu_torch.models.registry import ANATOMIX_VARIANTS
+    from anatomix_tpu_torch.models.unet import (
+        UnetConfig,
+        build_plan,
+        init_params,
+    )
+    from anatomix_tpu_torch.models.vit3d import (
+        Primus,
+        PrimusConfig,
+        init_primus_params,
+        primus_config,
+    )
+    from anatomix_tpu_torch.pretraining import train_step as ts
+
+    cfg = primus_config(ANATOMIX_VARIANTS["anatomix-dev-vit"]["vit_kwargs"])
+    model = Primus.from_state_dict(
+        cfg, init_primus_params(cfg, torch.Generator().manual_seed(0)),
+        device=cuda)
+    n = qkv_prologue.launches
+    y = model(torch.rand((1, *cfg.input_shape, 1), device=cuda))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    assert qkv_prologue.launches == n + cfg.eva_depth == n + 12
+
+    plan = build_plan(UnetConfig(
+        **ANATOMIX_VARIANTS["anatomix-dev"]["unet_kwargs"]))
+    sd = {k: v.to(cuda) for k, v in init_params(
+        plan, torch.Generator().manual_seed(0)).items()}
+    n = qkv_prologue.launches
+    make_feature_extractor(plan, sd, strategy="full", device=cuda)(
+        torch.rand((1, 64, 64, 64, 1), device=cuda))
+    torch.cuda.synchronize()
+    assert qkv_prologue.launches == n
+
+    small = PrimusConfig(num_classes=8, embed_dim=64, eva_depth=2,
+                         eva_numheads=2, input_shape=(32, 32, 32),
+                         num_register_tokens=2, qk_norm=True,
+                         out_norm="demean", scale_attn_inner=True,
+                         tokenizer_base_features=8)
+    state = ts.init_train_state(small, torch.Generator().manual_seed(0),
+                                tap_layers=(-1,), netf_nc=32, device=cuda)
+    rng = np.random.default_rng(0)
+    views = torch.from_numpy(rng.standard_normal(
+        (1, 2, 32, 32, 32, 1)).astype(np.float32)).to(cuda)
+    segs = torch.from_numpy(rng.integers(0, 5, (1, 32, 32, 32, 1))).to(cuda)
+    step = ts.build_train_step(small, tap_layers=(-1,), num_patches=256)
+    n = qkv_prologue.launches
+    state, metrics = step(state, views, segs,
+                          torch.Generator(device=cuda).manual_seed(3))
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss"])) and state.step == 1
+    assert qkv_prologue.launches == n
 
 
 @pytest.mark.gpu
